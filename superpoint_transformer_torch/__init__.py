@@ -1,0 +1,2 @@
+"""PyTorch and CUDA port of superpoint_transformer_tpu (the JAX package
+stays the reference). Module layout and names follow the JAX package."""

@@ -1,0 +1,142 @@
+"""Synthetic padded NAG batches, numpy only.
+
+`random_padded_nag` builds directly the padded batch that the JAX host
+path (`prepare_batch(..., device=False)`, i.e. `pad_nag` with the S3DIS
+feature layout) would produce for a 3-level NAG, without needing jax,
+flax or h5py. It keeps every invariant of `pad_nag` (with
+`with_transpose=False`):
+
+- each level is sorted by `super_index`, and graphs are contiguous;
+- padded rows have `batch == -1`, and padded children have
+  `super_index == parent capacity`;
+- padded neighbor slots point at node 0 with the mask False, and K is a
+  multiple of 16;
+- every node has a self-loop (slot 0, zero edge features);
+- level-0 `x` is 8 wide (5 geometric features + rgb), `edge_feat` is 18
+  wide, and levels 1+ have no `x`;
+- level-1 `node_id` is a permutation; invalid edge slots hold finite
+  values.
+"""
+import numpy as np
+
+from ..data.padded import PaddedLevel, PaddedNAG, bucket
+
+__all__ = ['random_padded_nag', 'POINT_HF_DIM', 'EDGE_HF_DIM']
+
+POINT_HF_DIM = 8    # linearity, planarity, scattering, verticality,
+                    # elevation, rgb
+EDGE_HF_DIM = 18    # the default horizontal edge features
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _sizes(rng, n, num_graphs):
+    """Per-graph node counts around `n` (+-10%), at least 1."""
+    return np.maximum(
+        (n * rng.uniform(0.9, 1.1, num_graphs)).astype(np.int64), 1)
+
+
+def _children(rng, child_sizes, parent_sizes):
+    """Sorted parent index of every child, each parent of a graph
+    receiving at least one child of the same graph."""
+    off = np.concatenate([[0], np.cumsum(parent_sizes)[:-1]])
+    sup = []
+    for c, p, o in zip(child_sizes, parent_sizes, off):
+        s = np.concatenate([np.arange(p), rng.integers(0, p, c - p)])
+        sup.append(np.sort(s) + o)
+    return np.concatenate(sup)
+
+
+def _pad(a, cap, fill=0):
+    out = np.full((cap,) + a.shape[1:], fill, dtype=a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+def _neighbors(rng, batch, sizes, deg_range, cap):
+    """Dense neighbor table: slot 0 is the self-loop, the other valid
+    slots point at random nodes of the same graph."""
+    n = batch.shape[0]
+    start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    deg = rng.integers(deg_range[0], deg_range[1] + 1, n)
+    deg = np.minimum(deg, sizes[batch])
+    K = max(_round_up(int(deg.max()), 16), 16)
+    idx = start[batch][:, None] + (
+        rng.random((n, K)) * sizes[batch][:, None]).astype(np.int64)
+    idx[:, 0] = np.arange(n)
+    mask = np.arange(K)[None, :] < deg[:, None]
+    idx = np.where(mask, idx, 0)
+    ef = rng.standard_normal((cap, K, EDGE_HF_DIM)).astype(np.float32)
+    ef[np.arange(n), 0] = 0.0      # self-loops carry zero features
+    return (_pad(idx.astype(np.int32), cap), _pad(mask, cap, False), ef)
+
+
+def _histogram(rng, sizes, num_classes):
+    n = sizes.shape[0]
+    y = np.zeros((n, num_classes + 1), dtype=np.float32)
+    y[np.arange(n), rng.integers(0, num_classes, n)] = sizes
+    return y
+
+
+def random_padded_nag(seed=0, num_graphs=2, n_points=2048, n_l1=128,
+                      n_l2=32, degree=(4, 40), num_classes=13):
+    """A padded 3-level batch of `num_graphs` graphs, each with about
+    `n_points` level-0 points, `n_l1` level-1 and `n_l2` level-2 nodes
+    (+-10% per graph), and a valid-neighbor count (self-loop included)
+    drawn from `degree` at levels 1 and 2. Returns a `PaddedNAG` with
+    numpy leaves, the layout of the JAX host path's output; convert it
+    with `data.padded.from_numpy`."""
+    rng = np.random.default_rng(seed)
+    G = num_graphs
+    s2 = _sizes(rng, n_l2, G)
+    s1 = np.maximum(_sizes(rng, n_l1, G), s2)
+    s0 = np.maximum(_sizes(rng, n_points, G), s1)
+    b2 = np.repeat(np.arange(G), s2)
+    sup1 = _children(rng, s1, s2)
+    sup0 = _children(rng, s0, s1)
+    b1, b0 = b2[sup1], b2[sup1][sup0]
+    n0, n1, n2 = len(b0), len(b1), len(b2)
+    cap0, cap1, cap2 = (bucket(n) for n in (n0, n1, n2))
+
+    # room-scale positions: children scattered around their parents
+    c2 = (rng.random((n2, 3)) * [10.0, 8.0, 3.0]).astype(np.float32)
+    c1 = c2[sup1] + rng.normal(0, 1.0, (n1, 3)).astype(np.float32)
+    pos0 = c1[sup0] + rng.normal(0, 0.2, (n0, 3)).astype(np.float32)
+
+    def mean_pos(pos, sup, n):
+        cnt = np.bincount(sup, minlength=n).astype(np.float32)
+        out = np.stack([np.bincount(sup, pos[:, i], minlength=n)
+                        for i in range(3)], 1)
+        return (out / cnt[:, None]).astype(np.float32)
+
+    pos1 = mean_pos(pos0, sup0, n1)
+    pos2 = mean_pos(pos1, sup1, n2)
+    size1 = np.bincount(sup0, minlength=n1).astype(np.float32)
+    size2 = np.bincount(sup1, weights=size1, minlength=n2).astype(
+        np.float32)
+
+    def level(pos, batch, cap, node_size, y, **kw):
+        n = pos.shape[0]
+        return PaddedLevel(
+            pos=_pad(pos, cap), node_mask=_pad(np.ones(n, bool), cap, False),
+            batch=_pad(batch.astype(np.int32), cap, -1),
+            num_nodes=np.int32(n), node_size=_pad(node_size, cap),
+            y=_pad(y, cap), **kw)
+
+    nbr1, m1, ef1 = _neighbors(rng, b1, s1, degree, cap1)
+    nbr2, m2, ef2 = _neighbors(rng, b2, s2, degree, cap2)
+    l0 = level(pos0, b0, cap0, np.ones(n0, np.float32),
+               _histogram(rng, np.ones(n0, np.float32), num_classes),
+               x=_pad(rng.random((n0, POINT_HF_DIM)).astype(np.float32),
+                      cap0),
+               super_index=_pad(sup0.astype(np.int32), cap0, cap1))
+    l1 = level(pos1, b1, cap1, size1, _histogram(rng, size1, num_classes),
+               super_index=_pad(sup1.astype(np.int32), cap1, cap2),
+               nbr_idx=nbr1, nbr_mask=m1, edge_feat=ef1,
+               node_id=_pad(rng.permutation(n1).astype(np.int32), cap1,
+                            -1))
+    l2 = level(pos2, b2, cap2, size2, _histogram(rng, size2, num_classes),
+               nbr_idx=nbr2, nbr_mask=m2, edge_feat=ef2)
+    return PaddedNAG(levels=(l0, l1, l2), start_i_level=0, num_graphs=G)
