@@ -3,24 +3,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the flagship SPT-2 semantic model (S3DIS,
-bf16 compute, 8 graphs per batch, random weights from a seed) serving
-three synthetic requests at the "demo room x8" size, and checks every
-CUDA kernel on that path against its plain PyTorch version:
+Drives the port's main paths with the flagship SPT-2 semantic model
+(S3DIS, bf16 compute, random weights from a seed), and checks every CUDA
+kernel on them against its plain PyTorch version:
 
 1. prints the card, its power limit and the toolchain;
-2. builds the kernels from the sources in this checkout (timed);
+2. builds the kernels from the sources in this checkout, one nvcc each,
+   all at once (timed);
 3. compares each kernel with its plain version on the card, at the
-   shapes the main path gives it, in f32 and bf16;
-4. serves the requests through `infer_batch`, counting kernel launches,
-   checks the logits and predictions, compares the logits with the same
-   model on the plain attention, and times the forward with CUDA events;
-5. prints the kernel table as JSON, the card line, and as the last line
+   shapes the main paths give it, in f32 and bf16: K1 (dense attention)
+   in both query layouts and its backward, K2 (fused-RPE attention), K3
+   (K2's backward) against autograd of K2's plain version; and times
+   each kernel against its plain version;
+4. serving: answers three requests at the "demo room x8" size through
+   `infer_batch`, counting K2 launches (7 per forward), checks the
+   logits and predictions, compares the logits with the same model on
+   the plain attention, and times the forward;
+5. training: the flagship `SemanticTask` takes three AdamW steps on
+   4-graph batches at about the 4-crop training caps, counting K1
+   launches (7 per step), checks the losses, that the parameters moved,
+   and one step's loss and gradients against the same model on the
+   plain attention; and times the step with K1 and with the plain
+   attention;
+6. the fused-RPE training route, `dense_attention_rpe_trainable` (K2
+   forward, K3 backward) at the level-1 training shape, counting K3
+   launches, and timed against the route the model takes in training
+   (materialized RPE + K1);
+7. prints the kernel table as JSON, the card line, and as the last line
    `{"ok": true, "device": {...}}`.
 
-Any failed phase raises, so the script exits non-zero without printing
-the last line. It needs no network and fails without a CUDA device or
-outside a checkout of the repository.
+Each of the paths 4-6 runs with the kernel counts set to 0 just before
+it and read just after it. Any failed phase raises, so the script exits
+non-zero without printing the last line. It needs no network and fails
+without a CUDA device or outside a checkout of the repository.
 """
 import json
 import os
@@ -35,9 +50,33 @@ NUM_GRAPHS = 8
 ROOM = dict(n_points=41_500, n_l1=1_250, n_l2=350)
 FLAGSHIP_PARAMS = 213_434         # the JAX model's count (CPU-tested)
 K2_LAUNCHES_PER_FORWARD = 7       # 3 + 3 down blocks, 1 up block
-# kernel vs plain version: the JAX kernel test's own tolerance; both
+K1_LAUNCHES_PER_STEP = 7          # the same blocks, in training
+# training batches: 4 graphs of about one 4-crop training cap each
+# (5.1k level-1 and 2k level-2 nodes over the 4 crops)
+TRAIN_GRAPHS = 4
+CROP = dict(n_points=41_000, n_l1=1_280, n_l2=500)
+TRAIN_STEPS = 3
+# the flagship attention at level 1 of a training batch
+TRAIN_L1 = dict(N=5_120, K=48, H=16, D=4, C=64, De=32)
+# kernel vs plain version: the JAX kernel tests' own tolerances; both
 # compute in f32 from the same inputs, in another summation order
+K1_RTOL, K1_ATOL = 3e-5, 3e-5
 K2_RTOL, K2_ATOL = 2e-4, 2e-5
+K3_RTOL, K3_ATOL = 2e-3, 2e-4
+# gradients written in bf16 by both sides from the same f32 math: one
+# rounding step (2^-8 relative) may separate them
+BF16_GRAD_RTOL, BF16_GRAD_ATOL = 1.6e-2, 1e-3
+# one training step, kernel vs plain attention: the difference must stay
+# within TRAIN_RATIO times the kernel model's own run-to-run spread (f32
+# atomics in the segment sums; the largest of SPREAD_RUNS repeats, as one
+# repeat alone measured from 6.5e-3 to 9.2e-3 in f32 gradients), plus a
+# floor: (loss relative, gradients relative L2). In bf16 the floor also covers a difference by design: K1's
+# closed-form backward computes in f32 where autograd through the plain
+# version rounds its intermediate gradients to bf16, which alone puts the
+# two 1.5e-2 apart on a small flagship-width batch on the CPU.
+TRAIN_RATIO = 2.0
+TRAIN_FLOOR = {None: (1e-4, 1e-3), 'bfloat16': (1e-3, 5e-2)}
+SPREAD_RUNS = 3
 # whole model, kernel vs plain attention. The forward is not bitwise
 # reproducible: the f32 atomics of the GraphNorm segment sums add in a
 # varying order, and the random-weight network amplifies that (the same
@@ -105,9 +144,30 @@ def k2_inputs(gen, N, K, H, D, C, De, masked_rows, dtype, dev):
     return args + [mask.to(dev), scale.to(dev)]
 
 
-def phase_kernels(dev):
-    """K2 vs its plain version at the flagship level-1 shape, a ragged
-    shape and a batch with fully masked rows, in f32 and bf16."""
+def time_pair(kernel_fn, plain_fn, iters):
+    """(kernel ms, plain ms, rounds): the best of two rounds each, taken
+    in the order kernel, plain, plain, kernel."""
+    times = {'kernel': [], 'plain': []}
+    for name in ('kernel', 'plain', 'plain', 'kernel'):
+        fn = kernel_fn if name == 'kernel' else plain_fn
+        times[name].append(cuda_ms(fn, iters))
+    return min(times['kernel']), min(times['plain']), times
+
+
+def assert_close(name, got, ref, rtol, atol):
+    """torch.testing.assert_close, after printing the max abs error;
+    returns it."""
+    import torch
+    err = (got.float() - ref.float()).abs().max().item() \
+        if got.numel() else 0.0
+    print(f'  {name}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol})')
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol, msg=name)
+    return err
+
+
+def phase_k2(dev):
+    """K2 vs its plain version at the flagship serving level-1 shape, a
+    ragged shape and a batch with fully masked rows, in f32 and bf16."""
     import torch
     from superpoint_transformer_torch.ops import attention_rpe as k2
 
@@ -143,15 +203,164 @@ def phase_kernels(dev):
     # time at the flagship level-1 shape in bf16, the serving dtype
     args = k2_inputs(gen, dtype=torch.bfloat16, dev=dev, masked_rows=0,
                      **flagship)
-    plain_ms = cuda_ms(lambda: k2.dense_attention_rpe_reference(*args), 20)
-    ms = cuda_ms(lambda: k2.dense_attention_rpe(*args), 20)
-    plain_ms2 = cuda_ms(lambda: k2.dense_attention_rpe_reference(*args), 20)
-    ms2 = cuda_ms(lambda: k2.dense_attention_rpe(*args), 20)
-    print(f'K2 flagship bf16 N=10240 K=48: kernel {ms:.4f} / {ms2:.4f} ms, '
-          f'plain {plain_ms:.4f} / {plain_ms2:.4f} ms (two rounds, '
-          f'CUDA events, 20 launches each)')
-    return dict(max_abs_err=worst, ms=min(ms, ms2),
-                plain_ms=min(plain_ms, plain_ms2))
+    ms, plain_ms, rounds = time_pair(
+        lambda: k2.dense_attention_rpe(*args),
+        lambda: k2.dense_attention_rpe_reference(*args), 20)
+    print(f'K2 flagship bf16 N=10240 K=48: kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms; rounds {rounds} (CUDA events, 20 launches '
+          'each)')
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+
+
+def k1_inputs(gen, N, K, H, D, CH, q_per_edge, masked_rows, dtype, dev):
+    import torch
+
+    def mk(*s):
+        return torch.randn(*s, generator=gen).to(dev, dtype)
+
+    q = mk(N, K, H, D) if q_per_edge else mk(N, H, D)
+    mask = torch.rand(N, K, generator=gen) < 0.7
+    mask[:, 0] = True
+    if masked_rows:
+        mask[-masked_rows:] = False
+    scale = torch.rand(N, generator=gen) * 0.5 + 0.2
+    return [q, mk(N, K, H, D), mk(N, K, H, CH), mask.to(dev), scale.to(dev)]
+
+
+def phase_k1(dev):
+    """K1 vs its plain version in both query layouts, f32 and bf16, at
+    the flagship training level-1 shape, a ragged shape and a batch with
+    fully masked rows; K1's autograd function (kernel forward,
+    closed-form backward) vs autograd through the plain version."""
+    import torch
+    from superpoint_transformer_torch.ops import attention as k1
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    L1 = TRAIN_L1
+    flagship = dict(N=L1['N'], K=L1['K'], H=L1['H'], D=L1['D'],
+                    CH=L1['C'] // L1['H'])
+    cases = [('flagship', dict(flagship, masked_rows=0)),
+             ('ragged', dict(N=1000, K=37, H=4, D=4, CH=8, masked_rows=0)),
+             ('masked_rows', dict(flagship, N=2048, masked_rows=256))]
+    worst = 0.0
+    for name, shape in cases:
+        for q_per_edge in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = k1_inputs(gen, q_per_edge=q_per_edge, dtype=dtype,
+                                 dev=dev, **shape)
+                print(f'K1 {name} q_{"edge" if q_per_edge else "node"} '
+                      f'{dtype} N={shape["N"]} K={shape["K"]}:')
+                out = k1.dense_attention(*args)
+                ref = k1.dense_attention_reference(*args)
+                worst = max(worst, assert_close('out', out, ref, K1_RTOL,
+                                                K1_ATOL))
+                valid = args[3].any(1)
+                check(torch.all(out[~valid] == 0),
+                      'fully masked rows must give 0')
+
+    # the backward: dq, dk, dv and dscale of the autograd function vs
+    # autograd through the plain version, under a random cotangent. The
+    # closed form differentiates the attention without the forward's
+    # rounding of q*scale (as the JAX backward does), so in bf16 it is
+    # held to autograd of the plain version on the same values in f32,
+    # whose dq, dk, dv are then rounded to bf16 once, as the closed
+    # form's are.
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_per_edge in (True, False):
+            args = k1_inputs(gen, q_per_edge=q_per_edge, dtype=dtype,
+                             dev=dev, masked_rows=64, **flagship)
+            w = torch.randn(flagship['N'], flagship['H'], flagship['CH'],
+                            generator=gen).to(dev)
+            grads = []
+            for fn, cast in ((k1.dense_attention_trainable, dtype),
+                             (k1.dense_attention_reference, torch.float32)):
+                q, k, v = (a.to(cast, copy=True).requires_grad_()
+                           for a in args[:3])
+                mask, scale = args[3], args[4].clone().requires_grad_()
+                (fn(q, k, v, mask, scale) * w).sum().backward()
+                grads.append([t.grad.to(a.dtype) for t, a in
+                              zip((q, k, v, scale), args)])
+            print(f'K1 backward q_{"edge" if q_per_edge else "node"} '
+                  f'{dtype} N={flagship["N"]}:')
+            for i, (gname, a, b) in enumerate(zip(('dq', 'dk', 'dv',
+                                                   'dscale'), *grads)):
+                bf16 = a.dtype == torch.bfloat16
+                err = assert_close(gname, a, b, *(
+                    (BF16_GRAD_RTOL, BF16_GRAD_ATOL) if bf16
+                    else (K1_RTOL, K1_ATOL)))
+                if not bf16:
+                    worst = max(worst, err)
+
+    # time at the flagship training level-1 shape, per-edge q, bf16
+    args = k1_inputs(gen, q_per_edge=True, dtype=torch.bfloat16, dev=dev,
+                     masked_rows=0, **flagship)
+    ms, plain_ms, rounds = time_pair(
+        lambda: k1.dense_attention(*args),
+        lambda: k1.dense_attention_reference(*args), 20)
+    print(f'K1 flagship training bf16 q_edge N={flagship["N"]} K=48: '
+          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; rounds {rounds} '
+          '(CUDA events, 20 launches each)')
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+
+
+K3_GRADS = ('dq', 'dkg', 'dvg', 'd_ef', 'dwk', 'dbk', 'dwq', 'dbq', 'dwv',
+            'dbv')
+
+
+def phase_k3(dev):
+    """K3's ten gradients vs autograd of K2's plain version (f32), and vs
+    K3's plain version (bf16), at the flagship training level-1 shape, a
+    ragged shape and a batch with fully masked rows; the weight gradients
+    are the same in two runs."""
+    import torch
+    from superpoint_transformer_torch.ops import attention_rpe as k2
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    cases = [('flagship', dict(TRAIN_L1, masked_rows=0)),
+             ('ragged', dict(N=1000, K=37, H=4, D=4, C=32, De=8,
+                             masked_rows=0)),
+             ('masked_rows', dict(TRAIN_L1, N=2048, masked_rows=256))]
+    worst = 0.0
+    for name, shape in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = k2_inputs(gen, dtype=dtype, dev=dev, **shape)
+            H, C = shape['H'], shape['C']
+            g = torch.randn(shape['N'], H, C // H, generator=gen).to(dev)
+            out, lse = k2.dense_attention_rpe(*args, with_lse=True)
+            grads = k2.dense_attention_rpe_bwd(*args, out, lse, g)
+            again = k2.dense_attention_rpe_bwd(*args, out, lse, g)
+            print(f'K3 {name} {dtype} N={shape["N"]} K={shape["K"]}:')
+            if dtype == torch.float32:
+                leaves = [a.clone().requires_grad_() for a in args[:10]]
+                (k2.dense_attention_rpe_reference(*leaves, *args[10:])
+                 * g).sum().backward()
+                ref = [t.grad for t in leaves]
+            else:
+                ref = k2.dense_attention_rpe_bwd_reference(*args, out, lse,
+                                                           g)
+            for gname, a, b in zip(K3_GRADS, grads, ref):
+                bf16 = a.dtype == torch.bfloat16
+                err = assert_close(gname, a, b, *(
+                    (BF16_GRAD_RTOL, BF16_GRAD_ATOL) if bf16
+                    else (K3_RTOL, K3_ATOL)))
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            check(all(torch.equal(a, b) for a, b in zip(grads[4:], again[4:])),
+                  'K3 weight gradients differ between two runs')
+
+    # time at the flagship training level-1 shape in bf16
+    args = k2_inputs(gen, dtype=torch.bfloat16, dev=dev, masked_rows=0,
+                     **TRAIN_L1)
+    g = torch.randn(TRAIN_L1['N'], TRAIN_L1['H'],
+                    TRAIN_L1['C'] // TRAIN_L1['H'], generator=gen).to(dev)
+    out, lse = k2.dense_attention_rpe(*args, with_lse=True)
+    ms, plain_ms, rounds = time_pair(
+        lambda: k2.dense_attention_rpe_bwd(*args, out, lse, g),
+        lambda: k2.dense_attention_rpe_bwd_reference(*args, out, lse, g), 20)
+    print(f'K3 flagship training bf16 N={TRAIN_L1["N"]} K=48: kernel '
+          f'{ms:.4f} ms, plain {plain_ms:.4f} ms; rounds {rounds} (CUDA '
+          'events, 20 launches each, the delta pass included)')
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
 
 
 def phase_serving(dev, card):
@@ -190,8 +399,8 @@ def phase_serving(dev, card):
                                  **ROOM)
         requests.append((host, time.perf_counter() - t0))
 
-    # the main path: every launch counted from here
-    dense_attention_rpe.launches = 0
+    # the serving path: every launch counted from here
+    reset_counts()
     served = []
     for host, gen_s in requests:
         before = dense_attention_rpe.launches
@@ -214,8 +423,10 @@ def phase_serving(dev, card):
         check(pred.shape == (n[1],) and pred.dtype == np.int64
               and pred.min() >= 0 and pred.max() < 13,
               'predictions are not a class per level-1 node')
-    launches = dense_attention_rpe.launches
-    print(f'main path: 3 requests answered, {launches} K2 launches')
+    launches = counts()
+    print(f'serving path: 3 requests answered, launches {launches}')
+    check(launches['K1'] == launches['K3'] == 0,
+          'serving launched a training kernel')
 
     # what comes out: finite logits on valid rows, close to those of the
     # same model on the plain attention, in f32 and in the served bf16
@@ -276,7 +487,201 @@ def phase_serving(dev, card):
           f'{times} (CUDA events, 10 forwards each, after 3 warm-up)')
     print(f'peak device memory: '
           f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
-    return launches
+    return launches['K2']
+
+
+def kernel_fns():
+    from superpoint_transformer_torch.ops import attention, attention_rpe
+    return {'K1': attention.dense_attention,
+            'K2': attention_rpe.dense_attention_rpe,
+            'K3': attention_rpe.dense_attention_rpe_bwd}
+
+
+def reset_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def counts():
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def rel_l2(a, b):
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def phase_training(dev, card):
+    """The flagship semantic training step at full width: K1 launches per
+    step, finite losses, moved parameters, one step's loss and gradients
+    vs the same model on the plain attention, and the step time."""
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (FLAGSHIP_CFG,
+                                                         build_task)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+
+    def flagship_task(compute_dtype='auto', plain_attention=False):
+        task = build_task(FLAGSHIP_CFG, num_graphs=TRAIN_GRAPHS,
+                          compute_dtype=compute_dtype,
+                          plain_attention=plain_attention, device=dev)
+        init_weights(task.model, torch.Generator().manual_seed(SEED))
+        return task
+
+    task = flagship_task()
+    n_params = sum(p.numel() for p in task.model.parameters())
+    check(n_params == FLAGSHIP_PARAMS,
+          f'{n_params} parameters, the JAX model has {FLAGSHIP_PARAMS}')
+    compute_dtype = task.model.net.compute_dtype
+    hosts = [random_padded_nag(seed=SEED + 10 + i, num_graphs=TRAIN_GRAPHS,
+                               **CROP) for i in range(TRAIN_STEPS)]
+    start = [p.detach().clone() for p in task.model.parameters()]
+
+    # the training path: every launch counted from here
+    reset_counts()
+    losses = []
+    for step, host in enumerate(hosts):
+        before = counts()['K1']
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = from_numpy(host, dev, compute_dtype, train=True)
+        metrics = task.train_step(batch)
+        loss = metrics['loss'].item()
+        step_s = time.perf_counter() - t0
+        launched = counts()['K1'] - before
+        n = [lvl.num_nodes for lvl in batch.levels]
+        cm = metrics['confmat']
+        print(f'train step {step}: {n[0]} points, {n[1]} level-1, {n[2]} '
+              f'level-2 nodes, K={batch[1].nbr_idx.shape[1]}/'
+              f'{batch[2].nbr_idx.shape[1]}; lr {task.lr_at(step):.3e}; '
+              f'loss {loss:.6f}; {step_s * 1e3:.1f} ms (host batch to '
+              f'loss); {launched} K1 launches')
+        check(launched == K1_LAUNCHES_PER_STEP,
+              f'{launched} K1 launches in one step, expected '
+              f'{K1_LAUNCHES_PER_STEP}')
+        check(torch.isfinite(metrics['loss']).item(), f'loss {loss}')
+        y = batch[1].y[:, :13][batch[1].node_mask].sum().round().long()
+        check(cm.shape == (13, 13) and cm.sum() == y,
+              'confusion matrix mass is not the level-1 label mass')
+        losses.append(loss)
+    launches = counts()
+    print(f'training path: {TRAIN_STEPS} steps, launches {launches}')
+    check(launches['K2'] == launches['K3'] == 0,
+          'training launched a kernel the JAX training route does not use')
+    moved = [not torch.equal(a, p.detach())
+             for a, p in zip(start, task.model.parameters())]
+    with_grad = [p.grad is not None and bool(p.grad.any())
+                 for p in task.model.parameters()]
+    print(f'{sum(moved)} of {len(moved)} parameter tensors moved; '
+          f'{sum(with_grad)} had a non-zero gradient in the last step')
+    check(all(m for m, g in zip(moved, with_grad) if g),
+          'a parameter with a gradient did not move')
+    del task
+
+    # one step's loss and gradients, kernel vs plain attention, in f32
+    # and in the flagship's bf16, against the kernel model's own spread:
+    # the largest distance of SPREAD_RUNS repeats from its first run
+    def loss_grads(task, batch):
+        task.model.train()
+        task.optimizer.zero_grad(set_to_none=True)
+        loss, _ = task.loss(batch)
+        loss.backward()
+        return loss.detach().float(), torch.cat(
+            [p.grad.reshape(-1).float() for p in task.model.parameters()])
+
+    for cd in (None, compute_dtype):
+        batch = from_numpy(hosts[0], dev, cd, train=True)
+        kern, plain = flagship_task(cd), flagship_task(cd, True)
+        lk, gk = loss_grads(kern, batch)
+        repeats = [loss_grads(kern, batch) for _ in range(SPREAD_RUNS)]
+        lp, gp = loss_grads(plain, batch)
+        check(torch.isfinite(gk).all().item(), 'non-finite gradients')
+        loss_err = (abs(lk - lp) / lp.abs()).item()
+        loss_spread = max((abs(lk - l) / lk.abs()).item()
+                          for l, _ in repeats)
+        grad_err = rel_l2(gk, gp)
+        grad_spread = max(rel_l2(g, gk) for _, g in repeats)
+        floor_loss, floor_grad = TRAIN_FLOOR[cd]
+        print(f'{cd or "float32"} train step, kernel vs plain attention: '
+              f'loss {lk.item():.6f} vs {lp.item():.6f} (rel {loss_err:.3e}; '
+              f'run to run up to {loss_spread:.3e}); gradients rel L2 '
+              f'{grad_err:.3e} (run to run up to {grad_spread:.3e}), |g| '
+              f'{gp.norm().item():.4g}')
+        check(loss_err <= TRAIN_RATIO * loss_spread + floor_loss
+              and grad_err <= TRAIN_RATIO * grad_spread + floor_grad,
+              f'{cd or "float32"} train step: kernel vs plain beyond '
+              f'{TRAIN_RATIO}x the run-to-run spread + {TRAIN_FLOOR[cd]}')
+        del kern, plain
+
+    # step time, K1 vs the plain attention (fresh tasks, warm-up ramp)
+    batch = from_numpy(hosts[0], dev, compute_dtype, train=True)
+    kern, plain = flagship_task(), flagship_task(plain_attention=True)
+    torch.cuda.reset_peak_memory_stats()
+    ms, plain_ms, rounds = time_pair(lambda: kern.train_step(batch),
+                                     lambda: plain.train_step(batch), 10)
+    n0 = batch[0].num_nodes
+    print(f'flagship train step on {card}: {ms:.3f} ms ({n0 / ms * 1e3:.4g} '
+          f'level-0 points/s); with the plain attention {plain_ms:.3f} ms; '
+          f'rounds {rounds} (CUDA events, 10 steps each, after 3 warm-up)')
+    print(f'peak device memory while timing: '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+    return launches['K1']
+
+
+def phase_fused_rpe_training(dev):
+    """The fused-RPE training route, K2 forward and K3 backward through
+    `dense_attention_rpe_trainable`, at the level-1 training shape in
+    bf16; timed against the route the model takes in training: the RPE
+    projections as one matmul added to the gathered rows, then K1 with its
+    closed-form backward."""
+    import torch
+    import torch.nn.functional as F
+    from superpoint_transformer_torch.ops.attention import (
+        dense_attention_trainable)
+    from superpoint_transformer_torch.ops.attention_rpe import (
+        dense_attention_rpe_trainable)
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    L1 = TRAIN_L1
+    N, K, H, D, C = L1['N'], L1['K'], L1['H'], L1['D'], L1['C']
+    DH = H * D
+    args = k2_inputs(gen, dtype=torch.bfloat16, dev=dev, masked_rows=0,
+                     **L1)
+    leaves = [a.detach().requires_grad_() for a in args[:10]]
+    mask, scale = args[10:]
+    g = torch.randn(N, H, C // H, generator=gen).to(dev)
+
+    def fused():
+        dense_attention_rpe_trainable(*leaves, mask, scale).backward(g)
+
+    def materialized():
+        q, kg, vg, ef, wk, bk, wq, bq, wv, bv = leaves
+        w_cat = torch.cat([wk, wq, wv], 1).t()
+        b_cat = torch.cat([bk, bq, bv])
+        r = F.linear(ef, w_cat, b_cat)
+        k = (kg + r[..., :DH]).reshape(N, K, H, D)
+        qe = q[:, None] + r[..., DH:2 * DH].reshape(N, K, H, D)
+        v = (vg + r[..., 2 * DH:]).reshape(N, K, H, C // H)
+        dense_attention_trainable(qe, k, v, mask, scale).backward(g)
+
+    # the fused-RPE training path: every launch counted from here
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        fused()
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f'fused-RPE training path: {TRAIN_STEPS} forward+backward, '
+          f'launches {launches}')
+    check(launches['K2'] == launches['K3'] == TRAIN_STEPS
+          and launches['K1'] == 0, 'fused-RPE route launch counts')
+    check(all(bool(torch.isfinite(t.grad).all()) for t in leaves),
+          'fused-RPE route: non-finite gradients')
+    ms, mat_ms, rounds = time_pair(fused, materialized, 20)
+    print(f'level-1 training attention, forward+backward, bf16 N={N} '
+          f'K={K}: fused RPE (K2 + K3) {ms:.4f} ms; materialized RPE + K1 '
+          f'{mat_ms:.4f} ms; rounds {rounds} (CUDA events, 20 each)')
+    return launches['K3']
 
 
 def main():
@@ -299,25 +704,32 @@ def main():
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
 
-    from superpoint_transformer_torch.ops import attention_rpe
+    from superpoint_transformer_torch.ops import cuda_build
     t0 = time.perf_counter()
-    report = attention_rpe.build(force=True)
-    print(f'built {attention_rpe.NVCC_FLAGS} in '
+    reports = cuda_build.build(force=True)
+    print(f'built {", ".join(cuda_build.KERNELS)} with '
+          f'{cuda_build.NVCC_FLAGS}, in parallel, in '
           f'{time.perf_counter() - t0:.2f} s')
-    print(report.strip())
+    for name, report in reports.items():
+        print(f'{name}:\n{report.strip()}')
 
-    k2 = phase_kernels(dev)
-    launches = phase_serving(dev, card)
-    check(launches > 0, 'the main path launched no K2 kernel')
-    print(json.dumps({'kernels': [{
-        'name': 'dense_attention_rpe',
-        'route': 'cuda',
-        'source': 'superpoint_transformer_torch/csrc/dense_attention_rpe.cu',
-        'replaces': 'superpoint_transformer_tpu/ops/pallas_attention.py:256',
-        'launches': launches,
-        'max_abs_err': k2['max_abs_err'],
-        'ms': k2['ms'],
-        'plain_ms': k2['plain_ms']}]}))
+    results = {'K1': phase_k1(dev), 'K2': phase_k2(dev), 'K3': phase_k3(dev)}
+    launches = {'K2': phase_serving(dev, card),
+                'K1': phase_training(dev, card),
+                'K3': phase_fused_rpe_training(dev)}
+    for name, n in launches.items():
+        check(n > 0, f'its path launched no {name} kernel')
+    table = []
+    for name, fn, line in (('K1', 'dense_attention', 74),
+                           ('K2', 'dense_attention_rpe', 256),
+                           ('K3', 'dense_attention_rpe_bwd', 487)):
+        table.append({
+            'name': fn, 'route': 'cuda',
+            'source': f'superpoint_transformer_torch/csrc/{fn}.cu',
+            'replaces': 'superpoint_transformer_tpu/ops/pallas_attention.py'
+                        f':{line}',
+            'launches': launches[name], **results[name]})
+    print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ Counterpart of `PaddedLevel` / `PaddedNAG` in
 `superpoint_transformer_tpu/data/pad.py`, as plain dataclasses of
 tensors with the same field names. `from_numpy` converts a batch with
 numpy leaves (the JAX host path's `prepare_batch(..., device=False)`, or
-`utils.synthetic.random_padded_nag`) into an inference batch on a torch
-device.
+`utils.synthetic.random_padded_nag`) into an inference or training batch
+on a torch device.
 
 Padding invariants (set by the host path, relied on by the model):
 levels are sorted by `super_index`; padded rows have `batch == -1` and
@@ -85,9 +85,11 @@ def bucket(n, minimum=128):
     return -(-n // q) * q
 
 
-# fields an inference forward never reads (label histograms, the
-# training backward's transpose neighbor tables, host-side row ids)
-_DROPPED = ('y', 'nbr_in_idx', 'nbr_in_mask', 'node_id')
+# fields the port never reads on the device: the transpose neighbor
+# tables (the JAX backward's gather_rows_t; the port's gather backward,
+# `ops/segment.py:gather_rows`, sums the same cotangents) and host-side
+# row ids
+_DROPPED = ('nbr_in_idx', 'nbr_in_mask', 'node_id')
 # heavy float features cast to the compute dtype
 _FEATURES = ('x', 'edge_feat', 'v_edge_attr')
 
@@ -103,17 +105,19 @@ def _to_tensor(name, a, device, feat_dtype):
     return t.to(device=device, dtype=dtype)
 
 
-def from_numpy(batch, device, compute_dtype=None):
+def from_numpy(batch, device, compute_dtype=None, train=False):
     """Convert a batch with numpy leaves into a `PaddedNAG` of tensors
-    on `device`, ready for an inference forward.
+    on `device`, ready for an inference forward, or with `train` for a
+    training step.
 
     `batch` is any object whose fields are named like the JAX
     `PaddedNAG` (`levels`, `start_i_level`, `num_graphs`) and whose
-    levels are named like `PaddedLevel`. The rules of the JAX
-    `strip_for_inference` apply: `y`, `nbr_in_idx`, `nbr_in_mask` and
+    levels are named like `PaddedLevel`. `nbr_in_idx`, `nbr_in_mask` and
     `node_id` are dropped (level 1's `node_id` is kept on the host as
-    `level1_node_id`), and `x`, `edge_feat` and `v_edge_attr` are cast
-    to bf16 when `compute_dtype` is bf16. Index tensors become int64."""
+    `level1_node_id`); the label histograms `y` are kept when `train` and
+    dropped otherwise, as the JAX `strip_for_inference` does. `x`,
+    `edge_feat` and `v_edge_attr` are cast to bf16 when `compute_dtype` is
+    bf16. Index tensors become int64."""
     device = torch.device(device)
     feat_dtype = torch.bfloat16 if compute_dtype in ('bf16', 'bfloat16') \
         else torch.float32
@@ -130,7 +134,8 @@ def from_numpy(batch, device, compute_dtype=None):
             v = getattr(lvl, f.name, None)
             if f.name == 'num_nodes':
                 kw[f.name] = int(v)
-            elif v is not None and f.name not in _DROPPED:
+            elif v is not None and f.name not in _DROPPED \
+                    and (train or f.name != 'y'):
                 kw[f.name] = _to_tensor(f.name, v, device, feat_dtype)
         levels.append(PaddedLevel(**kw))
     return PaddedNAG(levels=tuple(levels), start_i_level=start,

@@ -1,14 +1,15 @@
-"""Model construction: config -> SPT backbone.
+"""Model and task construction: config -> SPT backbone -> semantic task.
 
-Counterpart of `build_model` in `superpoint_transformer_tpu/experiment.py`
-over a plain nested dict. `FLAGSHIP_CFG` holds the values that
-`build_model` reads from `configs/train.yaml` composed with
-`experiment=semantic/s3dis`, so no YAML reader is needed; a test pins
-it to the YAML.
+Counterpart of `build_model` and `build_task` (semantic) in
+`superpoint_transformer_tpu/experiment.py` over a plain nested dict.
+`FLAGSHIP_CFG` holds the values that they read from `configs/train.yaml`
+composed with `experiment=semantic/s3dis`, so no YAML reader is needed; a
+test pins it to the YAML.
 """
+from .models.semantic import SemanticTask
 from .models.spt import SPT
 
-__all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'build_model',
+__all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'build_model', 'build_task',
            'precision_to_dtype']
 
 
@@ -43,8 +44,8 @@ for _k in list(FEAT_SIZE):
     FEAT_SIZE.setdefault('std_' + _k, FEAT_SIZE[_k])
     FEAT_SIZE.setdefault('log_' + _k, FEAT_SIZE[_k])
 
-# SPT-2 on S3DIS with bf16 compute: the values build_model reads from
-# configs/train.yaml + experiment=semantic/s3dis
+# SPT-2 on S3DIS with bf16 compute: the values build_model and build_task
+# read from configs/train.yaml + experiment=semantic/s3dis
 FLAGSHIP_CFG = {
     'datamodule': {
         'num_classes': 13,
@@ -67,6 +68,14 @@ FLAGSHIP_CFG = {
         '_down_dim': [64, 64],
         '_up_dim': [64],
         '_mlp_depth': 2,
+        'loss_type': 'ce_kl',
+        'multi_stage_loss_lambdas': [1, 50],
+        'transformer_lr_scale': 0.1,
+        # the YAML loader reads `1e-2` (no dot) as a string, and these
+        # values are kept as it gives them; build_task converts
+        'optimizer': {'lr': 0.1, 'weight_decay': '1e-2'},
+        'scheduler': {'eta_min': '1e-6', 'warmup_init_lr': '1e-6',
+                      'num_warmup': 20},
         'net': {
             'nano': False, 'use_pos': True, 'use_node_hf': True,
             'use_diameter': False, 'use_diameter_parent': True,
@@ -169,3 +178,33 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
         num_graphs=num_graphs,
         compute_dtype=compute_dtype, plain_attention=plain_attention,
         device=device)
+
+
+def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
+               compute_dtype='auto', plain_attention=False, device=None):
+    """The semantic `SemanticTask` of `cfg` (a nested dict shaped like
+    `FLAGSHIP_CFG`) around `build_model(cfg, ...)` on `device`: its loss
+    type and stage weights, AdamW's LR and weight decay, the attention
+    LR scale and the warm-up. Numbers may be strings, as the YAML loader
+    gives `1e-2`. Gradient accumulation and the plateau scheduler are not
+    ported."""
+    m = cfg['model']
+    sched = m['scheduler']
+    if 'plateau' in str(sched.get('_target_', 'cosine')).lower():
+        raise NotImplementedError('the plateau scheduler is not ported')
+    if int(cfg.get('trainer', {}).get('accumulate_grad_batches', 1)) != 1:
+        raise NotImplementedError('gradient accumulation is not ported')
+    net = build_model(cfg, num_graphs=num_graphs,
+                      compute_dtype=compute_dtype,
+                      plain_attention=plain_attention, device=device)
+    return SemanticTask(
+        net, num_classes=int(cfg['datamodule']['num_classes']),
+        loss_type=str(m['loss_type']),
+        multi_stage_loss_lambdas=tuple(
+            float(x) for x in m['multi_stage_loss_lambdas']),
+        lr=float(m['optimizer']['lr']),
+        weight_decay=float(m['optimizer']['weight_decay']),
+        transformer_lr_scale=float(m['transformer_lr_scale']),
+        total_steps=total_steps, warmup_steps=int(sched['num_warmup']),
+        warmup_init_lr=float(sched['warmup_init_lr']),
+        eta_min=float(sched['eta_min']), class_weight=class_weight)

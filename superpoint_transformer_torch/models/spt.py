@@ -1,5 +1,7 @@
 """SPT - Superpoint Transformer backbone, counterpart of
-`superpoint_transformer_tpu/models/spt.py` at inference: a U-Net over
+`superpoint_transformer_tpu/models/spt.py` for training and inference
+(the dropout and DropPath rates accept only None or 0: no config sets
+them, and the stages raise on any other value): a U-Net over
 the NAG hierarchy. PointStage encodes level-0 points; DownNFuseStages
 pool and self-attend over superpoint levels 1..L; UpNFuseStages decode
 back with skip connections; handcrafted node and horizontal-edge
@@ -17,11 +19,14 @@ __all__ = ['SPT']
 
 class SPT(nn.Module):
 
-    def __init__(self, point_mlp, down_dim=(64, 64), down_in_mlp=(),
-                 down_out_mlp=None, down_num_heads=16, down_num_blocks=3,
-                 down_ffn_ratio=1, up_dim=(64,), up_in_mlp=(),
-                 up_out_mlp=None, up_num_heads=16, up_num_blocks=1,
-                 up_ffn_ratio=1, node_mlp=None, h_edge_mlp=(18, 32, 32),
+    def __init__(self, point_mlp, point_drop=None, down_dim=(64, 64),
+                 down_in_mlp=(), down_out_mlp=None, down_mlp_drop=None,
+                 down_num_heads=16, down_num_blocks=3, down_ffn_ratio=1,
+                 down_residual_drop=None, down_attn_drop=None,
+                 down_drop_path=None, up_dim=(64,), up_in_mlp=(),
+                 up_out_mlp=None, up_mlp_drop=None, up_num_heads=16,
+                 up_num_blocks=1, up_ffn_ratio=1, up_residual_drop=None,
+                 up_attn_drop=None, up_drop_path=None, node_mlp=None, h_edge_mlp=(18, 32, 32),
                  v_edge_mlp=None, qk_dim=4, qkv_bias=True, qk_scale=None,
                  in_rpe_dim=32, pre_norm=True, no_sa=False, no_ffn=True,
                  k_rpe=True, q_rpe=True, v_rpe=True, qk_share_rpe=False,
@@ -63,20 +68,25 @@ class SPT(nn.Module):
             compute_dtype=compute_dtype, plain_attention=plain_attention,
             device=device)
         self.first_stage = PointStage(
-            point_mlp[-1], num_blocks=0, in_mlp=tuple(point_mlp), **shared)
+            point_mlp[-1], num_blocks=0, in_mlp=tuple(point_mlp),
+            mlp_drop=point_drop, **shared)
         for i in range(num_down):
             self.add_module(f'down_stage_{i}', DownNFuseStage(
                 down_dim[i], num_blocks=down_num_blocks,
                 num_heads=down_num_heads, in_mlp=tuple(down_in_mlp[i]),
                 out_mlp=(tuple(down_out_mlp[i]) if down_out_mlp else None),
-                ffn_ratio=down_ffn_ratio, pool=pool, fusion=fusion,
+                ffn_ratio=down_ffn_ratio, mlp_drop=down_mlp_drop,
+                residual_drop=down_residual_drop, attn_drop=down_attn_drop,
+                drop_path=down_drop_path, pool=pool, fusion=fusion,
                 **shared))
         for i in range(len(up_dim)):
             self.add_module(f'up_stage_{i}', UpNFuseStage(
                 up_dim[i], num_blocks=up_num_blocks,
                 num_heads=up_num_heads, in_mlp=tuple(up_in_mlp[i]),
                 out_mlp=(tuple(up_out_mlp[i]) if up_out_mlp else None),
-                ffn_ratio=up_ffn_ratio, fusion=fusion, **shared))
+                ffn_ratio=up_ffn_ratio, mlp_drop=up_mlp_drop,
+                residual_drop=up_residual_drop, attn_drop=up_attn_drop,
+                drop_path=up_drop_path, fusion=fusion, **shared))
 
     @property
     def out_dim(self):

@@ -1,24 +1,32 @@
-"""SelfAttentionBlock over dense padded neighbors, inference path.
+"""SelfAttentionBlock over dense padded neighbors.
 
 Counterpart of `superpoint_transformer_tpu/nn/attention.py` for the
-flagship RPE set (independent k/q/v encoders of the edge features):
-qkv projection in the compute dtype, one gather of the neighbors' k/v
-rows, the streaming RPE attention kernel (`ops/attention_rpe.py`),
-`out_proj` in the compute dtype, output in f32. Training and the other
-RPE variants need the plain attention kernel (K1,
-`dense_attention_pallas`), which is not ported yet.
+flagship RPE set (independent k/q/v encoders of the edge features): qkv
+projection in the compute dtype, one gather of the neighbors' joint k/v
+rows, attention, `out_proj` in the compute dtype, output in f32. The
+attention takes the JAX package's routes:
+
+- evaluation: the streaming RPE attention kernel K2
+  (`ops/attention_rpe.py`), which computes the RPE projections itself;
+- training: the three RPE projections as one concatenated matmul added to
+  the gathered rows, a query per edge, and the dense attention kernel K1
+  with its closed-form backward (`ops/attention.py`).
+
+The other RPE variants run K1 at inference too in the JAX package; they
+are not ported.
 """
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import (dense_attention_reference,
+                             dense_attention_trainable)
 from ..ops.attention_rpe import (dense_attention_rpe,
                                  dense_attention_rpe_reference)
+from ..ops.segment import gather_rows
 from .mlp import linear, resolve_dtype
 
 __all__ = ['SelfAttentionBlock', 'qk_scale_from_degree']
-
-_NEEDS_K1 = ('needs the dense attention kernel K1 '
-             '(dense_attention_pallas), which is not ported yet')
 
 
 def qk_scale_from_degree(mode, qk_dim, degree):
@@ -35,20 +43,27 @@ class SelfAttentionBlock(nn.Module):
     """Multi-head self-attention of each node over its K neighbor slots,
     with k/q/v relative position encodings of the edge features.
 
-    `plain_attention=True` runs the plain PyTorch version of the kernel
-    on every device; it exists to compare the kernel with it."""
+    `plain_attention=True` runs the plain PyTorch versions of the kernels
+    on every device (autograd through the plain forward in training); it
+    exists to compare the kernels with them. Attention dropout and
+    residual dropout accept only None or 0: no config sets them."""
 
     def __init__(self, dim, num_heads=1, qkv_bias=True, qk_dim=8,
                  qk_scale=None, in_rpe_dim=18, k_rpe=False, q_rpe=False,
                  v_rpe=False, qk_share_rpe=False, q_on_minus_rpe=False,
-                 heads_share_rpe=False, compute_dtype=None,
-                 plain_attention=False, device=None):
+                 heads_share_rpe=False, attn_drop=None, drop=None,
+                 compute_dtype=None, plain_attention=False, device=None):
         super().__init__()
         if not (k_rpe and q_rpe and v_rpe) or qk_share_rpe \
                 or q_on_minus_rpe or heads_share_rpe:
             raise NotImplementedError(
                 'SelfAttentionBlock: only independent k/q/v RPE is '
-                f'ported; this RPE variant {_NEEDS_K1}')
+                'ported; the JAX package runs this RPE variant on the '
+                'dense attention kernel K1 at inference too')
+        for name, rate in (('attn_drop', attn_drop), ('drop', drop)):
+            if rate:
+                raise NotImplementedError(
+                    f'SelfAttentionBlock: {name}={rate} is not ported')
         H, D, C = num_heads, qk_dim, dim
         self.num_heads, self.qk_dim, self.dim = H, D, C
         self.qk_scale = qk_scale
@@ -69,30 +84,42 @@ class SelfAttentionBlock(nn.Module):
         :param edge_feat: [N, K, De] edge features for the RPE
         :return: [N, C] f32
         """
-        if self.training:
-            raise NotImplementedError(f'SelfAttentionBlock training '
-                                      f'{_NEEDS_K1}')
         if edge_feat is None:
             raise NotImplementedError(
-                f'SelfAttentionBlock without edge features {_NEEDS_K1}')
-        N, C = x.shape[0], self.dim
-        H, D = self.num_heads, self.qk_dim
+                'SelfAttentionBlock without edge features is not ported '
+                '(the JAX package runs it on the dense attention kernel '
+                'K1 in both modes)')
+        N, K = nbr_idx.shape
+        C, H, D = self.dim, self.num_heads, self.qk_dim
         DH, dt = H * D, self.dtype
         qkv = linear(self.qkv, x, dt)
         q = qkv[:, :DH].reshape(N, H, D).contiguous()
-        # one gather of the joint k/v rows; the kernel reads the two
-        # column blocks of the gathered table in place
-        kvg = qkv[:, DH:][nbr_idx]                         # [N, K, DH+C]
+        # one gather of the joint k/v rows; its backward sums each row's
+        # cotangents, the math of the JAX package's gather_rows_t
+        kvg = gather_rows(qkv[:, DH:], nbr_idx)            # [N, K, DH+C]
         scale = qk_scale_from_degree(self.qk_scale, D, nbr_mask.sum(1))
+        edge_feat = edge_feat.to(dt)
+        rpe = (self.k_rpe, self.q_rpe, self.v_rpe)
 
-        def w(layer):
-            return layer.weight.to(dt).t().contiguous()
-
-        attention = dense_attention_rpe_reference if self.plain_attention \
-            else dense_attention_rpe
-        out = attention(
-            q, kvg[..., :DH], kvg[..., DH:], edge_feat.to(dt),
-            w(self.k_rpe), self.k_rpe.bias, w(self.q_rpe), self.q_rpe.bias,
-            w(self.v_rpe), self.v_rpe.bias, nbr_mask, scale)
+        if self.training:
+            # the three RPE projections as one [N*K, De] @ [De, 2*DH + C]
+            # matmul, added to the gathered rows
+            w_cat = torch.cat([m.weight for m in rpe]).to(dt)
+            b_cat = torch.cat([m.bias for m in rpe]).to(dt)
+            r = F.linear(edge_feat, w_cat, b_cat)          # [N, K, 2DH+C]
+            k = (kvg[..., :DH] + r[..., :DH]).reshape(N, K, H, D)
+            q = q[:, None] + r[..., DH:2 * DH].reshape(N, K, H, D)
+            v = (kvg[..., DH:] + r[..., 2 * DH:]).reshape(N, K, H, C // H)
+            attention = dense_attention_reference if self.plain_attention \
+                else dense_attention_trainable
+            out = attention(q, k, v, nbr_mask, scale)
+        else:
+            attention = dense_attention_rpe_reference \
+                if self.plain_attention else dense_attention_rpe
+            out = attention(
+                q, kvg[..., :DH], kvg[..., DH:], edge_feat,
+                *(t for m in rpe
+                  for t in (m.weight.to(dt).t().contiguous(), m.bias)),
+                nbr_mask, scale)
         out = linear(self.out_proj, out.reshape(N, C), dt)
         return out.to(torch.float32)

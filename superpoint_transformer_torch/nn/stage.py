@@ -10,6 +10,7 @@ per graph, through the `batch` vector.
 import torch
 from torch import nn
 
+from ..ops.segment import gather_rows
 from .mlp import MLP
 from .norm import unit_sphere_norm
 from .pool import pool
@@ -42,12 +43,16 @@ class Stage(nn.Module):
                  out_mlp=None, use_pos=True,
                  use_diameter=False, use_diameter_parent=False, qk_dim=8,
                  qkv_bias=True, qk_scale=None, in_rpe_dim=18, ffn_ratio=4,
-                 no_sa=False, no_ffn=False,
+                 mlp_drop=None, residual_drop=None, attn_drop=None,
+                 drop_path=None, no_sa=False, no_ffn=False,
                  k_rpe=False, q_rpe=False, v_rpe=False, qk_share_rpe=False,
                  q_on_minus_rpe=False, heads_share_rpe=False,
                  num_graphs=64, compute_dtype=None, plain_attention=False,
                  device=None):
         super().__init__()
+        if mlp_drop:
+            raise NotImplementedError(f'Stage: mlp_drop={mlp_drop} is not '
+                                      'ported')
         self.dim = dim
         self.num_blocks = num_blocks
         self.use_pos = use_pos
@@ -62,7 +67,9 @@ class Stage(nn.Module):
             self.add_module(f'block_{b}', TransformerBlock(
                 dim, num_heads=num_heads, qkv_bias=qkv_bias, qk_dim=qk_dim,
                 qk_scale=qk_scale, in_rpe_dim=in_rpe_dim,
-                ffn_ratio=ffn_ratio, no_sa=no_sa, no_ffn=no_ffn,
+                ffn_ratio=ffn_ratio, residual_drop=residual_drop,
+                attn_drop=attn_drop, drop_path=drop_path, no_sa=no_sa,
+                no_ffn=no_ffn,
                 k_rpe=k_rpe, q_rpe=q_rpe,
                 v_rpe=v_rpe, qk_share_rpe=qk_share_rpe,
                 q_on_minus_rpe=q_on_minus_rpe,
@@ -152,7 +159,8 @@ class UpNFuseStage(Stage):
     def forward(self, x_child, x_parent, norm_index, unpool_index,
                 **stage_kwargs):
         idx = unpool_index.clamp(0, x_parent.shape[0] - 1)
-        return super().forward(fuse(self.fusion, x_child, x_parent[idx]),
+        return super().forward(fuse(self.fusion, x_child,
+                                    gather_rows(x_parent, idx)),
                                norm_index, **stage_kwargs)
 
 

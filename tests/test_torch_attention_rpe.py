@@ -1,9 +1,10 @@
-"""The port's streaming RPE attention (plain version of the K2 kernel,
-superpoint_transformer_torch/ops/attention_rpe.py) vs the JAX Pallas
-kernel `dense_attention_rpe_pallas` run in TPU interpret mode, as
-tests/test_pallas_attention.py runs it on the CPU, and vs the JAX
-package's `_rpe_xla_reference`. The CUDA kernel itself is checked
-against the plain version by tests/test_torch_cuda.py (on the card) and
+"""The port's streaming RPE attention and its backward (plain versions of
+the K2 and K3 kernels, superpoint_transformer_torch/ops/attention_rpe.py)
+vs the JAX Pallas kernels `dense_attention_rpe_pallas` and
+`dense_attention_rpe_bwd_pallas` run in TPU interpret mode, as
+tests/test_pallas_attention.py runs them on the CPU, and vs the JAX
+package's `_rpe_xla_reference`. The CUDA kernels themselves are checked
+against the plain versions by tests/test_torch_cuda.py (on the card) and
 by chip_smoke.py."""
 import numpy as np
 import pytest
@@ -13,9 +14,12 @@ import jax
 import jax.numpy as jnp
 
 from superpoint_transformer_tpu.ops.pallas_attention import (
-    dense_attention_rpe_pallas, _rpe_xla_reference)
+    dense_attention_rpe_bwd_pallas, dense_attention_rpe_pallas,
+    _rpe_xla_reference)
 from superpoint_transformer_torch.ops.attention_rpe import (
-    dense_attention_rpe, dense_attention_rpe_reference)
+    dense_attention_rpe, dense_attention_rpe_bwd,
+    dense_attention_rpe_bwd_reference, dense_attention_rpe_reference,
+    dense_attention_rpe_trainable)
 
 # the JAX kernel test's own tolerance (f32)
 RTOL, ATOL = 2e-4, 2e-5
@@ -116,6 +120,64 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     ref_out, ref_lse = dense_attention_rpe_reference(*args, with_lse=True)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
     assert dense_attention_rpe.launches == before
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    before = dense_attention_rpe_bwd.launches
+    grads = dense_attention_rpe_bwd(*args, out, lse, g)
+    ref = dense_attention_rpe_bwd_reference(*args, out, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, ref))
+    assert dense_attention_rpe_bwd.launches == before
+
+
+# tests/test_pallas_attention.py's tolerance for the K3 gradients
+BWD_RTOL, BWD_ATOL = 2e-3, 2e-4
+GRAD_NAMES = ('dq', 'dkg', 'dvg', 'd_ef', 'dwk', 'dbk', 'dwq', 'dbq', 'dwv',
+              'dbv')
+
+
+@pytest.mark.parametrize('masked_rows', [0, 32])
+def test_plain_backward_matches_pallas_bwd_interpret(masked_rows):
+    """All ten gradients of the plain K3 vs `dense_attention_rpe_bwd_pallas`
+    in interpret mode, both fed the Pallas forward's out and lse and the
+    same cotangent."""
+    args = _inputs(seed=8, masked_rows=masked_rows)
+    g = np.random.default_rng(9).standard_normal((256, 4, 8)).astype(
+        np.float32)
+    out, lse = _pallas(args, with_lse=True)
+    ref = dense_attention_rpe_bwd_pallas(
+        *_jax(args), jnp.asarray(out), jnp.asarray(lse), jnp.asarray(g),
+        interpret=True)
+    got = dense_attention_rpe_bwd_reference(
+        *_torch(args), torch.from_numpy(np.array(out)),
+        torch.from_numpy(np.array(lse)), torch.from_numpy(g))
+    for name, a, b in zip(GRAD_NAMES, got, ref):
+        b = np.asarray(b)
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=BWD_RTOL,
+                                   atol=BWD_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_trainable_gradients_match_autograd_of_plain(dtype):
+    """`dense_attention_rpe_trainable` (plain forward with lse, closed-form
+    backward on the CPU) vs torch autograd through the plain forward: the
+    activations in `dtype`, the RPE weights f32 as in the model. In bf16
+    both sides compute in f32 from the same rounded inputs; the activation
+    gradients are then rounded to bf16 (2^-8 relative), so one rounding
+    step may separate them."""
+    args = _torch(_inputs(seed=10, masked_rows=8))
+    args = [a.to(dtype) if i in (0, 1, 2, 3) else a
+            for i, a in enumerate(args)]
+    w = torch.randn(256, 4, 8, generator=torch.Generator().manual_seed(11))
+    grads = []
+    for fn in (dense_attention_rpe_trainable, dense_attention_rpe_reference):
+        leaves = [a.clone().requires_grad_() for a in args[:10]]
+        (fn(*leaves, *args[10:]) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    tol = (dict(rtol=BWD_RTOL, atol=BWD_ATOL) if dtype == torch.float32
+           else dict(rtol=1.6e-2, atol=1e-3))
+    for name, a, b in zip(GRAD_NAMES, *grads):
+        assert a.dtype == b.dtype, name
+        torch.testing.assert_close(a, b, **tol, msg=name)
 
 
 def test_wrapper_rejects_other_devices():

@@ -1,6 +1,7 @@
-"""The port's serving path needs none of jax, flax, h5py, yaml or the JAX
+"""The port needs none of jax, flax, optax, h5py, yaml or the JAX
 package: in a fresh interpreter where importing any of them fails, the
-port still imports, builds a model and runs a CPU forward."""
+port still imports every module, builds a model and runs a CPU forward,
+and builds the semantic task and takes a CPU training step."""
 import os
 import subprocess
 import sys
@@ -11,7 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent('''
     import sys
 
-    BLOCKED = ('jax', 'jaxlib', 'flax', 'h5py', 'yaml',
+    BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'yaml',
                'superpoint_transformer_tpu')
 
     class Block:
@@ -22,10 +23,16 @@ SCRIPT = textwrap.dedent('''
 
     sys.meta_path.insert(0, Block())
 
+    import importlib
+    import pkgutil
+
     import torch
+    import superpoint_transformer_torch as port
+    for mod in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):
+        importlib.import_module(mod.name)
     from superpoint_transformer_torch.data.padded import from_numpy
     from superpoint_transformer_torch.experiment import (
-        FLAGSHIP_CFG, build_model)
+        FLAGSHIP_CFG, build_model, build_task)
     from superpoint_transformer_torch.inference import infer_batch
     from superpoint_transformer_torch.models.semantic import (
         SemanticSegmentationModel)
@@ -42,6 +49,14 @@ SCRIPT = textwrap.dedent('''
     pred = infer_batch(model, batch)
     assert pred.shape == (batch[1].num_nodes,)
     assert pred.min() >= 0 and pred.max() < 13
+
+    task = build_task(FLAGSHIP_CFG, num_graphs=2, total_steps=10)
+    init_weights(task.model, torch.Generator().manual_seed(0))
+    host = random_padded_nag(seed=1, num_graphs=2, n_points=500, n_l1=40,
+                             n_l2=10)
+    metrics = task.train_step(from_numpy(host, 'cpu', 'bfloat16',
+                                         train=True))
+    assert bool(torch.isfinite(metrics['loss'])) and task.step == 1
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded

@@ -186,11 +186,38 @@ def test_self_attention_other_rpe_variants_need_k1(variant):
 
 
 def test_self_attention_training_needs_k1(nag):
+    """Training takes the K1 route (RPE as one matmul added to the
+    gathered rows, a query per edge, K1 with its closed-form backward):
+    the output and every gradient match the JAX block's train=True
+    forward and `jax.grad`. Without edge features the block needs K1 at
+    inference too, which is not ported."""
     lvl, x, ef = _attention_inputs(nag)
-    tm = tattn.SelfAttentionBlock(32, num_heads=4, qk_dim=4, in_rpe_dim=16,
-                                  k_rpe=True, q_rpe=True, v_rpe=True)
-    with pytest.raises(NotImplementedError, match='K1'):
-        tm.train()(_t(x), _t(lvl.nbr_idx), _t(lvl.nbr_mask), _t(ef))
+    cfg = dict(num_heads=4, qk_dim=4, in_rpe_dim=16, k_rpe=True,
+               q_rpe=True, v_rpe=True)
+    jm = jattn.SelfAttentionBlock(dim=32, **cfg)
+    args = (_j(lvl.nbr_idx), _j(lvl.nbr_mask))
+    params = _init(jm, _j(x), *args, edge_feat=_j(ef), train=False)
+    w = np.random.default_rng(5).standard_normal(x.shape).astype(np.float32)
+
+    def loss(p, xx):
+        out = jm.apply({'params': p}, xx, *args, edge_feat=_j(ef),
+                       train=True)
+        return (out * w).sum(), out
+
+    (_, ref), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(params, _j(x))
+    tm = load_jax_params(tattn.SelfAttentionBlock(32, **cfg), params).train()
+    tx = _t(x).requires_grad_()
+    got = tm(tx, _t(lvl.nbr_idx), _t(lvl.nbr_mask), _t(ef))
+    (got * _t(w)).sum().backward()
+    _close(got, ref)
+    _close(tx.grad, gx)
+    grads = {n: p.grad for n, p in tm.named_parameters()}
+    for path, g in jax.tree_util.tree_leaves_with_path(gp):
+        layer, leaf = path[0].key, path[-1].key
+        name = f'{layer}.{"weight" if leaf == "kernel" else "bias"}'
+        t = grads[name].t() if leaf == 'kernel' else grads[name]
+        _close(t, g, tol=(RTOL, 1e-4))
     with pytest.raises(NotImplementedError, match='K1'):
         tm.eval()(_t(x), _t(lvl.nbr_idx), _t(lvl.nbr_mask), None)
 
@@ -222,6 +249,38 @@ def test_pool_max_with_empty_parents(nag):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     # padded parents receive no child and come out as 0
     assert np.all(got.numpy()[int(parent.num_nodes):] == 0)
+
+
+def test_pool_max_gradient_with_ties_and_masked_children(nag):
+    """The max-pool backward (scatter_reduce amax) vs JAX's segment_max
+    gradient: a tie splits the gradient evenly among the tied children,
+    masked children and padded children get none."""
+    child, parent = nag.levels[0], nag.levels[1]
+    x = np.round(_features(nag, 0, 8) * 2) / 2      # many exact ties
+    mask = np.asarray(child.node_mask).copy()
+    mask[::7] = False                                # masked valid children
+    w = np.random.default_rng(6).standard_normal(
+        (parent.capacity, 8)).astype(np.float32)
+
+    def jloss(xx):
+        return (jpool('max', xx, _j(child.super_index), parent.capacity,
+                      mask=_j(mask)) * w).sum()
+
+    ref = jax.grad(jloss)(_j(x))
+    tx = _t(x).requires_grad_()
+    (tpool('max', tx, _t(child.super_index), parent.capacity,
+           mask=_t(mask)) * _t(w)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-7)
+    # some parents' max is tied between children
+    out = np.asarray(jpool('max', _j(x), _j(child.super_index),
+                           parent.capacity, mask=_j(mask)))
+    sup = np.asarray(child.super_index)[mask]
+    wins = x[mask] == out[sup]
+    ties = np.zeros((parent.capacity + 1, 8), int)
+    np.add.at(ties, sup, wins)
+    assert ties.max() >= 2
+    assert np.all(tx.grad.numpy()[~mask] == 0)
 
 
 _SHARED = dict(qk_dim=4, in_rpe_dim=16, k_rpe=True, q_rpe=True, v_rpe=True,

@@ -75,3 +75,23 @@ def test_gather_rows_small_padding_gives_zero_row():
                                  torch.from_numpy(idx), G).numpy()
     np.testing.assert_array_equal(got, ref)
     assert np.all(got[idx == -1] == 0)
+
+
+def test_gather_rows_value_and_gradient_match_jax_indexing():
+    """`gather_rows` (an embedding lookup) vs JAX's `table[idx]` with rows
+    gathered many times, as the attention's neighbor gather does: the
+    same rows, and each row's gradient the sum of its cotangents."""
+    import jax
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((50, 6)).astype(np.float32)
+    idx = rng.integers(0, 10, (50, 16))              # heavy duplicates
+    w = rng.standard_normal((50, 16, 6)).astype(np.float32)
+    ref, ref_grad = jax.value_and_grad(
+        lambda t: (t[jnp.asarray(idx)] * w).sum())(jnp.asarray(table))
+    t = torch.from_numpy(table).requires_grad_()
+    got = tseg.gather_rows(t, torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.detach().numpy(), table[idx])
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref_grad),
+                               rtol=1e-5, atol=1e-5)
+    assert np.all(t.grad.numpy()[10:] == 0)
