@@ -11,10 +11,14 @@ kernel on them against its plain PyTorch version:
 2. builds the kernels from the sources in this checkout, one nvcc each,
    all at once (timed);
 3. compares each kernel with its plain version on the card, at the
-   shapes the main paths give it, in f32 and bf16: K1 (dense attention)
-   in both query layouts and its backward, K2 (fused-RPE attention), K3
-   (K2's backward) against autograd of K2's plain version; and times
-   each kernel against its plain version;
+   shapes the main paths give it and at a wide K (160) and a K off the
+   kernels' 16-slot tiles (50), in f32 and bf16: K1 (dense attention) in
+   both query layouts and its backward, K2 (fused-RPE attention), K3
+   (K2's backward) against autograd of K2's plain version; times each
+   kernel against its plain version as CUDA-graph replays (so that the
+   host's launch cost is not counted), and K1 with a per-node query
+   against SDPA, the one PyTorch call that computes it (a yardstick the
+   port never calls);
 4. serving: answers three requests at the "demo room x8" size through
    `infer_batch`, counting K2 launches (7 per forward), checks the
    logits and predictions, compares the logits with the same model on
@@ -29,7 +33,10 @@ kernel on them against its plain PyTorch version:
    forward, K3 backward) at the level-1 training shape, counting K3
    launches, and timed against the route the model takes in training
    (materialized RPE + K1);
-7. prints the kernel table as JSON, the card line, and as the last line
+7. prints the kernel table as JSON (per kernel: launches on its path,
+   max abs error, ms, plain_ms, library_ms, the bound from the bytes and
+   FLOPs of `kernel_cost` and which of the two sets it, and the share of
+   the bound reached), the card line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 Each of the paths 4-6 runs with the kernel counts set to 0 just before
@@ -89,11 +96,74 @@ F32_ARGMAX_AGREEMENT = 0.999
 BF16_MEAN_ERR_RATIO = 2.0
 BF16_MEAN_ERR_FLOOR = 1e-3      # in case a run happens to be reproducible
 BF16_ARGMAX_AGREEMENT = 0.95
+# the H100 SXM's published peaks (data sheet, dense): device memory, bf16
+# on the tensor cores, f32 outside them. Every bound below is against
+# them, beside the power limit that the card line prints.
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOP_S = 989e12
+PEAK_F32_FLOP_S = 67e12
+# the yardstick SDPA call returns bf16: it may differ from K1's f32
+# output by the rounding of values up to ~4
+SDPA_ATOL = 3e-2
+
+
+def kernel_cost(name, N, K, H, D, C, De=0, elem=2, q_per_edge=True):
+    """(bytes, product FLOPs, other FLOPs) of one call of kernel `name`
+    ('K1', 'K2' or 'K3') at these shapes, with `elem`-byte inputs. Bytes
+    count each input read once and each output written once. Product
+    FLOPs are the contractions over the De edge features (the RPE
+    projections and their gradients), which the tensor cores can take in
+    bf16; other FLOPs are the elementwise, logit and weighted-sum work in
+    f32. K2 is counted without lse, K3 with the `delta` pass outside."""
+    DH, W, slots = H * D, 2 * H * D + C, N * K
+    if name == 'K1':
+        q = slots * DH if q_per_edge else N * DH
+        nbytes = (q + slots * (DH + C)) * elem + slots + N * 4 + N * C * 4
+        # q * scale, the logit products and sums, the weighted sum
+        return nbytes, 0, slots * (3 * DH + 2 * C)
+    # q, the gathered k/v rows and edge features, the weights, mask, scale
+    inputs = (N * DH + slots * (DH + C + De) + (De + 1) * W) * elem \
+        + slots + N * 4
+    if name == 'K2':
+        # + out; one projection, the RPE adds, logits, weighted sum
+        return (inputs + N * C * 4, slots * 2 * De * W,
+                slots * (W + 2 * DH + 2 * C))
+    if name == 'K3':
+        # + out, lse and g in f32; dq, dkg, dvg, d_ef and the f32 weight
+        # gradients out; the projection again, d_ef and the weight
+        # gradients, then the RPE adds, logits, dv, dp, dq and dk
+        nbytes = inputs + (2 * N * C + H * N) * 4 \
+            + (N * DH + slots * (DH + C + De)) * elem + (De + 1) * W * 4
+        return (nbytes, slots * 3 * 2 * De * W,
+                slots * (W + 5 * DH + 3 * C))
+    raise ValueError(name)
+
+
+def bound(name, **shape):
+    """(bound ms, 'bytes' or 'operations'): the least time the card
+    could take for one call, the larger of its bytes over the memory rate
+    and its FLOPs over the peak rates of their types."""
+    nbytes, prod, other = kernel_cost(name, **shape)
+    byte_ms = nbytes / PEAK_BYTES_S * 1e3
+    op_ms = (prod / PEAK_BF16_FLOP_S + other / PEAK_F32_FLOP_S) * 1e3
+    return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f'chip_smoke: {msg}')
+
+
+def settle():
+    """Collect the garbage that the kernel checks leave (graph captures,
+    large tensors) and return cached device memory, so that a main path
+    is timed in a process state like a user's; restart the memory peak."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def card_line():
@@ -126,6 +196,27 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters):
+    """Mean device time of one `fn()`: `iters` calls captured in one CUDA
+    graph and replayed (after a warm-up), CUDA events around the replays.
+    A kernel shorter than the host's cost to launch it is timed without
+    that cost, which eager timing would add as idle gaps."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(graph.replay, 3, warmup=1) / iters
+    del graph
+    return ms
+
+
 def k2_inputs(gen, N, K, H, D, C, De, masked_rows, dtype, dev):
     import torch
 
@@ -144,13 +235,16 @@ def k2_inputs(gen, N, K, H, D, C, De, masked_rows, dtype, dev):
     return args + [mask.to(dev), scale.to(dev)]
 
 
-def time_pair(kernel_fn, plain_fn, iters):
+def time_pair(kernel_fn, plain_fn, iters, graph=False):
     """(kernel ms, plain ms, rounds): the best of two rounds each, taken
-    in the order kernel, plain, plain, kernel."""
+    in the order kernel, plain, plain, kernel; each round eager
+    (`cuda_ms`) or, with `graph`, replayed from a CUDA graph
+    (`graph_ms`)."""
     times = {'kernel': [], 'plain': []}
+    timer = graph_ms if graph else cuda_ms
     for name in ('kernel', 'plain', 'plain', 'kernel'):
         fn = kernel_fn if name == 'kernel' else plain_fn
-        times[name].append(cuda_ms(fn, iters))
+        times[name].append(timer(fn, iters))
     return min(times['kernel']), min(times['plain']), times
 
 
@@ -176,7 +270,9 @@ def phase_k2(dev):
     cases = [('flagship', dict(flagship, masked_rows=0)),
              ('ragged', dict(N=1000, K=37, H=4, D=4, C=32, De=8,
                              masked_rows=0)),
-             ('masked_rows', dict(flagship, N=4096, masked_rows=512))]
+             ('masked_rows', dict(flagship, N=4096, masked_rows=512)),
+             ('wide_k', dict(flagship, N=1024, K=160, masked_rows=64)),
+             ('k50', dict(flagship, N=2048, K=50, masked_rows=64))]
     worst = 0.0
     for name, shape in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -205,11 +301,14 @@ def phase_k2(dev):
                      **flagship)
     ms, plain_ms, rounds = time_pair(
         lambda: k2.dense_attention_rpe(*args),
-        lambda: k2.dense_attention_rpe_reference(*args), 20)
+        lambda: k2.dense_attention_rpe_reference(*args), 20, graph=True)
     print(f'K2 flagship bf16 N=10240 K=48: kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms; rounds {rounds} (CUDA events, 20 launches '
-          'each)')
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+          f'{plain_ms:.4f} ms; rounds {rounds} (CUDA graph of 20 calls, '
+          'CUDA events)')
+    # no one PyTorch call computes attention with the RPE projections
+    # inside: library_ms is null
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=None, shape=dict(flagship))
 
 
 def k1_inputs(gen, N, K, H, D, CH, q_per_edge, masked_rows, dtype, dev):
@@ -241,7 +340,9 @@ def phase_k1(dev):
                     CH=L1['C'] // L1['H'])
     cases = [('flagship', dict(flagship, masked_rows=0)),
              ('ragged', dict(N=1000, K=37, H=4, D=4, CH=8, masked_rows=0)),
-             ('masked_rows', dict(flagship, N=2048, masked_rows=256))]
+             ('masked_rows', dict(flagship, N=2048, masked_rows=256)),
+             ('wide_k', dict(flagship, N=1024, K=160, masked_rows=64)),
+             ('k50', dict(flagship, N=2048, K=50, masked_rows=64))]
     worst = 0.0
     for name, shape in cases:
         for q_per_edge in (True, False):
@@ -296,11 +397,41 @@ def phase_k1(dev):
                      masked_rows=0, **flagship)
     ms, plain_ms, rounds = time_pair(
         lambda: k1.dense_attention(*args),
-        lambda: k1.dense_attention_reference(*args), 20)
+        lambda: k1.dense_attention_reference(*args), 20, graph=True)
     print(f'K1 flagship training bf16 q_edge N={flagship["N"]} K=48: '
           f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; rounds {rounds} '
-          '(CUDA events, 20 launches each)')
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+          '(CUDA graph of 20 calls, CUDA events)')
+
+    # the yardstick: with a query per node, one PyTorch call computes
+    # K1's function, SDPA with q*scale folded in and a boolean mask (the
+    # port never calls it). Timed in turns with K1 on the same inputs.
+    import torch.nn.functional as F
+    args = k1_inputs(gen, q_per_edge=False, dtype=torch.bfloat16, dev=dev,
+                     masked_rows=0, **flagship)
+    q, k, v, mask, scale = args
+    qs = (q.float() * scale[:, None, None]).to(q.dtype)[:, :, None]
+    kt, vt, am = k.transpose(1, 2), v.transpose(1, 2), mask[:, None, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=am,
+                                              scale=1.0)
+
+    lib = sdpa()[:, :, 0].float()
+    ref = k1.dense_attention(*args)
+    lib_err = (lib - ref).abs().max().item()
+    print(f'K1 q_node vs SDPA (bf16 out): max_abs_err={lib_err:.3e} '
+          f'(atol {SDPA_ATOL})')
+    check(lib_err <= SDPA_ATOL, 'SDPA does not compute K1 with a per-node '
+          'query: the yardstick is wrong')
+    q_node_ms, library_ms, lib_rounds = time_pair(
+        lambda: k1.dense_attention(*args), sdpa, 20, graph=True)
+    print(f'K1 flagship training bf16 q_node N={flagship["N"]} K=48: '
+          f'kernel {q_node_ms:.4f} ms, SDPA {library_ms:.4f} ms; rounds '
+          f'{lib_rounds} (CUDA graph of 20 calls, CUDA events)')
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, q_node_ms=q_node_ms,
+                shape=dict(N=L1['N'], K=L1['K'], H=L1['H'], D=L1['D'],
+                           C=L1['C']))
 
 
 K3_GRADS = ('dq', 'dkg', 'dvg', 'd_ef', 'dwk', 'dbk', 'dwq', 'dbq', 'dwv',
@@ -356,11 +487,14 @@ def phase_k3(dev):
     out, lse = k2.dense_attention_rpe(*args, with_lse=True)
     ms, plain_ms, rounds = time_pair(
         lambda: k2.dense_attention_rpe_bwd(*args, out, lse, g),
-        lambda: k2.dense_attention_rpe_bwd_reference(*args, out, lse, g), 20)
+        lambda: k2.dense_attention_rpe_bwd_reference(*args, out, lse, g), 20,
+        graph=True)
     print(f'K3 flagship training bf16 N={TRAIN_L1["N"]} K=48: kernel '
           f'{ms:.4f} ms, plain {plain_ms:.4f} ms; rounds {rounds} (CUDA '
-          'events, 20 launches each, the delta pass included)')
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+          'graph of 20 calls, CUDA events, the delta pass included)')
+    # no one PyTorch call computes the RPE attention's gradients
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=None, shape=dict(TRAIN_L1))
 
 
 def phase_serving(dev, card):
@@ -381,10 +515,11 @@ def phase_serving(dev, card):
     def flagship(compute_dtype='auto', plain_attention=False):
         m = SemanticSegmentationModel(build_model(
             FLAGSHIP_CFG, num_graphs=NUM_GRAPHS, compute_dtype=compute_dtype,
-            plain_attention=plain_attention), 13)
+            plain_attention=plain_attention, device=dev), 13, device=dev)
         init_weights(m, torch.Generator().manual_seed(SEED))
-        return m.to(dev).eval()
+        return m.eval()
 
+    settle()
     model = flagship()
     n_params = sum(p.numel() for p in model.parameters())
     print(f'flagship SPT-2: {n_params} parameters')
@@ -529,6 +664,7 @@ def phase_training(dev, card):
         init_weights(task.model, torch.Generator().manual_seed(SEED))
         return task
 
+    settle()
     task = flagship_task()
     n_params = sum(p.numel() for p in task.model.parameters())
     check(n_params == FLAGSHIP_PARAMS,
@@ -642,6 +778,7 @@ def phase_fused_rpe_training(dev):
     from superpoint_transformer_torch.ops.attention_rpe import (
         dense_attention_rpe_trainable)
 
+    settle()
     gen = torch.Generator().manual_seed(SEED + 3)
     L1 = TRAIN_L1
     N, K, H, D, C = L1['N'], L1['K'], L1['H'], L1['D'], L1['C']
@@ -723,12 +860,15 @@ def main():
     for name, fn, line in (('K1', 'dense_attention', 74),
                            ('K2', 'dense_attention_rpe', 256),
                            ('K3', 'dense_attention_rpe_bwd', 487)):
+        res = dict(results[name])
+        bound_ms, bound_by = bound(name, **res.pop('shape'))
         table.append({
             'name': fn, 'route': 'cuda',
             'source': f'superpoint_transformer_torch/csrc/{fn}.cu',
             'replaces': 'superpoint_transformer_tpu/ops/pallas_attention.py'
                         f':{line}',
-            'launches': launches[name], **results[name]})
+            'launches': launches[name], **res, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'bound_share': bound_ms / res['ms']})
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -13,46 +13,71 @@
 //
 // q*scale is rounded to the input type T before the dot product, as the
 // TPU kernel does. Masked slots get the logit -1e30 and weight 0; a fully
-// masked row gives out = 0. Inputs are f32 or bf16; all math is f32.
+// masked row gives out = 0. Inputs are f32 or bf16; all sums are f32.
 //
 // What bounds it on an H100: every input value is read once and only
 // [N, H, C/H] f32 is written, (2*H*D + C) values per slot (384 bytes in
 // bf16 at the flagship H=16, D=4, C=64 with per-edge q), about 2 FLOP per
-// byte: device-memory bandwidth. The design keeps loads coalesced (lanes
-// over the contiguous channel axis of the natural [N, K, H, D] layout,
-// not Mosaic's [H*D, K, N]) and issues the loads of SLOTS slots before
-// any arithmetic on them, so several rows are in flight per warp.
+// byte: device-memory bandwidth, about 29 us for N=5120, K=48. So the
+// design is about bytes in flight and 16-byte accesses.
 //
-// Layout: one warp per node, WARPS_PER_BLOCK nodes per block, grid-stride
-// over nodes. Lane l owns the q/k channels j = l + 32*i and the value
-// channels c = l + 32*i (i < NJ). A head's logit is summed over its D
-// consecutive lanes with warp shuffles (D a power of two, at most 32) and
-// passed to the lanes holding that head's value channels through shared
-// memory. The online softmax state (running max, denominator,
-// accumulator) lives in registers, one copy per value channel.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Design (node_tiles.cuh has the shared pieces): a persistent grid, one
+// pipeline per warp. The warp walks its nodes in tiles of 16 slots; a
+// tile's q (16 rows per edge, or the node's row), k and v are contiguous
+// blocks of the natural [N, K, *] layout and are copied into a ring of 2
+// shared-memory stages with 16-byte cp.async, one tile ahead of the
+// compute (at the flagship shape 6 KB in flight per warp, 96 KB per SM
+// with 16 warps). On a tile the lanes go over its (slot, head) pairs for
+// the logits, the lanes of each head take the tile's exact softmax and
+// merge it with the node's earlier tiles, and the lanes go over channel
+// pairs for the weighted sum of the values, which stays in registers
+// until the node's last tile.
+#include "node_tiles.cuh"
 
 namespace {
 
-constexpr int WARP = 32;
-constexpr int WARPS_PER_BLOCK = 8;
-constexpr int SLOTS = 4;
-constexpr int MAX_H = 128;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace node_tiles;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 // an f32 value rounded to T and back
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * WARP)
+// sum_d round_T(q[d] * sc) * k[d] over the D values of one head, from
+// shared memory; D is a power of two
+template <typename T>
+__device__ __forceinline__ float head_logit(const T* q, const T* k, int D,
+                                            float sc) {
+  if (D == 1) return round_to(to_f32(q[0]) * sc, q) * to_f32(k[0]);
+  float l = 0.f;
+  for (int d = 0; d < D; d += 2) {
+    const float2 a = load2(q + d), b = load2(k + d);
+    l += round_to(a.x * sc, q) * b.x + round_to(a.y * sc, q) * b.y;
+  }
+  return l;
+}
+
+// Shared memory per warp: STAGES stages of {q [QR, DH], k [TILE, DH],
+// v [TILE, C]} in the input type (QR = TILE per edge, 1 per node), then
+// the softmax scratch.
+struct Layout {
+  int QR;
+  size_t stage_bytes, warp_bytes;
+  __host__ __device__ Layout(int H, int D, int C, int q_per_edge,
+                             int elem) {
+    const int DH = H * D;
+    QR = q_per_edge ? TILE : 1;
+    stage_bytes = (size_t)(QR * DH + TILE * DH + TILE * C) * elem;
+    warp_bytes = STAGES * stage_bytes
+        + ((size_t)(TILE * (H + 1) + 2 * H) * sizeof(float) + 15) / 16
+        * 16;
+  }
+};
+
+// NC: value channel pairs per lane, C <= 64 * NC
+template <typename T, int NC>
+__global__ void __launch_bounds__(MAX_WARPS * WARP)
 dense_attention_kernel(
     const T* __restrict__ q,         // [N, H*D] or [N, K, H*D]
     const T* __restrict__ k,         // [N, K, H*D]
@@ -61,117 +86,190 @@ dense_attention_kernel(
     const float* __restrict__ scale, // [N]
     float* __restrict__ out,         // [N, C]
     int N, int K, int H, int D, int C, int q_per_edge) {
-  __shared__ float s_logit_all[WARPS_PER_BLOCK][SLOTS * MAX_H];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(H, D, C, q_per_edge, sizeof(T));
   const int DH = H * D;
   const int CH = C / H;
+  const int nwarps = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
-  float* s_logit = s_logit_all[warp];   // [SLOTS, H]
-  const long long q_node = q_per_edge ? (long long)K * DH : DH;
-  const long long q_slot = q_per_edge ? DH : 0;
 
-  for (int n = blockIdx.x * WARPS_PER_BLOCK + warp; n < N;
-       n += gridDim.x * WARPS_PER_BLOCK) {
-    const float sc = scale[n];
-    float m[NJ], s[NJ], acc[NJ];
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      m[i] = -1e30f;
-      s[i] = 0.f;
-      acc[i] = 0.f;
-    }
+  unsigned char* wbase = smem + warp * L.warp_bytes;
+  auto stage = [&](int slot) {
+    return reinterpret_cast<T*>(wbase + slot * L.stage_bytes);
+  };
+  const int ldp = H + 1;
+  float* s_lp = reinterpret_cast<float*>(wbase + STAGES * L.stage_bytes);
+  float* s_alpha = s_lp + TILE * ldp;
+  float* s_den = s_alpha + H;
 
-    for (int k0 = 0; k0 < K; k0 += SLOTS) {
-      // issue the loads of SLOTS slots first (zeros past K)
-      float qv[SLOTS][NJ], kv[SLOTS][NJ], vv[SLOTS][NJ], mk[SLOTS];
-#pragma unroll
-      for (int u = 0; u < SLOTS; ++u) {
-        const int kk = k0 + u;
-        const long long row = (long long)n * K + kk;
-        mk[u] = kk < K && mask[row] ? 1.f : 0.f;
-#pragma unroll
-        for (int i = 0; i < NJ; ++i) {
-          const int j = lane + WARP * i;
-          const bool qk_ok = kk < K && j < DH;
-          qv[u][i] = qk_ok ? to_f32(q[n * q_node + kk * q_slot + j]) : 0.f;
-          kv[u][i] = qk_ok ? to_f32(k[row * DH + j]) : 0.f;
-          vv[u][i] = kk < K && j < C ? to_f32(v[row * C + j]) : 0.f;
-        }
+  const int tiles = (K + TILE - 1) / TILE;
+  const long long gw = (long long)blockIdx.x * nwarps + warp;
+  const long long TW = (long long)gridDim.x * nwarps;
+  const int nodes = gw < N ? (int)((N - 1 - gw) / TW) + 1 : 0;
+
+  // the copy cursor: the next (node, tile) to copy, into stage `slot`;
+  // one commit group per tile, empty past the warp's last node
+  int c_node = 0, c_tile = 0;
+  auto issue = [&](int slot) {
+    if (c_node < nodes) {
+      const long long n = gw + c_node * TW;
+      const int k0 = c_tile * TILE;
+      const int rows = K - k0 < TILE ? K - k0 : TILE;
+      const long long row0 = n * K + k0;
+      T* st = stage(slot);
+      if (q_per_edge)
+        copy_rows(st, DH, q + row0 * DH, DH, rows, TILE, DH, DH, lane);
+      else
+        copy_rows(st, DH, q + n * DH, 0, 1, 1, DH, DH, lane);
+      st += L.QR * DH;
+      copy_rows(st, DH, k + row0 * DH, DH, rows, TILE, DH, DH, lane);
+      copy_rows(st + TILE * DH, C, v + row0 * C, C, rows, TILE, C, C, lane);
+      if (++c_tile == tiles) {
+        c_tile = 0;
+        ++c_node;
       }
-      // per-head logits: partial products summed over D lanes
+    }
+    cp_async_commit();
+  };
+  // the mask and scale cursor, a tile ahead of the compute
+  int m_node = 0, m_tile = 0;
+  TileMeta next;
+  next.ok = false;
+  next.scale = 0.f;
+  auto meta = [&]() {
+    if (m_node < nodes) {
+      next.load(mask, scale, gw + m_node * TW, K, m_tile * TILE, lane);
+      if (++m_tile == tiles) {
+        m_tile = 0;
+        ++m_node;
+      }
+    }
+  };
+
+  // the heads of the lane's value channels c = 2 lane + 64 i and c + 1
+  int h0[NC], h1[NC];
 #pragma unroll
-      for (int u = 0; u < SLOTS; ++u) {
+  for (int i = 0; i < NC; ++i) {
+    const int c = 2 * lane + 64 * i;
+    h0[i] = min(c / CH, H - 1);
+    h1[i] = min((c + 1) / CH, H - 1);
+  }
+  // the (slot, head) pairs of the logits: with H a power of two up to 32,
+  // lane l takes head l % H and the slots l / H + (32 / H) i
+  const bool pow2_heads = H <= WARP && (H & (H - 1)) == 0;
+  const int hshift = __ffs(H) - 1;
+
+  Heads heads(H);
+  float acc[NC][2];
 #pragma unroll
-        for (int i = 0; i < NJ; ++i) {
-          const int j = lane + WARP * i;
-          float prod = round_to(qv[u][i] * sc, q) * kv[u][i];
-          for (int off = D / 2; off > 0; off >>= 1)
-            prod += __shfl_xor_sync(FULL, prod, off);
-          if (j < DH && j % D == 0) s_logit[u * H + j / D] = prod;
+  for (int i = 0; i < NC; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  meta();
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  int slot = 0;
+  for (int node = 0; node < nodes; ++node) {
+    const long long n = gw + node * TW;
+    for (int t = 0; t < tiles; ++t) {
+      issue((slot + STAGES - 1) % STAGES);
+      const unsigned valid = next.bits();
+      const float sc = next.scale;
+      meta();
+      cp_async_wait<STAGES - 1>();
+      __syncwarp();
+      const T* st_q = stage(slot);
+      const T* st_k = st_q + L.QR * DH;
+      const T* st_v = st_k + TILE * DH;
+      slot = (slot + 1) % STAGES;
+
+      // the logits of the tile's (slot, head) pairs, in log2 units
+      if (pow2_heads) {
+        const int h = lane & (H - 1);
+        const T* qh = st_q + h * D;
+        const T* kh = st_k + h * D;
+#pragma unroll 4
+        for (int r = lane >> hshift; r < TILE; r += WARP >> hshift)
+          s_lp[r * ldp + h] = head_logit(qh + (q_per_edge ? r * DH : 0),
+                                         kh + r * DH, D, sc) * LOG2E;
+      } else {
+        for (int idx = lane; idx < TILE * H; idx += WARP) {
+          const int r = idx / H, h = idx - r * H;
+          const T* qp = st_q + (q_per_edge ? r * DH : 0) + h * D;
+          s_lp[r * ldp + h] =
+              head_logit(qp, st_k + r * DH + h * D, D, sc) * LOG2E;
         }
       }
       __syncwarp();
-      // online softmax update of every value channel
+      tile_softmax(heads, s_lp, s_alpha, valid, ldp, lane);
+      __syncwarp();
+
+      // weighted values: lane l owns the channel pairs 2l + 64 i
 #pragma unroll
-      for (int u = 0; u < SLOTS; ++u) {
-        if (k0 + u < K) {  // warp-uniform
+      for (int i = 0; i < NC; ++i) {
+        const int c = 2 * lane + 64 * i;
+        if (c < C) {
+          float a0 = acc[i][0] * s_alpha[h0[i]];
+          float a1 = acc[i][1] * s_alpha[h1[i]];
 #pragma unroll
-          for (int i = 0; i < NJ; ++i) {
-            const int c = lane + WARP * i;
-            if (c < C) {
-              const float logit =
-                  mk[u] > 0.f ? s_logit[u * H + c / CH] : -1e30f;
-              const float m_new = fmaxf(m[i], logit);
-              const float alpha = expf(m[i] - m_new);
-              const float p = expf(logit - m_new) * mk[u];
-              s[i] = s[i] * alpha + p;
-              acc[i] = acc[i] * alpha + p * vv[u][i];
-              m[i] = m_new;
-            }
+          for (int r = 0; r < TILE; ++r) {
+            const float2 vv = load2(st_v + r * C + c);
+            a0 = fmaf(s_lp[r * ldp + h0[i]], vv.x, a0);
+            a1 = fmaf(s_lp[r * ldp + h1[i]], vv.y, a1);
           }
+          acc[i][0] = a0;
+          acc[i][1] = a1;
         }
       }
-      __syncwarp();
+      __syncwarp();  // the stage and the scratch are free again
     }
 
+    // the node's output
+    finish_heads(heads, s_den, nullptr, N, n, lane);
+    __syncwarp();
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-      const int c = lane + WARP * i;
-      if (c < C) out[(long long)n * C + c] = acc[i] / fmaxf(s[i], 1e-30f);
+    for (int i = 0; i < NC; ++i) {
+      const int c = 2 * lane + 64 * i;
+      if (c < C) {
+        float2 o;
+        o.x = acc[i][0] / s_den[h0[i]];
+        o.y = acc[i][1] / s_den[h1[i]];
+        *reinterpret_cast<float2*>(out + n * C + c) = o;
+      }
+      acc[i][0] = acc[i][1] = 0.f;
     }
   }
+  cp_async_wait<0>();
 }
 
-template <typename T, int NJ>
+template <typename T, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, const void* scale, void* out, int N,
                    int K, int H, int D, int C, int q_per_edge,
                    cudaStream_t stream) {
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  long long blocks = (N + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  const long long max_blocks = (long long)(sms > 0 ? sms : 132) * 8;
-  if (blocks > max_blocks) blocks = max_blocks;
-  dense_attention_kernel<T, NJ><<<(int)blocks, WARPS_PER_BLOCK * WARP, 0,
-                                  stream>>>(
+  const Layout L(H, D, C, q_per_edge, sizeof(T));
+  const int warps = warps_that_fit(0, L.warp_bytes);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = warps * L.warp_bytes;
+  auto kernel = dense_attention_kernel<T, NC>;
+  int blocks = 0;
+  cudaError_t err =
+      persistent_grid(kernel, warps * WARP, smem, N, warps, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, warps * WARP, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const bool*)mask,
       (const float*)scale, (float*)out, N, K, H, D, C, q_per_edge);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int nj, const void* q, const void* k, const void* v,
+cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* mask, const void* scale, void* out, int N,
                      int K, int H, int D, int C, int q_per_edge,
                      cudaStream_t stream) {
-  if (nj <= 1)
+  if (C <= 64)
     return launch<T, 1>(q, k, v, mask, scale, out, N, K, H, D, C,
                         q_per_edge, stream);
-  if (nj <= 2)
-    return launch<T, 2>(q, k, v, mask, scale, out, N, K, H, D, C,
-                        q_per_edge, stream);
-  return launch<T, 4>(q, k, v, mask, scale, out, N, K, H, D, C, q_per_edge,
+  return launch<T, 2>(q, k, v, mask, scale, out, N, K, H, D, C, q_per_edge,
                       stream);
 }
 
@@ -179,9 +277,11 @@ cudaError_t dispatch(int nj, const void* q, const void* k, const void* v,
 
 // Plain C entry point for ctypes. `is_bf16` selects the input type
 // (0: float32, 1: bfloat16); q, k and v share it. The caller guarantees
-// H*D <= 128, C <= 128, D a power of two <= 32, C % H == 0 and contiguous
+// H <= 32, H*D <= 128, C <= 128, D a power of two <= 32, C % H == 0,
+// contiguous
 // q ([N, H*D], or [N, K, H*D] when `q_per_edge`), k [N, K, H*D],
-// v [N, K, C], mask [N, K] and scale [N]. Returns the CUDA error of the
+// v [N, K, C], mask [N, K] and scale [N], and 16-byte alignment of q, k,
+// v and of their rows (H*D and C in bytes). Returns the CUDA error of the
 // launch (0 on success); the launch does not synchronize.
 extern "C" int dense_attention_launch(int is_bf16, const void* q,
                                       const void* k, const void* v,
@@ -189,13 +289,11 @@ extern "C" int dense_attention_launch(int is_bf16, const void* q,
                                       void* out, int N, int K, int H, int D,
                                       int C, int q_per_edge, void* stream) {
   if (N == 0) return 0;
-  const int DH = H * D;
-  const int nj = ((DH > C ? DH : C) + WARP - 1) / WARP;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = is_bf16
-      ? dispatch<__nv_bfloat16>(nj, q, k, v, mask, scale, out, N, K, H, D, C,
+      ? dispatch<__nv_bfloat16>(q, k, v, mask, scale, out, N, K, H, D, C,
                                 q_per_edge, st)
-      : dispatch<float>(nj, q, k, v, mask, scale, out, N, K, H, D, C,
+      : dispatch<float>(q, k, v, mask, scale, out, N, K, H, D, C,
                         q_per_edge, st);
   return (int)err;
 }

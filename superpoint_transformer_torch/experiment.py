@@ -4,8 +4,11 @@ Counterpart of `build_model` and `build_task` (semantic) in
 `superpoint_transformer_tpu/experiment.py` over a plain nested dict.
 `FLAGSHIP_CFG` holds the values that they read from `configs/train.yaml`
 composed with `experiment=semantic/s3dis`, so no YAML reader is needed; a
-test pins it to the YAML.
+test pins it to the YAML. Both entry points build on the card unless
+the caller passes `device='cpu'`.
 """
+import torch
+
 from .models.semantic import SemanticTask
 from .models.spt import SPT
 
@@ -98,13 +101,25 @@ def _dims(keys):
     return sum(FEAT_SIZE[k] for k in keys)
 
 
+def _device(device, fn):
+    """`device` as a torch.device; a CUDA device must exist (no fallback
+    to the CPU)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'{fn}: no CUDA device; pass device="cpu" to '
+                           'build on the CPU')
+    return device
+
+
 def build_model(cfg, num_graphs=8, compute_dtype='auto',
-                plain_attention=False, device=None):
+                plain_attention=False, device='cuda'):
     """Build the SPT backbone of `cfg` (a nested dict shaped like
-    `FLAGSHIP_CFG`), deriving every channel width as the JAX
+    `FLAGSHIP_CFG`) on `device`, deriving every channel width as the JAX
     `build_model` does. `compute_dtype='auto'` reads `trainer.precision`.
     `plain_attention` runs the attention kernel's plain PyTorch version
-    (for comparing the kernel with it)."""
+    (for comparing the kernel with it). Raises without a CUDA device
+    unless `device` is the CPU."""
+    device = _device(device, 'build_model')
     dm, m = cfg['datamodule'], cfg['model']
     net = m['net']
     if compute_dtype == 'auto':
@@ -181,13 +196,14 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
 
 
 def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
-               compute_dtype='auto', plain_attention=False, device=None):
+               compute_dtype='auto', plain_attention=False, device='cuda'):
     """The semantic `SemanticTask` of `cfg` (a nested dict shaped like
     `FLAGSHIP_CFG`) around `build_model(cfg, ...)` on `device`: its loss
     type and stage weights, AdamW's LR and weight decay, the attention
     LR scale and the warm-up. Numbers may be strings, as the YAML loader
     gives `1e-2`. Gradient accumulation and the plateau scheduler are not
-    ported."""
+    ported. Raises without a CUDA device unless `device` is the CPU."""
+    device = _device(device, 'build_task')
     m = cfg['model']
     sched = m['scheduler']
     if 'plateau' in str(sched.get('_target_', 'cosine')).lower():

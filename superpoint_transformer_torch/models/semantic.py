@@ -19,9 +19,13 @@ __all__ = ['SemanticSegmentationModel', 'SemanticTask']
 
 
 class SemanticSegmentationModel(nn.Module):
+    """The SPT backbone `net` with one classifier head per supervised
+    level, made on `device` (by default the device of `net`)."""
 
     def __init__(self, net, num_classes, device=None):
         super().__init__()
+        if device is None:
+            device = next(net.parameters()).device
         self.net = net
         self.num_classes = num_classes
         for i, d in enumerate(net.out_dim):

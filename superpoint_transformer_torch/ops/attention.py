@@ -145,10 +145,18 @@ def dense_attention(q, k, v, nbr_mask, scale):
         raise ValueError(f'dense_attention: tensors on {dev}, not on the '
                          'current CUDA device')
     C = H * CH
-    if D > 32 or D & (D - 1) or H * D > 128 or C > 128:
+    if D > 32 or D & (D - 1) or H * D > 128 or C > 128 or H > 32:
         raise ValueError(
             f'dense_attention: kernel needs D a power of two <= 32, '
-            f'H*D <= 128 and H*C/H <= 128 (got D={D}, H*D={H * D}, C={C})')
+            f'H*D <= 128, H <= 32 and H*C/H <= 128 (got D={D}, H={H}, '
+            f'H*D={H * D}, C={C})')
+    esz = k.element_size()
+    if (H * D * esz) % 16 or (C * esz) % 16 \
+            or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(
+            'dense_attention: the kernel copies 16-byte chunks, so H*D and '
+            'H*C/H must be multiples of 16 bytes and q, k, v 16-byte '
+            f'aligned (got H*D={H * D}, C={C}, {esz}-byte elements)')
     out = torch.empty((N, H, CH), dtype=torch.float32, device=dev)
     rc = _launcher()(
         int(dt == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),

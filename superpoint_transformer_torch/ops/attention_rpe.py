@@ -235,6 +235,20 @@ def dense_attention_rpe(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq,
 
     q_node, kg, vg, ef, wk, bk, wq, bq, wv, bv, nbr_mask, scale = args
     dev = kg.device
+    esz = kg.element_size()
+    rows = (H * D, C, De, kg.stride(1), vg.stride(1))
+    if H > 32:
+        raise ValueError('dense_attention_rpe: kernel needs H <= 32 heads '
+                         f'(got {H})')
+    if De > 64 or any(r * esz % 16 for r in rows) \
+            or any(t.data_ptr() % 16 for t in (q_node, kg, vg, ef)):
+        raise ValueError(
+            'dense_attention_rpe: the kernel copies 16-byte chunks and runs '
+            'its projections in k-steps of 16 up to De = 64, so it needs '
+            'De <= 64, 16-byte aligned q_node, k_nodes_g, v_nodes_g and ef, '
+            'and H*D, C, De and the slot strides of k_nodes_g / v_nodes_g '
+            f'in multiples of 16 bytes (got H*D, C, De, strides = {rows}, '
+            f'{esz}-byte elements)')
     out = torch.empty((N, C), dtype=torch.float32, device=dev)
     lse = torch.empty((H, N), dtype=torch.float32, device=dev) \
         if with_lse else None

@@ -42,15 +42,17 @@ def _paths(name):
 def build(names=KERNELS, force=False):
     """Compile the named sources, one nvcc process each, all started
     together; a library is rebuilt when `force` is set or it is missing or
-    older than its source. Waits for every process, then raises if any
-    failed. Returns {name: compiler report (registers, shared memory and
-    spills per kernel)} for the libraries it compiled."""
+    older than its source or a header in `csrc/`. Waits for every process,
+    then raises if any failed. Returns {name: compiler report (registers,
+    shared memory and spills per kernel)} for the libraries it compiled."""
     _BUILD_DIR.mkdir(exist_ok=True)
+    headers = max((h.stat().st_mtime for h in _CSRC.glob('*.cuh')),
+                  default=0.0)
     jobs = {}
     for name in names:
         src, lib = _paths(name)
-        if not force and lib.exists() \
-                and lib.stat().st_mtime >= src.stat().st_mtime:
+        if not force and lib.exists() and lib.stat().st_mtime >= max(
+                src.stat().st_mtime, headers):
             continue
         tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),

@@ -68,6 +68,21 @@ def test_plain_matches_pallas_interpret(q_per_edge, dtype):
 
 @pytest.mark.parametrize('q_per_edge', [False, True],
                          ids=['q_node', 'q_edge'])
+def test_plain_matches_pallas_interpret_wide_k(q_per_edge):
+    """K = 160 slots, ten of the CUDA kernel's 16-slot tiles, with fully
+    masked rows: the plain version vs the Pallas kernel over the whole
+    row at once."""
+    args = _inputs(q_per_edge, seed=8 + int(q_per_edge), N=128, K=160,
+                   masked_rows=8)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(dense_attention_pallas(*_jax(args), block_n=128))
+    got = dense_attention_reference(*_torch(args))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    assert np.all(got.numpy()[-8:] == 0)
+
+
+@pytest.mark.parametrize('q_per_edge', [False, True],
+                         ids=['q_node', 'q_edge'])
 def test_backward_matches_jax_custom_vjp(q_per_edge):
     """dq, dk, dv, dscale vs `jax.grad` of the trainable Pallas kernel (its
     backward is XLA autodiff of the plain expression), under a random

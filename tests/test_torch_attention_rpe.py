@@ -82,6 +82,20 @@ def test_plain_lse_and_fully_masked_rows_match_pallas():
     assert np.isfinite(out.numpy()).all()
 
 
+def test_plain_lse_wide_k_matches_pallas():
+    """K = 160 slots, ten of the CUDA kernel's 16-slot tiles, with fully
+    masked rows: output and lse of the plain version vs the Pallas
+    kernel's streaming pass."""
+    args = _inputs(seed=12, N=128, K=160, masked_rows=8)
+    ref_out, ref_lse = _pallas(args, with_lse=True)
+    out, lse = dense_attention_rpe_reference(*_torch(args), with_lse=True)
+    np.testing.assert_allclose(out.numpy(), ref_out, rtol=RTOL, atol=ATOL)
+    valid = args[10].any(1)
+    np.testing.assert_allclose(lse.numpy()[:, valid], ref_lse[:, valid],
+                               rtol=RTOL, atol=ATOL)
+    assert np.all(out.numpy()[-8:] == 0)
+
+
 def test_plain_matches_pallas_interpret_bf16_inputs():
     """bf16 inputs, f32 math on both sides: the same rounded values go
     into the same f32 arithmetic and only the summation order differs,

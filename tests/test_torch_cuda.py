@@ -57,8 +57,10 @@ def _inputs(dev, dtype, N, K, H, D, C, De, masked_rows, seed=0):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [
     dict(N=1000, K=37, H=4, D=4, C=32, De=8, masked_rows=7),
-    dict(N=10_240, K=48, H=16, D=4, C=64, De=32, masked_rows=100)],
-    ids=['ragged', 'flagship'])
+    dict(N=10_240, K=48, H=16, D=4, C=64, De=32, masked_rows=100),
+    dict(N=1024, K=160, H=16, D=4, C=64, De=32, masked_rows=50),
+    dict(N=2048, K=50, H=16, D=4, C=64, De=32, masked_rows=50)],
+    ids=['ragged', 'flagship', 'wide_k', 'k50'])
 def test_kernel_matches_plain(cuda_device, dtype, shape):
     args = _inputs(cuda_device, dtype, **shape)
     before = dense_attention_rpe.launches
@@ -115,14 +117,17 @@ def _k1_inputs(dev, dtype, N, K, H, D, CH, q_per_edge, masked_rows, seed=0):
 
 
 K1_SHAPES = [dict(N=1000, K=37, H=4, D=4, CH=8, masked_rows=7),
-             dict(N=5120, K=48, H=16, D=4, CH=4, masked_rows=100)]
+             dict(N=5120, K=48, H=16, D=4, CH=4, masked_rows=100),
+             dict(N=1024, K=160, H=16, D=4, CH=4, masked_rows=50),
+             dict(N=2048, K=50, H=16, D=4, CH=4, masked_rows=50)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('q_per_edge', [False, True],
                          ids=['q_node', 'q_edge'])
-@pytest.mark.parametrize('shape', K1_SHAPES, ids=['ragged', 'flagship'])
+@pytest.mark.parametrize('shape', K1_SHAPES,
+                         ids=['ragged', 'flagship', 'wide_k', 'k50'])
 def test_k1_kernel_matches_plain(cuda_device, dtype, q_per_edge, shape):
     args = _k1_inputs(cuda_device, dtype, q_per_edge=q_per_edge, **shape)
     before = dense_attention.launches
@@ -228,3 +233,40 @@ def test_k1_and_k3_reject_what_they_cannot_take(cuda_device):
     out, lse = dense_attention_rpe(*args, with_lse=True)
     with pytest.raises(ValueError, match='power of two'):
         dense_attention_rpe_bwd(*args, out, lse, g)
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_reject_rows_their_copies_cannot_take(cuda_device):
+    """The kernels copy 16-byte chunks and keep one head per lane: rows
+    that are not a multiple of 16 bytes and more than 32 heads raise."""
+    args = _inputs(cuda_device, torch.bfloat16, N=64, K=8, H=4, D=4, C=16,
+                   De=4, masked_rows=0)
+    with pytest.raises(ValueError, match='16-byte'):
+        dense_attention_rpe(*args)
+    args = _k1_inputs(cuda_device, torch.bfloat16, N=64, K=8, H=2, D=2,
+                      CH=2, q_per_edge=True, masked_rows=0)
+    with pytest.raises(ValueError, match='16-byte'):
+        dense_attention(*args)
+    args = _k1_inputs(cuda_device, torch.float32, N=64, K=8, H=64, D=1,
+                      CH=1, q_per_edge=False, masked_rows=0)
+    with pytest.raises(ValueError, match='H <= 32'):
+        dense_attention(*args)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_after_a_smaller_shape(cuda_device):
+    """A kernel's shared-memory limit only grows: the same kernel at a
+    large, a small and again the large shape runs and agrees each time."""
+    for shape in (K1_SHAPES[1], K1_SHAPES[0], K1_SHAPES[1]):
+        args = _k1_inputs(cuda_device, torch.float32, q_per_edge=True,
+                          **shape)
+        torch.testing.assert_close(dense_attention(*args),
+                                   dense_attention_reference(*args),
+                                   **K1_TOL)
+    for shape in (dict(N=2048, K=48, H=16, D=4, C=64, De=32, masked_rows=0),
+                  dict(N=1000, K=37, H=4, D=4, C=32, De=8, masked_rows=0),
+                  dict(N=2048, K=48, H=16, D=4, C=64, De=32, masked_rows=0)):
+        args = _inputs(cuda_device, torch.float32, **shape)
+        torch.testing.assert_close(dense_attention_rpe(*args),
+                                   dense_attention_rpe_reference(*args),
+                                   rtol=RTOL, atol=ATOL)

@@ -41,7 +41,7 @@ SCRIPT = textwrap.dedent('''
         random_padded_nag)
 
     model = SemanticSegmentationModel(
-        build_model(FLAGSHIP_CFG, num_graphs=2), 13)
+        build_model(FLAGSHIP_CFG, num_graphs=2, device='cpu'), 13)
     init_weights(model, torch.Generator().manual_seed(0)).eval()
     batch = from_numpy(random_padded_nag(seed=0, num_graphs=2,
                                          n_points=500, n_l1=40, n_l2=10),
@@ -50,7 +50,8 @@ SCRIPT = textwrap.dedent('''
     assert pred.shape == (batch[1].num_nodes,)
     assert pred.min() >= 0 and pred.max() < 13
 
-    task = build_task(FLAGSHIP_CFG, num_graphs=2, total_steps=10)
+    task = build_task(FLAGSHIP_CFG, num_graphs=2, total_steps=10,
+                      device='cpu')
     init_weights(task.model, torch.Generator().manual_seed(0))
     host = random_padded_nag(seed=1, num_graphs=2, n_points=500, n_l1=40,
                              n_l2=10)

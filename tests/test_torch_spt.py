@@ -21,7 +21,7 @@ from superpoint_transformer_tpu.transforms import BatchConfig, prepare_batch
 from superpoint_transformer_tpu.utils.synthetic import random_nag
 from superpoint_transformer_torch.data.padded import from_numpy
 from superpoint_transformer_torch.experiment import (FLAGSHIP_CFG,
-                                                     build_model)
+                                                     build_model, build_task)
 from superpoint_transformer_torch.inference import infer_batch
 from superpoint_transformer_torch.models.semantic import (
     SemanticSegmentationModel as TModel)
@@ -132,8 +132,8 @@ def test_flagship_cfg_equals_yaml_composition():
     for path, value in _leaves(FLAGSHIP_CFG):
         assert cfg.get_path(path) == value, path
     # the port builds the same network from either
-    a = build_model(FLAGSHIP_CFG, num_graphs=8)
-    b = build_model(cfg, num_graphs=8)
+    a = build_model(FLAGSHIP_CFG, num_graphs=8, device='cpu')
+    b = build_model(cfg, num_graphs=8, device='cpu')
     assert {k: v.shape for k, v in a.state_dict().items()} == \
         {k: v.shape for k, v in b.state_dict().items()}
 
@@ -148,10 +148,28 @@ def test_flagship_parameter_count_matches_jax():
         jax.random.PRNGKey(0), small, train=False))['params']
     n_jax = sum(int(np.prod(x.shape))
                 for x in jax.tree_util.tree_leaves(shapes))
-    tm = TModel(build_model(FLAGSHIP_CFG, num_graphs=8), 13)
+    tm = TModel(build_model(FLAGSHIP_CFG, num_graphs=8, device='cpu'), 13)
     n_port = sum(p.numel() for p in tm.parameters())
     assert n_port == n_jax
     assert 200_000 < n_port < 220_000
     # and every flax parameter has its counterpart, shape for shape
     load_jax_params(tm, jax.tree_util.tree_map(
         lambda x: np.zeros(x.shape, np.float32), shapes))
+
+
+@pytest.mark.parametrize('entry', [build_model, build_task],
+                         ids=['build_model', 'build_task'])
+def test_entry_points_build_on_the_card_unless_asked_for_the_cpu(entry):
+    """With no device given, the entry points build on the card: on a
+    machine without one they raise, never falling back to the CPU. With
+    device='cpu' every parameter is on the CPU."""
+    if torch.cuda.is_available():
+        built = entry(FLAGSHIP_CFG, num_graphs=2)
+        module = built.model if entry is build_task else built
+        assert all(p.is_cuda for p in module.parameters())
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            entry(FLAGSHIP_CFG, num_graphs=2)
+    built = entry(FLAGSHIP_CFG, num_graphs=2, device='cpu')
+    module = built.model if entry is build_task else built
+    assert all(p.device.type == 'cpu' for p in module.parameters())

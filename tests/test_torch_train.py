@@ -318,7 +318,8 @@ def test_cosine_with_warmup_matches_jax(strategy):
 
 
 def test_build_task_reads_the_flagship_values():
-    task = build_task(FLAGSHIP_CFG, num_graphs=2, total_steps=1000)
+    task = build_task(FLAGSHIP_CFG, num_graphs=2, total_steps=1000,
+                      device='cpu')
     assert task.loss_type == 'ce_kl' and task.lambdas == (1.0, 50.0)
     (base, attn) = task.optimizer.param_groups
     assert (base['name'], attn['name']) == ('base', 'transformer')
