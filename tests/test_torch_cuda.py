@@ -25,6 +25,35 @@ K3_TOL = dict(rtol=2e-3, atol=2e-4)
 # gradients written in bf16 by both sides from the same f32 math: one
 # rounding step (2^-8 relative) may separate them
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-3)
+# every random input is drawn from a fixed seed; the K3 tests run over a
+# few, each its own test case
+SEEDS = (0, 1, 2)
+
+
+def _randn(dev, seed, *shape):
+    """Standard normal values from a CPU generator seeded with `seed`,
+    moved to `dev` (the same values on every card)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=gen).to(dev)
+
+
+def _assert_grad_close(name, got, ref, rtol, atol):
+    """torch.testing.assert_close, after a check whose message names the
+    gradient, its worst element (by error over tolerance), the absolute
+    error there and the tolerance atol + rtol*|ref| there."""
+    err = (got.float() - ref.float()).abs()
+    tol = atol + rtol * ref.float().abs()
+    if err.numel() and not bool((err <= tol).all()):
+        ratio = torch.where(torch.isnan(err), torch.inf, err / tol)
+        i = int(ratio.argmax())
+        idx = tuple(int(j) for j in np.unravel_index(i, tuple(err.shape)))
+        raise AssertionError(
+            f'{name}: worst element {idx}: |got - ref| = '
+            f'{err.flatten()[i].item():.4e} > atol + rtol*|ref| = '
+            f'{tol.flatten()[i].item():.4e} (got '
+            f'{got.flatten()[i].item():.6e}, ref {ref.flatten()[i].item():.6e}'
+            f'; rtol {rtol}, atol {atol})')
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol, msg=name)
 
 
 @pytest.fixture
@@ -151,7 +180,7 @@ def test_k1_backward_matches_autograd_of_plain(cuda_device, dtype,
     without the forward's rounding of q*scale), rounded to `dtype`."""
     args = _k1_inputs(cuda_device, dtype, q_per_edge=q_per_edge,
                       **K1_SHAPES[1])
-    w = torch.randn(args[1].shape[0], 16, 4, device=cuda_device)
+    w = _randn(cuda_device, 0, args[1].shape[0], 16, 4)
     grads = []
     for fn, cast in ((dense_attention_trainable, dtype),
                      (dense_attention_reference, torch.float32)):
@@ -168,17 +197,21 @@ K3_GRADS = ('dq', 'dkg', 'dvg', 'd_ef', 'dwk', 'dbk', 'dwq', 'dbq', 'dwv',
             'dbv')
 
 
+K3_FLAGSHIP = dict(N=5120, K=48, H=16, D=4, C=64, De=32)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize('seed', SEEDS)
 @pytest.mark.parametrize('shape', [
     dict(N=1000, K=37, H=4, D=4, C=32, De=8, masked_rows=7),
-    dict(N=5120, K=48, H=16, D=4, C=64, De=32, masked_rows=100)],
+    dict(K3_FLAGSHIP, masked_rows=100)],
     ids=['ragged', 'flagship'])
-def test_k3_kernel_matches_autograd_of_plain(cuda_device, shape):
+def test_k3_kernel_matches_autograd_of_plain(cuda_device, shape, seed):
     """K3's ten gradients vs autograd through K2's plain version (f32);
     the weight gradients are the same in two runs (no atomics)."""
-    args = _inputs(cuda_device, torch.float32, **shape)
+    args = _inputs(cuda_device, torch.float32, seed=seed, **shape)
     H, C = shape['H'], shape['C']
-    g = torch.randn(shape['N'], H, C // H, device=cuda_device)
+    g = _randn(cuda_device, seed, shape['N'], H, C // H)
     out, lse = dense_attention_rpe(*args, with_lse=True)
     before = dense_attention_rpe_bwd.launches
     grads = dense_attention_rpe_bwd(*args, out, lse, g)
@@ -187,23 +220,47 @@ def test_k3_kernel_matches_autograd_of_plain(cuda_device, shape):
     leaves = [a.clone().requires_grad_() for a in args[:10]]
     (dense_attention_rpe_reference(*leaves, *args[10:]) * g).sum().backward()
     for name, a, t in zip(K3_GRADS, grads, leaves):
-        torch.testing.assert_close(a, t.grad, **K3_TOL, msg=name)
+        _assert_grad_close(name, a, t.grad, **K3_TOL)
     for name, a, b in zip(K3_GRADS[4:], grads[4:], again[4:]):
         assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
-def test_k3_kernel_matches_plain_bf16(cuda_device):
-    args = _inputs(cuda_device, torch.bfloat16, N=2048, K=48, H=16, D=4,
-                   C=64, De=32, masked_rows=64)
-    g = torch.randn(2048, 16, 4, device=cuda_device)
+@pytest.mark.parametrize('seed', SEEDS)
+@pytest.mark.parametrize('shape', [
+    dict(N=2048, K=48, H=16, D=4, C=64, De=32, masked_rows=64),
+    dict(N=700, K=37, H=2, D=4, C=8, De=8, masked_rows=9)],
+    ids=['flagship', 'off_tiles'])
+def test_k3_kernel_matches_plain_bf16(cuda_device, shape, seed):
+    """The bf16 K3 vs its plain version. `off_tiles`: De and 2*H*D + C
+    are not multiples of 16 and K is not a multiple of 16, so the
+    tensor-core products run on zero-padded tiles; the last rows are
+    fully masked."""
+    args = _inputs(cuda_device, torch.bfloat16, seed=seed, **shape)
+    H, C = shape['H'], shape['C']
+    g = _randn(cuda_device, seed, shape['N'], H, C // H)
     out, lse = dense_attention_rpe(*args, with_lse=True)
     grads = dense_attention_rpe_bwd(*args, out, lse, g)
     ref = dense_attention_rpe_bwd_reference(*args, out, lse, g)
     for i, (name, a, b) in enumerate(zip(K3_GRADS, grads, ref)):
         assert a.dtype == b.dtype, name
-        torch.testing.assert_close(a, b, **(BF16_TOL if i < 4 else K3_TOL),
-                                   msg=name)
+        _assert_grad_close(name, a, b, **(BF16_TOL if i < 4 else K3_TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('seed', SEEDS)
+def test_k3_bf16_weight_gradients_are_reproducible(cuda_device, seed):
+    """The bf16 weight and bias gradients are bitwise the same in two
+    runs at the flagship training shape (block partials added in block
+    order, no atomics)."""
+    args = _inputs(cuda_device, torch.bfloat16, seed=seed,
+                   masked_rows=100, **K3_FLAGSHIP)
+    g = _randn(cuda_device, seed, K3_FLAGSHIP['N'], 16, 4)
+    out, lse = dense_attention_rpe(*args, with_lse=True)
+    grads = dense_attention_rpe_bwd(*args, out, lse, g)
+    again = dense_attention_rpe_bwd(*args, out, lse, g)
+    for name, a, b in zip(K3_GRADS[4:], grads[4:], again[4:]):
+        assert a.dtype == torch.float32 and torch.equal(a, b), name
 
 
 @pytest.mark.cuda
