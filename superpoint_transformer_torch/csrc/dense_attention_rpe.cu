@@ -60,16 +60,6 @@ namespace {
 
 using namespace node_tiles;
 
-// one m16n8k16 bf16 product added to the f32 accumulator d
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const unsigned (&a)[4], uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
 // Shared-memory layout, the same on host and device. The weights region
 // (once per block) holds the concatenated projection [De, NT*8] for the
 // column tiles [k (NK) | q (NK) | v (NV)], as B fragments in bf16 (KS

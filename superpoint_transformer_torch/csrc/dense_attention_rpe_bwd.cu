@@ -48,31 +48,125 @@
 //   of which each thread owns tiles of EPT x 1 in registers; each block
 //   writes its partial sums, and a second kernel adds the partials in
 //   block order. The result is the same in every run on a given card.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include <type_traits>
+
+#include "node_tiles.cuh"
 
 namespace {
 
-constexpr int WARP = 32;
+using node_tiles::FULL;
+using node_tiles::mma_bf16;
+using node_tiles::to_f32;
+using node_tiles::WARP;
+
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int THREADS = WARPS_PER_BLOCK * WARP;
 constexpr int SLOTS = 2;                          // slots per warp per round
 constexpr int ROWS = WARPS_PER_BLOCK * SLOTS;     // slots staged per round
 constexpr int EPT = 8;     // edge-feature rows per accumulator item
 constexpr int MAX_ITEMS = 4;  // accumulator items per thread
-constexpr unsigned FULL = 0xffffffffu;
+static_assert(ROWS == 16, "a round is one 16-row m16n8k16 tile");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
 __host__ __device__ inline int padded_de1(int De) {
   return (De + 1 + EPT - 1) / EPT * EPT;
+}
+
+__host__ __device__ inline size_t up16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// Shared-memory layout in bytes, the same on host and device; every
+// region starts on 16 bytes. Both variants: the weights [De, W+1] and
+// biases [W] in f32, the staged edge features [ROWS, DE1P] and gradient
+// rows [ROWS, W] in f32, the per-warp head scratch. The bf16 variant
+// adds the weights as the B fragments of the edge-feature gradient (NTA
+// tiles of 8 edge features, KSA k-steps of 16 gradient columns) and the
+// gradient rows split into bf16 hi and lo parts, [ROWS, LDG] each, zero
+// past column W.
+struct Layout {
+  int W, WP, DE1P, NTA, KSA, LDG;
+  size_t w, b, ef, grad, head, frag, ghi, glo, total;
+  __host__ __device__ Layout(int H, int D, int C, int De, bool bf16) {
+    W = 2 * H * D + C;
+    WP = W + 1;
+    DE1P = padded_de1(De);
+    NTA = (De + 7) / 8;
+    KSA = (W + 15) / 16;
+    LDG = KSA * 16 + 8;  // 16 * odd bytes: ldmatrix rows on distinct banks
+    size_t o = 0;
+    w = o;    o += up16(sizeof(float) * De * WP);
+    b = o;    o += up16(sizeof(float) * W);
+    ef = o;   o += up16(sizeof(float) * ROWS * DE1P);
+    grad = o; o += up16(sizeof(float) * ROWS * W);
+    head = o; o += up16(sizeof(float) * WARPS_PER_BLOCK * 2 * H);
+    frag = ghi = glo = o;
+    if (bf16) {
+      frag = o; o += sizeof(uint2) * NTA * KSA * WARP;
+      ghi = o;  o += up16(sizeof(__nv_bfloat16) * ROWS * LDG);
+      glo = o;  o += up16(sizeof(__nv_bfloat16) * ROWS * LDG);
+    }
+    total = o;
+  }
+};
+
+// The edge-feature gradient of a round's ROWS staged slots on the tensor
+// cores: d_ef[ROWS, De] = G[ROWS, W] . [wk | wq | wv]^T, with G = hi + lo
+// (two bf16 parts, two products) and the bf16 weights exact. Warp w takes
+// the tiles of 8 edge features w, w + 8, ...; staged row r is slot
+// k0 + r % SLOTS of node base + r / SLOTS.
+template <typename T>
+__device__ __forceinline__ void edge_grad_mma(
+    const Layout& L, const unsigned char* smem, long long base, int k0,
+    int N, int K, int De, T* __restrict__ d_ef, int warp, int lane) {
+  const uint2* frag = reinterpret_cast<const uint2*>(smem + L.frag);
+  const __nv_bfloat16* ghi =
+      reinterpret_cast<const __nv_bfloat16*>(smem + L.ghi);
+  const __nv_bfloat16* glo =
+      reinterpret_cast<const __nv_bfloat16*>(smem + L.glo);
+  const int g = lane >> 2, tq = lane & 3;
+  // A fragments: matrix l / 8 holds rows 8 * (l / 8 % 2) .. + 8 and
+  // columns 8 * (l / 16) .. + 8 of the k-step
+  const int a_off = (lane & 15) * L.LDG + 8 * (lane >> 4);
+  for (int nt = warp; nt < L.NTA; nt += WARPS_PER_BLOCK) {
+    float dh[4] = {0.f, 0.f, 0.f, 0.f}, dl[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = 0; ks < L.KSA; ++ks) {
+      unsigned ah[4], al[4];
+      ldmatrix_x4(ah, ghi + a_off + ks * 16);
+      ldmatrix_x4(al, glo + a_off + ks * 16);
+      const uint2 bw = frag[(nt * L.KSA + ks) * WARP + lane];
+      mma_bf16(dh, ah, bw);
+      mma_bf16(dl, al, bw);
+    }
+    const int e = 8 * nt + 2 * tq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = g + 8 * half;
+      const long long n = base + r / SLOTS;
+      const int kk = k0 + r % SLOTS;
+      if (n < N && kk < K) {
+        T* dst = d_ef + (n * K + kk) * De;
+        if (e < De) store(dst + e, dh[2 * half] + dl[2 * half]);
+        if (e + 1 < De)
+          store(dst + e + 1, dh[2 * half + 1] + dl[2 * half + 1]);
+      }
+    }
+  }
 }
 
 template <typename T, int NJ, int ITEMS>
@@ -97,18 +191,22 @@ dense_attention_rpe_bwd_kernel(
     float* __restrict__ partial,      // [gridDim.x, De+1, W]
     int N, int K, int H, int D, int C, int De, long long ldk,
     long long ldv) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  const Layout L(H, D, C, De, BF16);
   const int DH = H * D;
   const int CH = C / H;
-  const int W = 2 * DH + C;      // gradient columns [dk | dq | dv]
-  const int WP = W + 1;          // odd row stride of the weights
+  const int W = L.W;             // gradient columns [dk | dq | dv]
+  const int WP = L.WP;           // odd row stride of the weights
   const int DE1 = De + 1;        // edge features and the constant 1
-  const int DE1P = padded_de1(De);
-  float* s_w = smem;                     // [De, WP]: [wk | wq | wv]
-  float* s_b = s_w + De * WP;            // [W]:      [bk | bq | bv]
-  float* s_ef = s_b + W;                 // [ROWS, DE1P]
-  float* s_grad = s_ef + ROWS * DE1P;    // [ROWS, W]
-  float* s_head = s_grad + ROWS * W;     // [WARPS_PER_BLOCK, 2, H]
+  const int DE1P = L.DE1P;
+  float* s_w = reinterpret_cast<float*>(smem + L.w);   // [De, WP]
+  float* s_b = reinterpret_cast<float*>(smem + L.b);   // [W]
+  float* s_ef = reinterpret_cast<float*>(smem + L.ef);      // [ROWS, DE1P]
+  float* s_grad = reinterpret_cast<float*>(smem + L.grad);  // [ROWS, W]
+  float* s_head = reinterpret_cast<float*>(smem + L.head);
+  __nv_bfloat16* s_ghi = reinterpret_cast<__nv_bfloat16*>(smem + L.ghi);
+  __nv_bfloat16* s_glo = reinterpret_cast<__nv_bfloat16*>(smem + L.glo);
 
   for (int i = threadIdx.x; i < De * W; i += THREADS) {
     const int e = i / W, j = i % W;
@@ -120,6 +218,34 @@ dense_attention_rpe_bwd_kernel(
   for (int j = threadIdx.x; j < W; j += THREADS)
     s_b[j] = j < DH ? to_f32(bk[j])
         : j < 2 * DH ? to_f32(bq[j - DH]) : to_f32(bv[j - 2 * DH]);
+  if constexpr (BF16) {
+    // the B fragments of [wk | wq | wv]^T: k = gradient column, n = edge
+    // feature, zero past W and De (bf16 weights: exact)
+    auto weight = [&](int e, int j) -> float {
+      if (e >= De || j >= W) return 0.f;
+      return j < DH ? to_f32(wk[e * DH + j])
+          : j < 2 * DH ? to_f32(wq[e * DH + j - DH])
+                       : to_f32(wv[e * C + j - 2 * DH]);
+    };
+    uint2* frag = reinterpret_cast<uint2*>(smem + L.frag);
+    for (int i = threadIdx.x; i < L.NTA * L.KSA * WARP; i += THREADS) {
+      const int l = i % WARP, ks = (i / WARP) % L.KSA;
+      const int e = 8 * (i / (WARP * L.KSA)) + (l >> 2);
+      const int j = ks * 16 + 2 * (l & 3);
+      const __nv_bfloat162 lo =
+          __floats2bfloat162_rn(weight(e, j), weight(e, j + 1));
+      const __nv_bfloat162 hi =
+          __floats2bfloat162_rn(weight(e, j + 8), weight(e, j + 9));
+      frag[i] = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                           *reinterpret_cast<const unsigned*>(&hi));
+    }
+    // the gradient rows' columns past W stay zero
+    for (int i = threadIdx.x; i < ROWS * L.LDG; i += THREADS)
+    {
+      s_ghi[i] = __float2bfloat16(0.f);
+      s_glo[i] = __float2bfloat16(0.f);
+    }
+  }
   __syncthreads();
 
   const int warp = threadIdx.x / WARP;
@@ -221,6 +347,18 @@ dense_attention_rpe_bwd_kernel(
         const long long row = n * K + kk;
         const float maskk = slot_ok && mask[row] ? 1.f : 0.f;
         float* grad = s_grad + (warp * SLOTS + u) * W;
+        __nv_bfloat16* ghi = s_ghi + (warp * SLOTS + u) * L.LDG;
+        __nv_bfloat16* glo = s_glo + (warp * SLOTS + u) * L.LDG;
+        // column j of the slot's gradient row: f32, and in bf16 also split
+        // into hi + lo for the tensor cores
+        auto put = [&](int j, float v) {
+          grad[j] = v;
+          if constexpr (BF16) {
+            const __nv_bfloat16 hi = __float2bfloat16(v);
+            ghi[j] = hi;
+            glo[j] = __float2bfloat16(v - __bfloat162float(hi));
+          }
+        };
 
         // q/k lanes: the head logits, partial products summed over D lanes
         float kf[NJ], qf[NJ];
@@ -271,29 +409,36 @@ dense_attention_rpe_bwd_kernel(
             const float e = s_e[j / D];
             const float dqf = e * kf[i], dkf = e * qf[i];
             dq_acc[i] += dqf;
-            grad[j] = dkf;
-            grad[DH + j] = dqf;
+            put(j, dkf);
+            put(DH + j, dqf);
             if (slot_ok) store(&dkg[row * DH + j], dkf);
           }
           if (j < C) {
-            grad[2 * DH + j] = dv[i];
+            put(2 * DH + j, dv[i]);
             if (slot_ok) store(&dvg[row * C + j], dv[i]);
           }
         }
         __syncwarp();
 
-        // lanes over edge-feature rows: back through the three projections
-        for (int e = lane; e < De; e += WARP) {
-          const float* wrow = s_w + e * WP;
-          float sum = 0.f;
-          for (int jj = 0; jj < W; ++jj) sum = fmaf(wrow[jj], grad[jj], sum);
-          if (slot_ok) store(&d_ef[row * De + e], sum);
+        // f32: lanes over edge-feature rows, back through the three
+        // projections (bf16: edge_grad_mma below, for the whole block)
+        if constexpr (!BF16) {
+          for (int e = lane; e < De; e += WARP) {
+            const float* wrow = s_w + e * WP;
+            float sum = 0.f;
+            for (int jj = 0; jj < W; ++jj)
+              sum = fmaf(wrow[jj], grad[jj], sum);
+            if (slot_ok) store(&d_ef[row * De + e], sum);
+          }
         }
         __syncwarp();
       }
 
-      // the block's staged rows into the weight and bias gradients
+      // the block's staged rows into the edge-feature gradient (bf16) and
+      // the weight and bias gradients
       __syncthreads();
+      if constexpr (BF16)
+        edge_grad_mma(L, smem, base, k0, N, K, De, d_ef, warp, lane);
 #pragma unroll
       for (int it = 0; it < ITEMS; ++it) {
         const int t = threadIdx.x + THREADS * it;
@@ -363,10 +508,9 @@ cudaError_t launch(int blocks, const void* q, const void* kg, long long ldk,
                    const void* lse, const void* delta, void* dq, void* dkg,
                    void* dvg, void* d_ef, void* partial, void* dw, int N,
                    int K, int H, int D, int C, int De, cudaStream_t stream) {
-  const int DH = H * D, W = 2 * DH + C;
-  const size_t smem = sizeof(float)
-      * ((size_t)De * (W + 1) + W + (size_t)ROWS * padded_de1(De)
-         + (size_t)ROWS * W + (size_t)WARPS_PER_BLOCK * 2 * H);
+  const int W = 2 * H * D + C;
+  const size_t smem =
+      Layout(H, D, C, De, std::is_same<T, __nv_bfloat16>::value).total;
   auto kernel = dense_attention_rpe_bwd_kernel<T, NJ, ITEMS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(

@@ -1,6 +1,7 @@
 // Pieces shared by the dense-neighbor attention kernels K1
 // (dense_attention.cu) and K2 (dense_attention_rpe.cu), for Hopper
-// (sm_90a).
+// (sm_90a); K2's backward K3 (dense_attention_rpe_bwd.cu) takes its
+// tensor-core product `mma_bf16` from here too.
 //
 // Both kernels walk a node's K neighbor slots in tiles of TILE slots.
 // Every warp runs its own pipeline: a ring of tiles in shared memory,
@@ -48,6 +49,18 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// one m16n8k16 bf16 product added to the f32 accumulator d (A row major
+// in the four registers of the m16n8k16 A fragment, B column major in
+// two)
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
 // 16 bytes from global to shared memory: `bytes` is 16 to copy or 0 to
