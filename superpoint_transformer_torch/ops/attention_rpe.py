@@ -50,14 +50,16 @@ def _bwd_launcher():
 
 
 def _rpe_terms(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq, wv, bv):
-    """Inputs rounded to the dtype of `k_nodes_g`, in f32: the edge
+    """Inputs rounded to the dtype of `k_nodes_g`, in f32 (f64 for f64
+    inputs, a reference for the kernels' own rounding): the edge
     features e and the RPE-augmented k [N, K, H*D], q [N, K, H*D] and
     v [N, K, C], as both kernels compute them."""
     N, DH = q_node.shape[0], k_nodes_g.shape[2]
-    dt, f32 = k_nodes_g.dtype, torch.float32
+    dt = k_nodes_g.dtype
+    ct = torch.promote_types(dt, torch.float32)
 
     def c(t):
-        return t.to(dt).to(f32)
+        return t.to(dt).to(ct)
 
     e = c(ef)
     k = c(k_nodes_g) + e @ c(wk) + c(bk)
@@ -79,8 +81,8 @@ def dense_attention_rpe_reference(q_node, k_nodes_g, v_nodes_g, ef, wk,
                                   with_lse=False):
     """Plain PyTorch version of the K2 kernel (the JAX package's
     `_rpe_xla_reference`, plus the kernel's lse). Inputs are rounded to
-    the dtype of `k_nodes_g` and the math runs in f32, as in the
-    kernel."""
+    the dtype of `k_nodes_g` and the math runs in f32, as in the kernel
+    (in f64 for f64 inputs: the card tests' reference for K3)."""
     N, K, DH = k_nodes_g.shape
     H, C = q_node.shape[1], v_nodes_g.shape[2]
     _, k, q, v = _rpe_terms(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
@@ -97,6 +99,32 @@ def dense_attention_rpe_reference(q_node, k_nodes_g, v_nodes_g, ef, wk,
     return out
 
 
+def _rpe_bwd_rows(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq, wv, bv,
+                  nbr_mask, scale, out, lse, g):
+    """The per-slot terms of K3's plain version, in f32 (f64 for f64
+    inputs): the edge features e [N, K, De] rounded to the dtype of
+    `k_nodes_g`, and the gradient rows dk_full, dq_full [N, K, H*D] and
+    dv [N, K, C] that the kernel stages, G = [dk_full | dq_full | dv]."""
+    N, K, DH = k_nodes_g.shape
+    H, D = q_node.shape[1], q_node.shape[2]
+    C = v_nodes_g.shape[2]
+    f32 = torch.promote_types(k_nodes_g.dtype, torch.float32)
+    e, k, q, v = _rpe_terms(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
+                            bq, wv, bv)
+    logit = _masked_logits(q, k, nbr_mask, scale, H)
+    p = torch.where(nbr_mask[:, :, None],
+                    torch.exp(logit - lse.to(f32).t()[:, None, :]),
+                    torch.zeros_like(logit))              # [N, K, H]
+    g = g.to(f32).reshape(N, H, C // H)
+    # the softmax row correction, outside the kernel as in JAX
+    delta = (g * out.to(f32).reshape(N, H, C // H)).sum(-1)   # [N, H]
+    dv = (p[..., None] * g[:, None]).reshape(N, K, C)
+    dp = (g[:, None] * v.reshape(N, K, H, C // H)).sum(-1)    # [N, K, H]
+    e_h = p * (dp - delta[:, None]) * scale.to(f32)[:, None, None]
+    e_d = e_h.repeat_interleave(D, dim=2)                 # [N, K, H*D]
+    return e, e_d * q, e_d * k, dv
+
+
 def dense_attention_rpe_bwd_reference(q_node, k_nodes_g, v_nodes_g, ef,
                                       wk, bk, wq, bq, wv, bv, nbr_mask,
                                       scale, out, lse, g):
@@ -105,24 +133,15 @@ def dense_attention_rpe_bwd_reference(q_node, k_nodes_g, v_nodes_g, ef,
     [H, N] and the cotangent `g` of `out`, in the order (dq, dkg, dvg,
     d_ef, dwk, dbk, dwq, dbq, dwv, dbv). Per-edge and per-node gradients
     come out in the dtype of `k_nodes_g`, weight and bias gradients in
-    f32, as from the kernel."""
-    N, K, DH = k_nodes_g.shape
+    f32, as from the kernel (all in f64 for f64 inputs)."""
+    N, K, _ = k_nodes_g.shape
     H, D = q_node.shape[1], q_node.shape[2]
-    C, De = v_nodes_g.shape[2], ef.shape[2]
-    dt, f32 = k_nodes_g.dtype, torch.float32
-    e, k, q, v = _rpe_terms(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
-                            bq, wv, bv)
-    logit = _masked_logits(q, k, nbr_mask, scale, H)
-    p = torch.exp(logit - lse.to(f32).t()[:, None, :]) \
-        * nbr_mask[:, :, None].to(f32)                    # [N, K, H]
-    g = g.to(f32).reshape(N, H, C // H)
-    # the softmax row correction, outside the kernel as in JAX
-    delta = (g * out.to(f32).reshape(N, H, C // H)).sum(-1)   # [N, H]
-    dv = (p[..., None] * g[:, None]).reshape(N, K, C)
-    dp = (g[:, None] * v.reshape(N, K, H, C // H)).sum(-1)    # [N, K, H]
-    e_h = p * (dp - delta[:, None]) * scale.to(f32)[:, None, None]
-    e_d = e_h.repeat_interleave(D, dim=2)                 # [N, K, H*D]
-    dq_full, dk_full = e_d * k, e_d * q
+    De = ef.shape[2]
+    dt = k_nodes_g.dtype
+    f32 = torch.promote_types(dt, torch.float32)
+    e, dk_full, dq_full, dv = _rpe_bwd_rows(
+        q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq, wv, bv, nbr_mask,
+        scale, out, lse, g)
     d_ef = dk_full @ wk.to(dt).to(f32).t() + dq_full @ wq.to(dt).to(f32).t() \
         + dv @ wv.to(dt).to(f32).t()
     ef2 = e.reshape(N * K, De).t()
