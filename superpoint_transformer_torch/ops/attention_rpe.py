@@ -320,11 +320,17 @@ def dense_attention_rpe_bwd(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
     q_node, kg, vg, ef, wk, bk, wq, bq, wv, bv, nbr_mask, scale = args
     DH, W = H * D, 2 * H * D + C
     CH = C // H
-    if CH > 32 or CH & (CH - 1) or -(-(De + 1) // 8) * W > 1024:
+    # the weight-gradient accumulators: f32 items of 8 rows per thread,
+    # bf16 tensor-core tiles of 16 x 8 per warp
+    bf16 = kg.dtype == torch.bfloat16
+    if CH > 32 or CH & (CH - 1) or (
+            -(-(De + 1) // 16) * -(-W // 8) > 96 if bf16
+            else -(-(De + 1) // 8) * W > 1024):
         raise ValueError(
             'dense_attention_rpe_bwd: kernel needs C/H a power of two <= 32 '
-            f'and ceil((De+1)/8) * (2*H*D + C) <= 1024 (got C/H={CH}, '
-            f'De={De}, 2*H*D + C={W})')
+            'and, in float32, ceil((De+1)/8) * (2*H*D + C) <= 1024, in '
+            'bfloat16, ceil((De+1)/16) * ceil((2*H*D + C)/8) <= 96 (got '
+            f'C/H={CH}, De={De}, 2*H*D + C={W})')
     blocks_fn, launch = _bwd_launcher()
     # the softmax row correction, outside the kernel as in JAX
     delta = (g * out).sum(-1).t().contiguous()            # [H, N]
