@@ -27,8 +27,11 @@
 // bytes in bf16 at the flagship H=16, D=4, C=64, De=32), and does
 // De*(2*H*D + C) = 6,144 multiply-adds three times: the recomputed RPE
 // projections, the edge-feature gradient and the weight gradients. That
-// is ~30 FLOP per byte, so the CUDA cores and shared-memory bandwidth
-// bound it before device memory. The design:
+// is ~30 FLOP per byte; the bound from bytes is ~0.05 ms at N=5120,
+// K=48, the kernel takes ~1.06 ms. What sets its pace is instruction
+// latency on the CUDA cores: each warp's per-slot chain of shared loads,
+// FMAs and shuffles, then the block's weight-gradient FMAs between two
+// barriers a round. The design:
 //
 // - one warp per node for the per-slot work, as in the forward kernel:
 //   lanes over the q/k and value channels, per-head sums by shuffles
@@ -36,18 +39,30 @@
 //   lanes and the value lanes through shared memory; the RPE projections
 //   of SLOTS slots share each weight load;
 // - the weights live once per block in shared memory, [De, W+1] with
-//   W = 2*H*D + C columns [wk | wq | wv]: the odd row stride makes both
-//   the projection (lanes over columns) and the edge-feature gradient
+//   W = 2*H*D + C columns [wk | wq | wv]: the odd row stride keeps the
+//   projection (lanes over columns) and the f32 edge-feature gradient
 //   (lanes over edge-feature rows) free of bank conflicts;
+// - a round stages ROWS = 16 slots of the block, one m16n8k16 A tile:
+//   every warp stages each slot's edge features (plus a constant 1, whose
+//   row gives the bias gradients) and its [dk | dq | dv] gradient row G;
+// - the edge-feature gradient d_ef = G [wk | wq | wv]^T is, in bf16, one
+//   block-level product a round on the tensor cores (edge_grad_mma): the
+//   bf16 weights are exact operands, staged once per block in B-fragment
+//   order. G is f32, and one bf16 rounding (2^-9 relative) breaks K3's
+//   tolerance by far (tests/test_torch_k3_precision.py), so G is staged
+//   as two bf16 parts, hi = bf16(G) and lo = bf16(G - hi), about 2^-17
+//   relative together, and each tile takes two mma. The f32 variant,
+//   which only the tests and the f32 model check use, keeps its FMAs;
 // - the weight gradients reduce over every node, which the TPU did on
 //   its sequential grid. A CUDA grid has no order and f32 atomics would
-//   make the result vary from run to run, so: every warp stages each
-//   slot's edge features (plus a constant 1, whose row gives the bias
-//   gradients) and its [dk | dq | dv] gradient row in shared memory; the
-//   whole block then adds the staged rows into a [De+1, W] accumulator
-//   of which each thread owns tiles of EPT x 1 in registers; each block
-//   writes its partial sums, and a second kernel adds the partials in
-//   block order. The result is the same in every run on a given card.
+//   make the result vary from run to run, so the whole block adds the
+//   staged rows into a [De+1, W] accumulator of which each thread owns
+//   tiles of EPT x 1 in registers; each block writes its partial sums,
+//   and a second kernel adds the partials in block order. The result is
+//   the same in every run on a given card. These stay on FMAs: on the
+//   tensor cores (the same split of G) they drifted from an f64 reference
+//   by up to 2.3x K3's tolerance at N=5120, where the FMAs stay within
+//   0.34x, and took longer (PERF.md, PR 6).
 #include <type_traits>
 
 #include "node_tiles.cuh"
@@ -64,8 +79,7 @@ constexpr int THREADS = WARPS_PER_BLOCK * WARP;
 constexpr int SLOTS = 2;                          // slots per warp per round
 constexpr int ROWS = WARPS_PER_BLOCK * SLOTS;     // slots staged per round
 constexpr int EPT = 8;     // edge-feature rows per accumulator item
-constexpr int MAX_ITEMS = 4;  // f32: accumulator items per thread
-constexpr int MAX_TILES = 12;  // bf16: accumulator tiles per warp
+constexpr int MAX_ITEMS = 4;  // accumulator items per thread
 static_assert(ROWS == 16, "a round is one 16-row m16n8k16 tile");
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -83,16 +97,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s));
 }
-// the same, each matrix transposed: lane l gets elements (2 (l % 4), l / 4)
-// and (2 (l % 4) + 1, l / 4) of matrix i in r[i]
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
 
 __host__ __device__ inline int padded_de1(int De) {
   return (De + 1 + EPT - 1) / EPT * EPT;
@@ -104,18 +108,15 @@ __host__ __device__ inline size_t up16(size_t bytes) {
 
 // Shared-memory layout in bytes, the same on host and device; every
 // region starts on 16 bytes. Both variants: the weights [De, W+1] and
-// biases [W] in f32, the staged edge features [ROWS, DE1P] in f32 (the
-// recompute's operand), the per-warp head scratch. The f32 variant adds
-// the staged gradient rows [ROWS, W] in f32. The bf16 variant adds the
-// weights as the B fragments of the edge-feature gradient (NTA tiles of 8
-// edge features, KSA k-steps of 16 gradient columns), the gradient rows
-// split into bf16 hi and lo parts, [ROWS, LDG] each, zero past column W,
-// and the staged [edge features | 1] in bf16, [ROWS, LDE], zero past
-// column De (MTB tiles of 16 rows of the weight gradients, NTB of 8
-// columns).
+// biases [W] in f32, the staged edge features [ROWS, DE1P] and gradient
+// rows [ROWS, W] in f32, the per-warp head scratch. The bf16 variant
+// adds the weights as the B fragments of the edge-feature gradient (NTA
+// tiles of 8 edge features, KSA k-steps of 16 gradient columns) and the
+// gradient rows split into bf16 hi and lo parts, [ROWS, LDG] each, zero
+// past column W.
 struct Layout {
-  int W, WP, DE1P, NTA, KSA, LDG, MTB, NTB, LDE;
-  size_t w, b, ef, grad, head, frag, ghi, glo, efb, total;
+  int W, WP, DE1P, NTA, KSA, LDG;
+  size_t w, b, ef, grad, head, frag, ghi, glo, total;
   __host__ __device__ Layout(int H, int D, int C, int De, bool bf16) {
     W = 2 * H * D + C;
     WP = W + 1;
@@ -123,21 +124,17 @@ struct Layout {
     NTA = (De + 7) / 8;
     KSA = (W + 15) / 16;
     LDG = KSA * 16 + 8;  // 16 * odd bytes: ldmatrix rows on distinct banks
-    MTB = (De + 1 + 15) / 16;
-    NTB = (W + 7) / 8;
-    LDE = MTB * 16 + 8;
     size_t o = 0;
     w = o;    o += up16(sizeof(float) * De * WP);
     b = o;    o += up16(sizeof(float) * W);
     ef = o;   o += up16(sizeof(float) * ROWS * DE1P);
-    grad = o; o += bf16 ? 0 : up16(sizeof(float) * ROWS * W);
+    grad = o; o += up16(sizeof(float) * ROWS * W);
     head = o; o += up16(sizeof(float) * WARPS_PER_BLOCK * 2 * H);
-    frag = ghi = glo = efb = o;
+    frag = ghi = glo = o;
     if (bf16) {
       frag = o; o += sizeof(uint2) * NTA * KSA * WARP;
       ghi = o;  o += up16(sizeof(__nv_bfloat16) * ROWS * LDG);
       glo = o;  o += up16(sizeof(__nv_bfloat16) * ROWS * LDG);
-      efb = o;  o += up16(sizeof(__nv_bfloat16) * ROWS * LDE);
     }
     total = o;
   }
@@ -187,51 +184,7 @@ __device__ __forceinline__ void edge_grad_mma(
   }
 }
 
-// The weight and bias gradients of a round's ROWS staged slots on the
-// tensor cores: [ef | 1]^T[De+1, ROWS] . G[ROWS, W], with G = hi + lo
-// (two products into a fresh tile) and the bf16 edge features exact,
-// added to the warp's running sums. Warp w owns the output tiles
-// t = w + 8 i (i < TPW) of 16 rows by 8 columns: rows 16 (t % MTB),
-// columns 8 (t / MTB).
-template <int TPW>
-__device__ __forceinline__ void weight_grad_mma(const Layout& L,
-                                                const unsigned char* smem,
-                                                float (&acc)[TPW][4],
-                                                int warp, int lane) {
-  const __nv_bfloat16* efb =
-      reinterpret_cast<const __nv_bfloat16*>(smem + L.efb);
-  const __nv_bfloat16* ghi =
-      reinterpret_cast<const __nv_bfloat16*>(smem + L.ghi);
-  const __nv_bfloat16* glo =
-      reinterpret_cast<const __nv_bfloat16*>(smem + L.glo);
-  // A = [ef | 1]^T from the staged rows by transposed loads: matrix l / 8
-  // holds slots 8 (l / 16) .. + 8 and edge features 8 (l / 8 % 2) .. + 8
-  const int a_off = ((lane & 7) + 8 * (lane >> 4)) * L.LDE
-      + 8 * ((lane >> 3) & 1);
-  // B = G by transposed loads: matrices 0, 1 the hi part at slots 0-7 and
-  // 8-15, matrices 2, 3 the lo part
-  const __nv_bfloat16* b_row = ((lane >> 4) ? glo : ghi)
-      + (lane & 15) * L.LDG;
-  const int tiles = L.MTB * L.NTB;
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    const int t = warp + WARPS_PER_BLOCK * i;
-    if (t < tiles) {
-      unsigned a[4], b[4];
-      ldmatrix_x4_trans(a, efb + a_off + 16 * (t % L.MTB));
-      ldmatrix_x4_trans(b, b_row + 8 * (t / L.MTB));
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(d, a, make_uint2(b[0], b[1]));
-      mma_bf16(d, a, make_uint2(b[2], b[3]));
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] += d[c];
-    }
-  }
-}
-
-// ACC: f32, accumulator items of EPT x 1 per thread; bf16, accumulator
-// tiles per warp (weight_grad_mma)
-template <typename T, int NJ, int ACC>
+template <typename T, int NJ, int ITEMS>
 __global__ void __launch_bounds__(THREADS)
 dense_attention_rpe_bwd_kernel(
     const T* __restrict__ q,         // [N, H*D]
@@ -269,7 +222,6 @@ dense_attention_rpe_bwd_kernel(
   float* s_head = reinterpret_cast<float*>(smem + L.head);
   __nv_bfloat16* s_ghi = reinterpret_cast<__nv_bfloat16*>(smem + L.ghi);
   __nv_bfloat16* s_glo = reinterpret_cast<__nv_bfloat16*>(smem + L.glo);
-  __nv_bfloat16* s_efb = reinterpret_cast<__nv_bfloat16*>(smem + L.efb);
 
   for (int i = threadIdx.x; i < De * W; i += THREADS) {
     const int e = i / W, j = i % W;
@@ -316,22 +268,14 @@ dense_attention_rpe_bwd_kernel(
   float* s_logit = s_head + warp * 2 * H;  // [H]
   float* s_e = s_logit + H;                // [H]
 
-  // f32 accumulator item t: edge-feature rows (t / W) * EPT .. + EPT,
-  // column t % W
-  constexpr int ITEMS = BF16 ? 1 : ACC;
+  // accumulator item t: edge-feature rows (t / W) * EPT .. + EPT, column
+  // t % W
   const int n_items = DE1P / EPT * W;
   float acc[ITEMS][EPT];
 #pragma unroll
   for (int it = 0; it < ITEMS; ++it)
 #pragma unroll
     for (int ee = 0; ee < EPT; ++ee) acc[it][ee] = 0.f;
-  // bf16 accumulator tiles (weight_grad_mma)
-  constexpr int TPW = BF16 ? ACC : 1;
-  float tacc[TPW][4];
-#pragma unroll
-  for (int i = 0; i < TPW; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) tacc[i][c] = 0.f;
 
   // every warp of a block runs the same number of rounds (the loop bounds
   // are block-uniform), so the __syncthreads below are reached by all
@@ -357,20 +301,16 @@ dense_attention_rpe_bwd_kernel(
 
     for (int k0 = 0; k0 < K; k0 += SLOTS) {
       // stage the edge features of SLOTS slots (zeros past K or N), with
-      // the constant 1 at index De: in f32, and in bf16 also for the
-      // tensor cores (exact: the inputs are bf16)
-      const int ew = BF16 ? L.MTB * 16 : DE1P;
-      for (int t = lane; t < SLOTS * ew; t += WARP) {
-        const int u = t / ew, e = t % ew, kk = k0 + u;
+      // the constant 1 at index De
+      for (int t = lane; t < SLOTS * DE1P; t += WARP) {
+        const int u = t / DE1P, e = t % DE1P, kk = k0 + u;
         float val = 0.f;
         if (e < De) {
           if (node_ok && kk < K) val = to_f32(ef[(n * K + kk) * De + e]);
         } else if (e == De) {
           val = 1.f;
         }
-        if (e < DE1P) s_ef[(warp * SLOTS + u) * DE1P + e] = val;
-        if constexpr (BF16)
-          s_efb[(warp * SLOTS + u) * L.LDE + e] = __float2bfloat16(val);
+        s_ef[(warp * SLOTS + u) * DE1P + e] = val;
       }
       __syncwarp();
 
@@ -424,15 +364,14 @@ dense_attention_rpe_bwd_kernel(
         float* grad = s_grad + (warp * SLOTS + u) * W;
         __nv_bfloat16* ghi = s_ghi + (warp * SLOTS + u) * L.LDG;
         __nv_bfloat16* glo = s_glo + (warp * SLOTS + u) * L.LDG;
-        // column j of the slot's gradient row: f32, or in bf16 split into
-        // hi + lo for the tensor cores
+        // column j of the slot's gradient row: f32, and in bf16 also split
+        // into hi + lo for the tensor cores
         auto put = [&](int j, float v) {
+          grad[j] = v;
           if constexpr (BF16) {
             const __nv_bfloat16 hi = __float2bfloat16(v);
             ghi[j] = hi;
             glo[j] = __float2bfloat16(v - __bfloat162float(hi));
-          } else {
-            grad[j] = v;
           }
         };
 
@@ -513,29 +452,19 @@ dense_attention_rpe_bwd_kernel(
       // the block's staged rows into the edge-feature gradient (bf16) and
       // the weight and bias gradients
       __syncthreads();
-      if constexpr (BF16) {
+      if constexpr (BF16)
         edge_grad_mma(L, smem, base, k0, N, K, De, d_ef, warp, lane);
-        weight_grad_mma(L, smem, tacc, warp, lane);
-      } else {
-        // the round's sums first, then into the running sums: fewer adds
-        // into large values
 #pragma unroll
-        for (int it = 0; it < ITEMS; ++it) {
-          const int t = threadIdx.x + THREADS * it;
-          if (t < n_items) {
-            const int j = t % W, e0 = t / W * EPT;
-            float rs[EPT];
+      for (int it = 0; it < ITEMS; ++it) {
+        const int t = threadIdx.x + THREADS * it;
+        if (t < n_items) {
+          const int j = t % W, e0 = t / W * EPT;
+          for (int r = 0; r < ROWS; ++r) {
+            const float gr = s_grad[r * W + j];
+            const float* er = s_ef + r * DE1P + e0;
 #pragma unroll
-            for (int ee = 0; ee < EPT; ++ee) rs[ee] = 0.f;
-            for (int r = 0; r < ROWS; ++r) {
-              const float gr = s_grad[r * W + j];
-              const float* er = s_ef + r * DE1P + e0;
-#pragma unroll
-              for (int ee = 0; ee < EPT; ++ee)
-                rs[ee] = fmaf(er[ee], gr, rs[ee]);
-            }
-#pragma unroll
-            for (int ee = 0; ee < EPT; ++ee) acc[it][ee] += rs[ee];
+            for (int ee = 0; ee < EPT; ++ee)
+              acc[it][ee] = fmaf(er[ee], gr, acc[it][ee]);
           }
         }
       }
@@ -551,55 +480,28 @@ dense_attention_rpe_bwd_kernel(
     }
   }
 
-  float* part = partial + (long long)blockIdx.x * DE1 * W;
-  if constexpr (BF16) {
-    // accumulator layout: rows g, g + 8 and columns 2 (lane % 4), + 1 of
-    // each tile
 #pragma unroll
-    for (int i = 0; i < TPW; ++i) {
-      const int t = warp + WARPS_PER_BLOCK * i;
-      if (t < L.MTB * L.NTB) {
-        const int j = 8 * (t / L.MTB) + 2 * (lane & 3);
+  for (int it = 0; it < ITEMS; ++it) {
+    const int t = threadIdx.x + THREADS * it;
+    if (t < n_items) {
+      const int j = t % W, e0 = t / W * EPT;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int e = 16 * (t % L.MTB) + (lane >> 2) + 8 * half;
-          if (e < DE1 && j < W) part[e * W + j] = tacc[i][2 * half];
-          if (e < DE1 && j + 1 < W)
-            part[e * W + j + 1] = tacc[i][2 * half + 1];
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int t = threadIdx.x + THREADS * it;
-      if (t < n_items) {
-        const int j = t % W, e0 = t / W * EPT;
-#pragma unroll
-        for (int ee = 0; ee < EPT; ++ee)
-          if (e0 + ee < DE1) part[(e0 + ee) * W + j] = acc[it][ee];
-      }
+      for (int ee = 0; ee < EPT; ++ee)
+        if (e0 + ee < DE1)
+          partial[((long long)blockIdx.x * DE1 + e0 + ee) * W + j] =
+              acc[it][ee];
     }
   }
 }
 
-// out[i] = sum over blocks of partial[b, i], pairwise in block order (a
-// binary counter of partial sums): the same order in every run, and a
-// rounding error that grows with log(blocks) rather than with blocks
+// out[i] = sum over blocks of partial[b, i], in block order
 __global__ void reduce_partials(const float* __restrict__ partial,
                                 int blocks, int size,
                                 float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= size) return;
-  float stack[32];
-  int top = 0;
-  for (int b = 0; b < blocks; ++b) {
-    float s = partial[(long long)b * size + i];
-    for (int c = b + 1; (c & 1) == 0; c >>= 1) s = stack[--top] + s;
-    stack[top++] = s;
-  }
   float s = 0.f;
-  while (top > 0) s = stack[--top] + s;
+  for (int b = 0; b < blocks; ++b) s += partial[(long long)b * size + i];
   out[i] = s;
 }
 
@@ -612,7 +514,7 @@ int grid_blocks(int N) {
   return (int)(blocks < max_blocks ? blocks : max_blocks);
 }
 
-template <typename T, int NJ, int ACC>
+template <typename T, int NJ, int ITEMS>
 cudaError_t launch(int blocks, const void* q, const void* kg, long long ldk,
                    const void* vg, long long ldv, const void* ef,
                    const void* wk, const void* bk, const void* wq,
@@ -624,7 +526,7 @@ cudaError_t launch(int blocks, const void* q, const void* kg, long long ldk,
   const int W = 2 * H * D + C;
   const size_t smem =
       Layout(H, D, C, De, std::is_same<T, __nv_bfloat16>::value).total;
-  auto kernel = dense_attention_rpe_bwd_kernel<T, NJ, ACC>;
+  auto kernel = dense_attention_rpe_bwd_kernel<T, NJ, ITEMS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -644,11 +546,8 @@ cudaError_t launch(int blocks, const void* q, const void* kg, long long ldk,
   return cudaGetLastError();
 }
 
-// acc: f32, accumulator items per thread (1, 2 or MAX_ITEMS); bf16,
-// accumulator tiles per warp (1, 9 for the flagship's 72 tiles, or
-// MAX_TILES)
 template <typename T, int NJ>
-cudaError_t dispatch_acc(int acc, int blocks, const void* q,
+cudaError_t dispatch_items(int items, int blocks, const void* q,
                            const void* kg, long long ldk, const void* vg,
                            long long ldv, const void* ef, const void* wk,
                            const void* bk, const void* wq, const void* bq,
@@ -657,23 +556,22 @@ cudaError_t dispatch_acc(int acc, int blocks, const void* q,
                            const void* delta, void* dq, void* dkg, void* dvg,
                            void* d_ef, void* partial, void* dw, int N, int K,
                            int H, int D, int C, int De, cudaStream_t st) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int A1 = BF16 ? 9 : 2, A2 = BF16 ? MAX_TILES : MAX_ITEMS;
-  if (acc <= 1)
+  if (items <= 1)
     return launch<T, NJ, 1>(blocks, q, kg, ldk, vg, ldv, ef, wk, bk, wq, bq,
                             wv, bv, mask, scale, g, lse, delta, dq, dkg, dvg,
                             d_ef, partial, dw, N, K, H, D, C, De, st);
-  if (acc <= A1)
-    return launch<T, NJ, A1>(blocks, q, kg, ldk, vg, ldv, ef, wk, bk, wq, bq,
+  if (items <= 2)
+    return launch<T, NJ, 2>(blocks, q, kg, ldk, vg, ldv, ef, wk, bk, wq, bq,
                             wv, bv, mask, scale, g, lse, delta, dq, dkg, dvg,
                             d_ef, partial, dw, N, K, H, D, C, De, st);
-  return launch<T, NJ, A2>(blocks, q, kg, ldk, vg, ldv, ef, wk, bk, wq, bq,
-                           wv, bv, mask, scale, g, lse, delta, dq, dkg, dvg,
-                           d_ef, partial, dw, N, K, H, D, C, De, st);
+  return launch<T, NJ, MAX_ITEMS>(blocks, q, kg, ldk, vg, ldv, ef, wk, bk, wq,
+                                  bq, wv, bv, mask, scale, g, lse, delta, dq,
+                                  dkg, dvg, d_ef, partial, dw, N, K, H, D, C,
+                                  De, st);
 }
 
 template <typename T>
-cudaError_t dispatch(int nj, int acc, int blocks, const void* q,
+cudaError_t dispatch(int nj, int items, int blocks, const void* q,
                      const void* kg, long long ldk, const void* vg,
                      long long ldv, const void* ef, const void* wk,
                      const void* bk, const void* wq, const void* bq,
@@ -683,16 +581,16 @@ cudaError_t dispatch(int nj, int acc, int blocks, const void* q,
                      void* d_ef, void* partial, void* dw, int N, int K, int H,
                      int D, int C, int De, cudaStream_t st) {
   if (nj <= 1)
-    return dispatch_acc<T, 1>(acc, blocks, q, kg, ldk, vg, ldv, ef, wk,
+    return dispatch_items<T, 1>(items, blocks, q, kg, ldk, vg, ldv, ef, wk,
                                 bk, wq, bq, wv, bv, mask, scale, g, lse,
                                 delta, dq, dkg, dvg, d_ef, partial, dw, N, K,
                                 H, D, C, De, st);
   if (nj <= 2)
-    return dispatch_acc<T, 2>(acc, blocks, q, kg, ldk, vg, ldv, ef, wk,
+    return dispatch_items<T, 2>(items, blocks, q, kg, ldk, vg, ldv, ef, wk,
                                 bk, wq, bq, wv, bv, mask, scale, g, lse,
                                 delta, dq, dkg, dvg, d_ef, partial, dw, N, K,
                                 H, D, C, De, st);
-  return dispatch_acc<T, 4>(acc, blocks, q, kg, ldk, vg, ldv, ef, wk, bk,
+  return dispatch_items<T, 4>(items, blocks, q, kg, ldk, vg, ldv, ef, wk, bk,
                               wq, bq, wv, bv, mask, scale, g, lse, delta, dq,
                               dkg, dvg, d_ef, partial, dw, N, K, H, D, C, De,
                               st);
@@ -709,9 +607,8 @@ extern "C" int dense_attention_rpe_bwd_blocks(int N) {
 
 // Plain C entry point for ctypes. `is_bf16` selects the input type
 // (0: float32, 1: bfloat16). The caller guarantees H*D <= 128, C <= 128,
-// D and C/H powers of two <= 32; in f32 (De+1 rounded up to 8) *
-// (2*H*D + C) <= 1024 * 8, in bf16 ceil((De+1) / 16) * ceil((2*H*D + C)
-// / 8) <= 96 (the weight-gradient tiles, MAX_TILES a warp); contiguous q [N, H*D], ef [N, K, De], mask [N, K], scale,
+// D and C/H powers of two <= 32, (De+1 rounded up to 8) * (2*H*D + C)
+// <= 1024 * 8, contiguous q [N, H*D], ef [N, K, De], mask [N, K], scale,
 // weights, g [N, C] f32, lse and delta [H, N] f32, kg / vg whose last
 // axis is contiguous with slot stride ldk / ldv, contiguous outputs
 // dq [N, H*D], dkg [N, K, H*D], dvg [N, K, C], d_ef [N, K, De] of the
@@ -730,23 +627,16 @@ extern "C" int dense_attention_rpe_bwd_launch(
   if (N == 0) return 0;
   const int DH = H * D, W = 2 * DH + C;
   const int nj = ((DH > C ? DH : C) + WARP - 1) / WARP;
-  int acc;
-  if (is_bf16) {
-    const Layout L(H, D, C, De, true);
-    acc = (L.MTB * L.NTB + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-    if (acc > MAX_TILES) return (int)cudaErrorInvalidValue;
-  } else {
-    acc = (padded_de1(De) / EPT * W + THREADS - 1) / THREADS;
-    if (acc > MAX_ITEMS) return (int)cudaErrorInvalidValue;
-  }
+  const int items = (padded_de1(De) / EPT * W + THREADS - 1) / THREADS;
+  if (items > MAX_ITEMS) return (int)cudaErrorInvalidValue;
   const int blocks = grid_blocks(N);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = is_bf16
-      ? dispatch<__nv_bfloat16>(nj, acc, blocks, q, kg, ldk, vg, ldv, ef,
+      ? dispatch<__nv_bfloat16>(nj, items, blocks, q, kg, ldk, vg, ldv, ef,
                                 wk, bk, wq, bq, wv, bv, mask, scale, g, lse,
                                 delta, dq, dkg, dvg, d_ef, partial, dw, N, K,
                                 H, D, C, De, st)
-      : dispatch<float>(nj, acc, blocks, q, kg, ldk, vg, ldv, ef, wk, bk,
+      : dispatch<float>(nj, items, blocks, q, kg, ldk, vg, ldv, ef, wk, bk,
                         wq, bq, wv, bv, mask, scale, g, lse, delta, dq, dkg,
                         dvg, d_ef, partial, dw, N, K, H, D, C, De, st);
   return (int)err;

@@ -108,19 +108,19 @@ def _rpe_bwd_rows(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq, wv, bv,
     N, K, DH = k_nodes_g.shape
     H, D = q_node.shape[1], q_node.shape[2]
     C = v_nodes_g.shape[2]
-    f32 = torch.promote_types(k_nodes_g.dtype, torch.float32)
+    ct = torch.promote_types(k_nodes_g.dtype, torch.float32)
     e, k, q, v = _rpe_terms(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
                             bq, wv, bv)
     logit = _masked_logits(q, k, nbr_mask, scale, H)
     p = torch.where(nbr_mask[:, :, None],
-                    torch.exp(logit - lse.to(f32).t()[:, None, :]),
+                    torch.exp(logit - lse.to(ct).t()[:, None, :]),
                     torch.zeros_like(logit))              # [N, K, H]
-    g = g.to(f32).reshape(N, H, C // H)
+    g = g.to(ct).reshape(N, H, C // H)
     # the softmax row correction, outside the kernel as in JAX
-    delta = (g * out.to(f32).reshape(N, H, C // H)).sum(-1)   # [N, H]
+    delta = (g * out.to(ct).reshape(N, H, C // H)).sum(-1)   # [N, H]
     dv = (p[..., None] * g[:, None]).reshape(N, K, C)
     dp = (g[:, None] * v.reshape(N, K, H, C // H)).sum(-1)    # [N, K, H]
-    e_h = p * (dp - delta[:, None]) * scale.to(f32)[:, None, None]
+    e_h = p * (dp - delta[:, None]) * scale.to(ct)[:, None, None]
     e_d = e_h.repeat_interleave(D, dim=2)                 # [N, K, H*D]
     return e, e_d * q, e_d * k, dv
 
@@ -138,12 +138,12 @@ def dense_attention_rpe_bwd_reference(q_node, k_nodes_g, v_nodes_g, ef,
     H, D = q_node.shape[1], q_node.shape[2]
     De = ef.shape[2]
     dt = k_nodes_g.dtype
-    f32 = torch.promote_types(dt, torch.float32)
+    ct = torch.promote_types(dt, torch.float32)
     e, dk_full, dq_full, dv = _rpe_bwd_rows(
         q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq, wv, bv, nbr_mask,
         scale, out, lse, g)
-    d_ef = dk_full @ wk.to(dt).to(f32).t() + dq_full @ wq.to(dt).to(f32).t() \
-        + dv @ wv.to(dt).to(f32).t()
+    d_ef = dk_full @ wk.to(dt).to(ct).t() + dq_full @ wq.to(dt).to(ct).t() \
+        + dv @ wv.to(dt).to(ct).t()
     ef2 = e.reshape(N * K, De).t()
 
     def wgrad(d):
@@ -320,17 +320,11 @@ def dense_attention_rpe_bwd(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
     q_node, kg, vg, ef, wk, bk, wq, bq, wv, bv, nbr_mask, scale = args
     DH, W = H * D, 2 * H * D + C
     CH = C // H
-    # the weight-gradient accumulators: f32 items of 8 rows per thread,
-    # bf16 tensor-core tiles of 16 x 8 per warp
-    bf16 = kg.dtype == torch.bfloat16
-    if CH > 32 or CH & (CH - 1) or (
-            -(-(De + 1) // 16) * -(-W // 8) > 96 if bf16
-            else -(-(De + 1) // 8) * W > 1024):
+    if CH > 32 or CH & (CH - 1) or -(-(De + 1) // 8) * W > 1024:
         raise ValueError(
             'dense_attention_rpe_bwd: kernel needs C/H a power of two <= 32 '
-            'and, in float32, ceil((De+1)/8) * (2*H*D + C) <= 1024, in '
-            'bfloat16, ceil((De+1)/16) * ceil((2*H*D + C)/8) <= 96 (got '
-            f'C/H={CH}, De={De}, 2*H*D + C={W})')
+            f'and ceil((De+1)/8) * (2*H*D + C) <= 1024 (got C/H={CH}, '
+            f'De={De}, 2*H*D + C={W})')
     blocks_fn, launch = _bwd_launcher()
     # the softmax row correction, outside the kernel as in JAX
     delta = (g * out).sum(-1).t().contiguous()            # [H, N]
