@@ -255,8 +255,7 @@ dense_attention_rpe_bwd_kernel(
                            *reinterpret_cast<const unsigned*>(&hi));
     }
     // the gradient rows' columns past W stay zero
-    for (int i = threadIdx.x; i < ROWS * L.LDG; i += THREADS)
-    {
+    for (int i = threadIdx.x; i < ROWS * L.LDG; i += THREADS) {
       s_ghi[i] = __float2bfloat16(0.f);
       s_glo[i] = __float2bfloat16(0.f);
     }

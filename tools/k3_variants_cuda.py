@@ -26,6 +26,8 @@ forward and back over the variants; the best round is reported. Then:
 - `--sweep-f64 S`: the `tree` kernel in f32 at that shape over seeds
   0..S-1 (the card test's inputs), against autograd of the plain version
   in f64: the worst |error| / (atol + rtol |ref|) under K3's tolerance;
+  beside it the same for the kernel given the f64 forward's out and lse,
+  for autograd of the f32 plain version, and kernel vs that autograd;
 - `--bf16-precision S`: the weight gradients of every unpatched variant
   in bf16 over seeds 0..S-1, against the plain version in f32 and in f64.
 
@@ -114,7 +116,8 @@ def report(name, text):
             kernel = t.group(1) if t else None
         elif kernel and 'Li2E' in kernel and (
                 'registers' in line or 'spill' in line):
-            print(f'  {name} <{kernel}>: {line.split(":", 1)[1].strip()}')
+            info = re.sub(r'^ptxas info\s*:\s*', '', line.strip())
+            print(f'  {name} <{kernel}>: {info}')
 
 
 def bind(path):
@@ -164,6 +167,14 @@ def timing(dev, launchers, rounds):
               f'{[round(t, 4) for t in times[name]]}', flush=True)
 
 
+def fwd64(args):
+    """out and lse of the plain forward in f64, rounded to f32."""
+    from superpoint_transformer_torch.ops import attention_rpe as k3
+    out, lse = k3.dense_attention_rpe_reference(
+        *[a.double() for a in args[:10]], *args[10:], with_lse=True)
+    return out.float(), lse.float().contiguous()
+
+
 def sweep_f64(dev, launcher, seeds):
     import torch
     from test_torch_cuda import K3_GRADS, _inputs, _randn
@@ -177,15 +188,26 @@ def sweep_f64(dev, launcher, seeds):
                    SHAPE['C'] // SHAPE['H'])
         out, lse = k3.dense_attention_rpe(*args, with_lse=True)
         grads = k3.dense_attention_rpe_bwd(*args, out, lse, g)
+        exact = k3.dense_attention_rpe_bwd(*args, *fwd64(args), g)
         leaves = [a.double().requires_grad_() for a in args[:10]]
         (k3.dense_attention_rpe_reference(*leaves, *args[10:])
          * g.double()).sum().backward()
+        l32 = [a.clone().requires_grad_() for a in args[:10]]
+        (k3.dense_attention_rpe_reference(*l32, *args[10:]) * g).sum() \
+            .backward()
         rows = sorted((worst_ratio(a, t.grad), name)
                       for name, a, t in zip(K3_GRADS, grads, leaves))
         (r, i, err), name = rows[-1]
+        others = [max(worst_ratio(a, b)[0] for a, b in pairs) for pairs in (
+            zip(exact, (t.grad for t in leaves)),
+            zip((t.grad for t in l32), (t.grad for t in leaves)),
+            zip(grads, (t.grad for t in l32)))]
         print(f'f32 vs f64 seed {seed}: worst {name} [flat {i}] |err| '
               f'{err:.3e}, {r:.4f} of the tolerance; next {rows[-2][1]} '
-              f'{rows[-2][0][0]:.4f}', flush=True)
+              f'{rows[-2][0][0]:.4f}. Worst over the ten gradients: the '
+              f'kernel from an f64 out/lse {others[0]:.4f}, autograd in f32 '
+              f'vs f64 {others[1]:.4f}, the kernel vs autograd in f32 '
+              f'{others[2]:.4f}', flush=True)
         worst = max(worst, (r, seed, name, i, err))
     print(f'f32 vs f64 over {seeds} seeds: worst {worst}', flush=True)
 
@@ -219,7 +241,8 @@ def main():
     ap.add_argument('variants', nargs='*', help='NAME=PATH.cu')
     ap.add_argument('--patch', default='',
                     help=f'comma-separated, of {sorted(PATCHES)}')
-    ap.add_argument('--rounds', type=int, default=4)
+    ap.add_argument('--rounds', type=int, default=4,
+                    help='timing rounds (0: no timing)')
     ap.add_argument('--sweep-f64', type=int, default=0)
     ap.add_argument('--bf16-precision', type=int, default=0)
     opt = ap.parse_args()
@@ -239,7 +262,8 @@ def main():
             raise SystemExit(f'unknown patch {p}')
     launchers = {n: bind(lib) for n, lib in
                  build(sources(named, patches)).items()}
-    timing(dev, launchers, opt.rounds)
+    if opt.rounds:
+        timing(dev, launchers, opt.rounds)
     if opt.bf16_precision:
         bf16_precision(dev, {n: launchers[n] for n in named},
                        opt.bf16_precision)
