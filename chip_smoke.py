@@ -14,7 +14,8 @@ kernel on them against its plain PyTorch version:
    shapes the main paths give it and at a wide K (160) and a K off the
    kernels' 16-slot tiles (50), in f32 and bf16: K1 (dense attention) in
    both query layouts and its backward, K2 (fused-RPE attention), K3
-   (K2's backward) against autograd of K2's plain version; times each
+   (K2's backward) against autograd of K2's plain version (in f64 for
+   the f32 kernel) and, in bf16, against K3's plain version; times each
    kernel against its plain version as CUDA-graph replays (so that the
    host's launch cost is not counted), and K1 with a per-node query
    against SDPA, the one PyTorch call that computes it (a yardstick the

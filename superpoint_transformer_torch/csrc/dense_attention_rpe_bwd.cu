@@ -62,7 +62,7 @@
 //   the same in every run on a given card. These stay on FMAs: on the
 //   tensor cores (the same split of G) they drifted from an f64 reference
 //   by up to 2.3x K3's tolerance at N=5120, where the FMAs stay within
-//   0.34x, and took longer (PERF.md, PR 6).
+//   0.34x, and took longer (PERF.md, Findings).
 #include <type_traits>
 
 #include "node_tiles.cuh"
