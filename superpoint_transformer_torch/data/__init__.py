@@ -1,1 +1,2 @@
-"""Padded batch representation."""
+"""Host containers (Data, NAG, CSR clusters, HDF5 files), batching and
+padding on the host, and the padded batch on a device."""

@@ -1,11 +1,12 @@
 """Padded, static-shape tensor representation of a NAG batch.
 
 Counterpart of `PaddedLevel` / `PaddedNAG` in
-`superpoint_transformer_tpu/data/pad.py`, as plain dataclasses of
-tensors with the same field names. `from_numpy` converts a batch with
-numpy leaves (the JAX host path's `prepare_batch(..., device=False)`, or
-`utils.synthetic.random_padded_nag`) into an inference or training batch
-on a torch device.
+`superpoint_transformer_tpu/data/pad.py`, as plain dataclasses with the
+same field names. The host path (`data.pad.pad_nag`,
+`transforms.prepare.prepare_batch` without a device,
+`utils.synthetic.random_padded_nag`) fills them with numpy arrays;
+`from_numpy`, the one host-to-device boundary, converts such a batch
+into an inference or training batch of tensors on a torch device.
 
 Padding invariants (set by the host path, relied on by the model):
 levels are sorted by `super_index`; padded rows have `batch == -1` and
@@ -19,13 +20,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ['PaddedLevel', 'PaddedNAG', 'bucket', 'from_numpy']
+__all__ = ['PaddedLevel', 'PaddedNAG', 'from_numpy']
 
 
 @dataclass
 class PaddedLevel:
     """One partition level, padded to capacity N (and K neighbor
-    slots)."""
+    slots): tensors on a device, or numpy arrays on the host."""
     pos: torch.Tensor                          # [N, 3] f32
     node_mask: torch.Tensor                    # [N] bool
     batch: torch.Tensor                        # [N] int64 graph id, -1 pad
@@ -74,15 +75,6 @@ class PaddedNAG:
     @property
     def end_i_level(self):
         return self.absolute_num_levels - 1
-
-
-def bucket(n, minimum=128):
-    """Round a count up to a static capacity: eight steps per
-    power-of-two octave, in multiples of at least 128 (the host path's
-    default 'pow2_fine' buckets)."""
-    n = max(int(n), minimum)
-    q = max(1 << max((n - 1).bit_length() - 3, 0), 128)
-    return -(-n // q) * q
 
 
 # fields the port never reads on the device: the transpose neighbor

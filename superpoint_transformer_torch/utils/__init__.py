@@ -1,1 +1,1 @@
-"""Synthetic batches and the JAX weight bridge."""
+"""Synthetic data, histograms and the JAX weight bridge."""

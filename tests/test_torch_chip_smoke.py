@@ -49,3 +49,67 @@ def test_bound_takes_operations_when_they_dominate(monkeypatch):
              + other / chip_smoke.PEAK_F32_FLOP_S) * 1e3
     assert by == 'operations' and ms == pytest.approx(op_ms)
     assert op_ms > nbytes / 335e12 * 1e3
+
+
+@pytest.fixture(scope='module')
+def flagship_cpu():
+    """The flagship model (eval) and task on the CPU, and a small random
+    3-graph batch for each."""
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (
+        FLAGSHIP_CFG, build_model, build_task)
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+    model = SemanticSegmentationModel(build_model(
+        FLAGSHIP_CFG, num_graphs=3, device='cpu'), 13, device='cpu')
+    init_weights(model, torch.Generator().manual_seed(0))
+    task = build_task(FLAGSHIP_CFG, num_graphs=3, device='cpu')
+    host = random_padded_nag(seed=0, num_graphs=3, n_points=400, n_l1=50,
+                             n_l2=12)
+    cd = model.net.compute_dtype
+    return (model.eval(), task, from_numpy(host, 'cpu', cd),
+            from_numpy(host, 'cpu', cd, train=True))
+
+
+@pytest.mark.parametrize('name, fn', [
+    ('K2', 'dense_attention_rpe'), ('K1', 'dense_attention_trainable')],
+    ids=['K2_serving', 'K1_training'])
+def test_widest_call_keeps_level1_inputs(flagship_cpu, monkeypatch, name,
+                                         fn):
+    """`widest_call` keeps the arguments of the level-1 call (the most
+    rows) of the path's kernel, puts the block's function back, and
+    `hold_on_path` holds the kernel's wrapper to its plain version on
+    them (on the CPU the wrapper runs the plain version)."""
+    import torch
+    from superpoint_transformer_torch.inference import infer_batch
+    from superpoint_transformer_torch.nn import attention as block
+    model, task, batch, train_batch = flagship_cpu
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    before = getattr(block, fn)
+    with chip_smoke.widest_call(fn) as kept:
+        if name == 'K2':
+            infer_batch(model, batch)
+        else:
+            task.train_step(train_batch)
+    assert getattr(block, fn) is before
+    mask = next(a for a in kept if a.dtype == torch.bool)
+    assert mask.shape == batch[1].nbr_mask.shape
+    assert not any(a.requires_grad for a in kept)
+    chip_smoke.hold_on_path(name, kept)
+
+
+def test_random_twins_at_the_batch_counts(flagship_cpu):
+    """The random twins have the batch's node counts, one at its own
+    bucketed capacities and one at the batch's."""
+    batch = flagship_cpu[2]
+    n, caps, _ = chip_smoke.level_counts(batch)
+    twins = chip_smoke.random_twins(batch, 1, 3, None, train=False)
+    own, same = (chip_smoke.level_counts(twins[k])
+                 for k in ('random, own caps', 'random, same caps'))
+    assert same[1] == caps
+    for counts_ in (own[0], same[0]):
+        assert all(abs(a - b) <= 0.25 * b for a, b in zip(counts_, n))

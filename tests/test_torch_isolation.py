@@ -1,11 +1,19 @@
 """The port needs none of jax, flax, optax, h5py, yaml or the JAX
 package: in a fresh interpreter where importing any of them fails, the
 port still imports every module, builds a model and runs a CPU forward,
-and builds the semantic task and takes a CPU training step."""
+builds the semantic task and takes a CPU training step, and preprocesses
+a synthetic room and serves it through `prepare_batch` and `infer_nag`.
+Its native library is its own build of `native/*.cpp`, never the prebuilt
+`native/libspt_native.so`, and a failed build raises."""
+import json
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
+
+from superpoint_transformer_torch.ops import native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,6 +32,7 @@ SCRIPT = textwrap.dedent('''
     sys.meta_path.insert(0, Block())
 
     import importlib
+    import json
     import pkgutil
 
     import torch
@@ -58,17 +67,93 @@ SCRIPT = textwrap.dedent('''
     metrics = task.train_step(from_numpy(host, 'cpu', 'bfloat16',
                                          train=True))
     assert bool(torch.isfinite(metrics['loss'])) and task.step == 1
+
+    from superpoint_transformer_torch.inference import infer_nag
+    from superpoint_transformer_torch.transforms.prepare import (
+        BatchConfig, prepare_batch)
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+
+    nag = preprocess_cloud(synthetic_room_cloud(seed=0, n_points=5_000),
+                           voxel=0.1, knn=25, knn_r=10.0,
+                           knn_min_search=10)
+    cfg = BatchConfig(sample_graph_r=-1, sample_segment_ratio=0)
+    host = prepare_batch([nag], cfg, train=False)
+    assert host.levels[1].num_nodes == nag[1].num_nodes
+    pred = infer_nag(model, nag, cfg)
+    assert pred.shape == (nag[1].num_nodes,)
+    assert pred.min() >= 0 and pred.max() < 13
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
+    with open('/proc/self/maps') as f:
+        libs = sorted({line.split()[-1] for line in f
+                       if 'libspt_native' in line})
+    print('NATIVE_LIBS', json.dumps(libs))
     print('PORT_OK')
 ''')
 
 
-def test_port_runs_without_jax_flax_h5py_yaml():
+@pytest.fixture(scope='module')
+def blocked_run():
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, '-c', SCRIPT], cwd=REPO,
-                         env=env, capture_output=True, text=True,
-                         timeout=300)
-    assert res.returncode == 0, res.stderr
-    assert 'PORT_OK' in res.stdout
+    return subprocess.run([sys.executable, '-c', SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_port_runs_without_jax_flax_h5py_yaml(blocked_run):
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'PORT_OK' in blocked_run.stdout
+
+
+def test_native_library_is_the_ports_own_build(blocked_run):
+    """The process that preprocessed the room mapped exactly one
+    libspt_native: the port's build under `_build/`."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    line = next(s for s in blocked_run.stdout.splitlines()
+                if s.startswith('NATIVE_LIBS'))
+    libs = json.loads(line[len('NATIVE_LIBS'):])
+    assert libs == [os.path.join(REPO, 'superpoint_transformer_torch',
+                                 '_build', 'libspt_native.so')], libs
+
+
+NO_OPENMP_CXX = """#!/bin/sh
+for a in "$@"; do
+  if [ "$a" = -fopenmp ]; then
+    echo "fatal error: cannot read spec file 'libgomp.spec'" >&2; exit 1
+  fi
+done
+exec g++ "$@"
+"""
+
+
+def test_native_builds_without_openmp_where_the_compiler_has_none(
+        tmp_path, monkeypatch):
+    """A compiler without an OpenMP runtime (as on a machine whose g++
+    lacks libgomp) still builds the library, without -fopenmp and with a
+    warning, and the command that built it is recorded beside it."""
+    cxx = tmp_path / 'cxx'
+    cxx.write_text(NO_OPENMP_CXX)
+    cxx.chmod(0o755)
+    monkeypatch.setenv('CXX', str(cxx))
+    with pytest.warns(UserWarning, match='no OpenMP runtime'):
+        lib = native.build(build_dir=tmp_path, force=True)
+    cmd = (tmp_path / 'libspt_native.so.cmd').read_text()
+    assert lib.exists() and cmd.startswith(str(cxx))
+    assert '-fopenmp' not in cmd and '-O3' in cmd and str(lib) in cmd
+
+
+@pytest.mark.parametrize('cxx', ['/nonexistent/c++', 'false'],
+                         ids=['missing_compiler', 'failing_compiler'])
+def test_native_build_failure_raises(cxx, tmp_path, monkeypatch):
+    """No silent fallback: a compiler that is missing or fails makes the
+    build raise, naming the compiler or its command."""
+    monkeypatch.setenv('CXX', cxx)
+    with pytest.raises(RuntimeError, match='cannot build') as err:
+        native.build(build_dir=tmp_path, force=True)
+    assert cxx in str(err.value)
+    assert not (tmp_path / 'libspt_native.so').exists()

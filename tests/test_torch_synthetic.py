@@ -11,8 +11,8 @@ import torch
 from superpoint_transformer_tpu.data.pad import bucket as jax_bucket
 from superpoint_transformer_tpu.transforms import BatchConfig, prepare_batch
 from superpoint_transformer_tpu.utils.synthetic import random_nag
-from superpoint_transformer_torch.data.padded import (PaddedLevel, bucket,
-                                                      from_numpy)
+from superpoint_transformer_torch.data.pad import bucket
+from superpoint_transformer_torch.data.padded import PaddedLevel, from_numpy
 from superpoint_transformer_torch.utils.synthetic import random_padded_nag
 
 # built only for the training backward (with_transpose=True)
@@ -55,6 +55,22 @@ def test_same_fields_dtypes_and_widths(host, synth):
 
 
 def test_padding_invariants(synth):
+    _check_invariants(synth)
+
+
+def test_node_caps_pads_on(synth):
+    """`node_caps` pads the same node counts on to the given
+    capacities, with every padding invariant."""
+    caps = {i: lvl.capacity + 256 for i, lvl in enumerate(synth.levels)}
+    b = random_padded_nag(seed=0, num_graphs=3, n_points=700, n_l1=60,
+                          n_l2=15, node_caps=caps)
+    assert [lvl.capacity for lvl in b.levels] == list(caps.values())
+    assert [int(lvl.num_nodes) for lvl in b.levels] == \
+        [int(lvl.num_nodes) for lvl in synth.levels]
+    _check_invariants(b)
+
+
+def _check_invariants(synth):
     levels = synth.levels
     for i, lvl in enumerate(levels):
         n, cap = int(lvl.num_nodes), lvl.capacity
@@ -127,3 +143,5 @@ def test_bucket_matches_host_path():
     for n in [0, 1, 127, 128, 129, 640, 1000, 9932, 10_113, 327_844,
               1 << 20]:
         assert bucket(n) == jax_bucket(n, 'pow2_fine'), n
+        for mode in ('pow2', 'pow2_fine', 'exact'):
+            assert bucket(n, mode) == jax_bucket(n, mode), (mode, n)
