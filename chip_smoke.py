@@ -46,13 +46,25 @@ kernel on them against its plain PyTorch version:
    versions on the inputs of their level-1 launches there, and times the
    forward and the step on these batches beside `random_padded_nag` at
    the same node counts;
-8. prints the kernel table as JSON (per kernel: launches on its path,
+8. SuperCluster panoptic segmentation (`experiment=panoptic/s3dis`,
+   SPT-2 width, random weights): 2 synthetic rooms of 250k raw points
+   with instance ids through `preprocess_cloud(with_instances=True)`;
+   `validate_panoptic` in bf16 over 2 batches of 4 graphs (each room
+   twice) with the grid search on the first (K2, 7 launches per
+   `eval_step`; finite level-1 and edge-affinity logits; PQ, SQ, RQ and
+   mAP in [0, 100]); one f32 evaluation held to the plain attention; the
+   same partition and metrics on ground-truth inputs, whose PQ must be
+   above the random weights'; 3 `PanopticTask` train steps (K1, 7 a
+   step; finite losses; the parameters and the edge-affinity head move)
+   and one step held to the plain attention in f32 and bf16; times of
+   each, the host's partition and grid search included;
+9. prints the kernel table as JSON (per kernel: launches on its path,
    max abs error, ms, plain_ms, library_ms, the bound from the bytes and
    FLOPs of `kernel_cost` and which of the two sets it, and the share of
    the bound reached), the card line, and as the last line
    `{"ok": true, "device": {...}}`.
 
-Each of the paths 4-7 runs with the kernel counts set to 0 just before
+Each of the paths 4-8 runs with the kernel counts set to 0 just before
 it and read just after it. Any failed phase raises, so the script exits
 non-zero without printing the last line. It needs no network and fails
 without a CUDA device or outside a checkout of the repository.
@@ -125,6 +137,15 @@ SDPA_ATOL = 3e-2
 HOST_ROOMS = 4
 HOST_ROOM_POINTS = 250_000
 HOST_PROBES = 2
+# SuperCluster (experiment=panoptic/s3dis): 2 synthetic rooms with
+# instance ids, 2 evaluation batches and 3 training batches of 4 graphs
+# (each room twice)
+PANOPTIC_ROOMS = 2
+PANOPTIC_GRAPHS = 4
+PANOPTIC_EVAL_BATCHES = 2
+PANOPTIC_STEPS = 3
+# the oracle's logits: ground truth at this margin
+ORACLE_LOGIT = 10.0
 
 
 def kernel_cost(name, N, K, H, D, C, De=0, elem=2, q_per_edge=True):
@@ -763,39 +784,11 @@ def phase_training(dev, card):
     del task
 
     # one step's loss and gradients, kernel vs plain attention, in f32
-    # and in the flagship's bf16, against the kernel model's own spread:
-    # the largest distance of SPREAD_RUNS repeats from its first run
-    def loss_grads(task, batch):
-        task.model.train()
-        task.optimizer.zero_grad(set_to_none=True)
-        loss, _ = task.loss(batch)
-        loss.backward()
-        return loss.detach().float(), torch.cat(
-            [p.grad.reshape(-1).float() for p in task.model.parameters()])
-
+    # and in the flagship's bf16
     for cd in (None, compute_dtype):
         batch = from_numpy(hosts[0], dev, cd, train=True)
-        kern, plain = flagship_task(cd), flagship_task(cd, True)
-        lk, gk = loss_grads(kern, batch)
-        repeats = [loss_grads(kern, batch) for _ in range(SPREAD_RUNS)]
-        lp, gp = loss_grads(plain, batch)
-        check(torch.isfinite(gk).all().item(), 'non-finite gradients')
-        loss_err = (abs(lk - lp) / lp.abs()).item()
-        loss_spread = max((abs(lk - l) / lk.abs()).item()
-                          for l, _ in repeats)
-        grad_err = rel_l2(gk, gp)
-        grad_spread = max(rel_l2(g, gk) for _, g in repeats)
-        floor_loss, floor_grad = TRAIN_FLOOR[cd]
-        print(f'{cd or "float32"} train step, kernel vs plain attention: '
-              f'loss {lk.item():.6f} vs {lp.item():.6f} (rel {loss_err:.3e}; '
-              f'run to run up to {loss_spread:.3e}); gradients rel L2 '
-              f'{grad_err:.3e} (run to run up to {grad_spread:.3e}), |g| '
-              f'{gp.norm().item():.4g}')
-        check(loss_err <= TRAIN_RATIO * loss_spread + floor_loss
-              and grad_err <= TRAIN_RATIO * grad_spread + floor_grad,
-              f'{cd or "float32"} train step: kernel vs plain beyond '
-              f'{TRAIN_RATIO}x the run-to-run spread + {TRAIN_FLOOR[cd]}')
-        del kern, plain
+        hold_train_step('', flagship_task(cd), flagship_task(cd, True),
+                        batch, cd)
 
     # step time, K1 vs the plain attention (fresh tasks, warm-up ramp)
     batch = from_numpy(hosts[0], dev, compute_dtype, train=True)
@@ -810,6 +803,47 @@ def phase_training(dev, card):
     print(f'peak device memory while timing: '
           f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
     return launches['K1']
+
+
+def loss_grads(task, batch):
+    """(loss, all parameter gradients flattened) of one forward and
+    backward of `task` on `batch`, in training mode, without an update;
+    a parameter that gets no gradient counts as zeros."""
+    import torch
+    task.model.train()
+    task.optimizer.zero_grad(set_to_none=True)
+    loss, _ = task.loss(batch)
+    loss.backward()
+    return loss.detach().float(), torch.cat(
+        [(p.grad if p.grad is not None else torch.zeros_like(p))
+         .reshape(-1).float() for p in task.model.parameters()])
+
+
+def hold_train_step(label, kern, plain, batch, cd):
+    """One training step's loss and gradients of the task `kern` (the
+    kernels) against `plain` (the same weights on the plain attention),
+    held to the kernel task's own spread: the largest distance of
+    SPREAD_RUNS repeats from its first run, times TRAIN_RATIO, plus
+    TRAIN_FLOOR of the compute dtype `cd`."""
+    import torch
+    lk, gk = loss_grads(kern, batch)
+    repeats = [loss_grads(kern, batch) for _ in range(SPREAD_RUNS)]
+    lp, gp = loss_grads(plain, batch)
+    check(torch.isfinite(gk).all().item(), f'{label}non-finite gradients')
+    loss_err = (abs(lk - lp) / lp.abs()).item()
+    loss_spread = max((abs(lk - l) / lk.abs()).item() for l, _ in repeats)
+    grad_err = rel_l2(gk, gp)
+    grad_spread = max(rel_l2(g, gk) for _, g in repeats)
+    floor_loss, floor_grad = TRAIN_FLOOR[cd]
+    print(f'{label}{cd or "float32"} train step, kernel vs plain attention: '
+          f'loss {lk.item():.6f} vs {lp.item():.6f} (rel {loss_err:.3e}; '
+          f'run to run up to {loss_spread:.3e}); gradients rel L2 '
+          f'{grad_err:.3e} (run to run up to {grad_spread:.3e}), |g| '
+          f'{gp.norm().item():.4g}')
+    check(loss_err <= TRAIN_RATIO * loss_spread + floor_loss
+          and grad_err <= TRAIN_RATIO * grad_spread + floor_grad,
+          f'{label}{cd or "float32"} train step: kernel vs plain beyond '
+          f'{TRAIN_RATIO}x the run-to-run spread + {TRAIN_FLOOR[cd]}')
 
 
 def phase_fused_rpe_training(dev):
@@ -1184,6 +1218,285 @@ def phase_host_path(dev, card):
     return {'K2': serve_launches, 'K1': train_launches}
 
 
+def room_instances(raw):
+    """Per-point instance ids of a synthetic room: two objects per class,
+    split at every metre of x (the recipe of tests/test_panoptic.py)."""
+    import numpy as np
+    return (raw.y * 2 + (raw.pos[:, 0] % 2 < 1)).astype(np.int64)
+
+
+class OracleTask:
+    """A stand-in for a `PanopticTask` in `validate_panoptic`: its
+    evaluation outputs are ground truth, not a model's. The level-1
+    logits put ORACLE_LOGIT on each node's majority label, the
+    edge-affinity logits are +-ORACLE_LOGIT by the target affinity of the
+    instance graph. `model` is the real task's (its device and dtype)."""
+
+    def __init__(self, model, num_classes):
+        self.model = model
+        self.num_classes = num_classes
+
+    def eval_step(self, batch):
+        import torch
+        lvl1 = batch[1]
+        y = lvl1.y[:, :self.num_classes].argmax(1)
+        logits = torch.nn.functional.one_hot(
+            y, self.num_classes).float() * ORACLE_LOGIT
+        ea = (lvl1.obj_edge_affinity > 0.5).float() * 2 - 1
+        return {'logits_level1': logits,
+                'edge_affinity_logits': ea * ORACLE_LOGIT}
+
+
+@contextlib.contextmanager
+def host_timers(module, names):
+    """Wall-clock seconds and calls of `module`'s functions `names` while
+    the block runs: {name: [seconds, calls]}."""
+    spent = {name: [0.0, 0] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name][0] += time.perf_counter() - t0
+                spent[name][1] += 1
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def phase_panoptic(dev, card):
+    """SuperCluster at SPT-2 width on preprocessed synthetic rooms with
+    instance ids: `preprocess_cloud(with_instances=True)`, then
+    `validate_panoptic` in bf16 (K2; the instance partition, its grid
+    search on the first batch, PQ and mAP on the host), one evaluation
+    held to the plain attention in f32, the same partition and metrics
+    on oracle inputs, and `PanopticTask.train_step`s (K1), one held to
+    the plain attention; times of each."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch import trainer
+    from superpoint_transformer_torch.data.csr import InstanceData
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (PANOPTIC_CFG,
+                                                         build_task)
+    from superpoint_transformer_torch.inference import EVAL_BATCH_OVERRIDES
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.transforms.prepare import (
+        BatchConfig, prepare_batch)
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+
+    settle()
+    dm = PANOPTIC_CFG['datamodule']
+    num_classes = dm['num_classes']
+    stuff = tuple(dm['stuff_classes'])
+    nags = []
+    for i in range(PANOPTIC_ROOMS):
+        raw = synthetic_room_cloud(seed=SEED + i, n_points=HOST_ROOM_POINTS)
+        raw['obj'] = room_instances(raw)
+        t0 = time.perf_counter()
+        nag = preprocess_cloud(raw, with_instances=True)
+        s = time.perf_counter() - t0
+        objs = [nag[j].get('obj') for j in nag.levels]
+        check(all(isinstance(o, InstanceData) for o in objs)
+              and all(o.num_groups == nag[j].num_nodes
+                      for j, o in zip(nag.levels, objs)),
+              f'panoptic room {i}: a level has no instance overlaps')
+        print(f'panoptic room {i}: {raw.num_nodes} raw points, '
+              f'{len(np.unique(raw.obj))} instances -> nodes per level '
+              f'{[nag[j].num_nodes for j in nag.levels]}, '
+              f'{objs[1].num_items} level-1 overlaps; preprocessed in '
+              f'{s:.2f} s on the host')
+        nags.append(nag)
+
+    def panoptic_task(compute_dtype='auto', plain_attention=False):
+        task = build_task(PANOPTIC_CFG, num_graphs=PANOPTIC_GRAPHS,
+                          compute_dtype=compute_dtype,
+                          plain_attention=plain_attention, device=dev)
+        init_weights(task.model, torch.Generator().manual_seed(SEED))
+        return task
+
+    # serving: 2 evaluation batches of 4 graphs (each room twice), the
+    # grid search on the first
+    cfg = dataclasses.replace(
+        BatchConfig(instance=True, instance_k_max=dm['instance_k_max'],
+                    instance_radius=dm['instance_radius']),
+        **EVAL_BATCH_OVERRIDES)
+    loader = [nags * 2 for _ in range(PANOPTIC_EVAL_BATCHES)]
+    task = panoptic_task()
+    outputs = []
+    eval_step = task.eval_step
+
+    def counted_eval_step(batch):
+        before = counts()['K2']
+        out = eval_step(batch)
+        outputs.append((batch, out, counts()['K2'] - before))
+        return out
+
+    task.eval_step = counted_eval_step
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            host_timers(trainer, ('instance_partition',
+                                  'grid_search_panoptic_partition')) as spent:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = trainer.validate_panoptic(
+            task, loader, cfg, num_classes, stuff_classes=stuff,
+            grid_search=True)
+        val_s = time.perf_counter() - t0
+    del task.eval_step
+    launches = counts()
+    metrics = {k: result[k] for k in ('pq', 'sq', 'rq', 'map', 'map_50')}
+    print(f'panoptic validation: {PANOPTIC_EVAL_BATCHES} batches of '
+          f'{PANOPTIC_GRAPHS} graphs in {val_s:.2f} s; grid search '
+          f'{spent["grid_search_panoptic_partition"][0]:.2f} s '
+          f'(settings {result["settings"]}); partitions '
+          f'{spent["instance_partition"][0]:.2f} s in '
+          f'{spent["instance_partition"][1]} calls (host); '
+          f'{metrics}; {result["n_pred_instances"]} predicted instances; '
+          f'launches {launches}, plain attention calls {plain["plain"]}')
+    for batch, out, k2 in outputs:
+        lvl1 = batch[1]
+        n, caps, k = level_counts(batch)
+        lg = out['logits_level1'][lvl1.node_mask]
+        ea = out['edge_affinity_logits'][lvl1.obj_edge_mask]
+        print(f'  eval batch: nodes {n}, capacities {caps}, K={k}, '
+              f'{int(lvl1.obj_edge_mask.sum())} of '
+              f'{lvl1.obj_edge_mask.shape[0]} obj edges; {k2} K2 launches')
+        check(k2 == K2_LAUNCHES_PER_FORWARD,
+              f'{k2} K2 launches in a panoptic forward, expected '
+              f'{K2_LAUNCHES_PER_FORWARD}')
+        check(lg.shape == (lvl1.num_nodes, num_classes)
+              and bool(torch.isfinite(lg).all())
+              and ea.numel() > 0 and bool(torch.isfinite(ea).all()),
+              'panoptic level-1 or edge-affinity logits not finite')
+    check(len(outputs) == PANOPTIC_EVAL_BATCHES
+          and launches['K1'] == launches['K3'] == 0 and plain['plain'] == 0,
+          'panoptic serving: not one forward a batch, or another kernel '
+          'or the plain attention ran')
+    check(all(np.isfinite(v) and 0 <= v <= 100 for v in metrics.values()),
+          f'panoptic metrics out of [0, 100]: {metrics}')
+    serve_launches = launches['K2']
+
+    # the evaluation forward's time, and the kernel vs the plain attention
+    # in f32 on the first batch
+    batch = outputs[0][0]
+    del outputs
+    ms = cuda_ms(lambda: task.eval_step(batch), 5)
+    print(f'panoptic eval_step on {card}: {ms:.3f} ms (CUDA events, 5 '
+          'calls after 3 warm-up; forward, loss and confusion matrix)')
+    b32 = from_numpy(prepare_batch(nags * 2, cfg, train=False), dev, None,
+                     train=True)
+    kern, plain_task = panoptic_task(None), panoptic_task(None, True)
+    got, again, ref = (t.eval_step(b32) for t in (kern, kern, plain_task))
+    lvl1 = b32[1]
+    for key, rows in (('logits_level1', lvl1.node_mask),
+                      ('edge_affinity_logits', lvl1.obj_edge_mask)):
+        a, a2, r = (o[key][rows] for o in (got, again, ref))
+        if a.dim() == 1:
+            a, a2, r = a[:, None], a2[:, None], r[:, None]
+        err, mean, agree = logit_diff(a, r)
+        err2, mean2, agree2 = logit_diff(a, a2)
+        print(f'float32 panoptic {key} (|x| max {r.abs().max().item():.3f}):'
+              f' kernel vs plain attention max_abs_err={err:.3e} '
+              f'mean={mean:.3e} argmax agreement={agree:.5f}; same model '
+              f'run twice max={err2:.3e} mean={mean2:.3e} '
+              f'agreement={agree2:.5f}')
+        floor = agree2 - (1 - F32_ARGMAX_AGREEMENT)
+        check(err <= F32_LOGIT_MAX_ABS and agree >= floor,
+              f'f32 panoptic {key}: kernel vs plain beyond '
+              f'{F32_LOGIT_MAX_ABS}, or argmax agreement {agree:.5f} below '
+              f'{floor:.5f}')
+    del kern, plain_task, b32, got, again, ref
+
+    # the same partition and metrics on oracle inputs
+    with host_timers(trainer, ('instance_partition',
+                               'grid_search_panoptic_partition')) as spent:
+        t0 = time.perf_counter()
+        oracle = trainer.validate_panoptic(
+            OracleTask(task.model, num_classes), loader, cfg, num_classes,
+            stuff_classes=stuff, grid_search=True)
+        oracle_s = time.perf_counter() - t0
+    print(f'panoptic oracle: pq {oracle["pq"]:.4f} sq {oracle["sq"]:.4f} '
+          f'rq {oracle["rq"]:.4f} map {oracle["map"]:.4f} in {oracle_s:.2f} '
+          f's (grid search {spent["grid_search_panoptic_partition"][0]:.2f}'
+          f' s, settings {oracle["settings"]}); random weights pq '
+          f'{result["pq"]:.4f}')
+    check(oracle['pq'] > result['pq'],
+          'the oracle PQ is not above the random weights\' PQ')
+    del task
+    settle()
+
+    # training: PANOPTIC_STEPS steps on 4-graph training batches
+    tcfg = BatchConfig(instance=True, instance_k_max=dm['instance_k_max'],
+                       instance_radius=dm['instance_radius'])
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    hosts = [prepare_batch(nags * 2, tcfg, train=True, rng=rng)
+             for _ in range(PANOPTIC_STEPS)]
+    print(f'panoptic training: {PANOPTIC_STEPS} batches prepared in '
+          f'{time.perf_counter() - t0:.2f} s on the host')
+    task = panoptic_task()
+    compute_dtype = task.model.net.compute_dtype
+    head = list(task.model.edge_affinity_head.parameters())
+    start = [p.detach().clone() for p in task.model.parameters()]
+    head_start = [p.detach().clone() for p in head]
+    reset_counts()
+    with plain_attention_calls() as plain:
+        for step, h in enumerate(hosts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = from_numpy(h, dev, compute_dtype, train=True)
+            loss = task.train_step(batch)['loss'].item()
+            step_s = time.perf_counter() - t0
+            n, caps, k = level_counts(batch)
+            print(f'panoptic train step {step}: nodes {n}, capacities '
+                  f'{caps}, K={k}, {int(batch[1].obj_edge_mask.sum())} obj '
+                  f'edges; loss {loss:.6f}; {step_s * 1e3:.1f} ms (host '
+                  'batch to loss)')
+            check(np.isfinite(loss), f'panoptic train step {step}: loss '
+                  f'{loss}')
+    launches = counts()
+    print(f'panoptic training: launches {launches}, plain attention calls '
+          f'{plain["plain"]}')
+    check(launches['K1'] == PANOPTIC_STEPS * K1_LAUNCHES_PER_STEP
+          and launches['K2'] == launches['K3'] == 0 and plain['plain'] == 0,
+          'panoptic training did not run on K1 alone, 7 a step')
+    moved = [not torch.equal(a, p.detach())
+             for a, p in zip(start, task.model.parameters())]
+    with_grad = [p.grad is not None and bool(p.grad.any())
+                 for p in task.model.parameters()]
+    print(f'{sum(moved)} of {len(moved)} parameter tensors moved; '
+          f'{sum(with_grad)} had a non-zero gradient in the last step')
+    check(all(m for m, g in zip(moved, with_grad) if g)
+          and all(not torch.equal(a, p.detach())
+                  for a, p in zip(head_start, head)),
+          'a parameter with a gradient, or the edge-affinity head, did '
+          'not move')
+    train_launches = launches['K1']
+    ms = cuda_ms(lambda: task.train_step(batch), 5)
+    print(f'panoptic train step on {card}: {ms:.3f} ms (CUDA events, 5 '
+          'steps after 3 warm-up)')
+    del task
+    for cd in (None, compute_dtype):
+        hold_train_step('panoptic ', panoptic_task(cd), panoptic_task(
+            cd, plain_attention=True), from_numpy(hosts[-1], dev, cd,
+                                                  train=True), cd)
+    return {'K2': serve_launches, 'K1': train_launches}
+
+
 def main():
     check(os.path.isdir(os.path.join(HERE, 'superpoint_transformer_torch')),
           'run from a checkout of the repository (the port package '
@@ -1224,12 +1537,16 @@ def main():
                 'K1': phase_training(dev, card),
                 'K3': phase_fused_rpe_training(dev)}
     host_path = phase_host_path(dev, card)
+    panoptic = phase_panoptic(dev, card)
     print(f'launches by path: serving/training/fused-RPE {launches}, '
           f'host path {host_path}')
+    print(f'launches on the panoptic path: {panoptic}')
     for name, n in launches.items():
         check(n > 0, f'its path launched no {name} kernel')
     for name, n in host_path.items():
         check(n > 0, f'the host path launched no {name} kernel')
+    for name, n in panoptic.items():
+        check(n > 0, f'the panoptic path launched no {name} kernel')
     table = []
     for name, fn, line in (('K1', 'dense_attention', 74),
                            ('K2', 'dense_attention_rpe', 256),

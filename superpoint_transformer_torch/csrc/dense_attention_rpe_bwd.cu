@@ -20,7 +20,8 @@
 //   dwq, dbq (from dq_full) and dwv, dbv (from dv_full).
 //
 // Per-edge gradients are written in the input type T; weight and bias
-// gradients are f32. All math is f32.
+// gradients are f32. All math is f32, except the f32 variant's
+// weight-gradient sums, which are f64 (see below).
 //
 // What bounds it on an H100: per slot it reads the gathered k/v rows and
 // the edge features once and writes their gradients once (about 640
@@ -62,7 +63,11 @@
 //   the same in every run on a given card. These stay on FMAs: on the
 //   tensor cores (the same split of G) they drifted from an f64 reference
 //   by up to 2.3x K3's tolerance at N=5120, where the FMAs stay within
-//   0.34x, and took longer (PERF.md, Findings).
+//   0.34x, and took longer (PERF.md, Findings). The f32 variant sums
+//   them in f64 (the accumulators, the block partials and their sum; the
+//   f32 products are exact in f64) and rounds to f32 once, at the end:
+//   with f32 sums over N*K = 245,760 slots its worst weight gradient
+//   reached 1.54x the tolerance from f64 autograd over 20 seeds.
 #include <type_traits>
 
 #include "node_tiles.cuh"
@@ -85,6 +90,13 @@ static_assert(ROWS == 16, "a round is one 16-row m16n8k16 tile");
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+// acc + a * b in the accumulator's type (the f32 product is exact in f64)
+__device__ __forceinline__ float fma_acc(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+__device__ __forceinline__ double fma_acc(float a, float b, double acc) {
+  return fma((double)a, (double)b, acc);
 }
 
 // four 8x8 b16 matrices from shared memory; lane l gives the address of
@@ -184,6 +196,12 @@ __device__ __forceinline__ void edge_grad_mma(
   }
 }
 
+// the type of the weight-gradient sums: f32 in the bf16 variant, f64 in
+// the f32 variant
+template <typename T>
+using Acc = typename std::conditional<
+    std::is_same<T, __nv_bfloat16>::value, float, double>::type;
+
 template <typename T, int NJ, int ITEMS>
 __global__ void __launch_bounds__(THREADS)
 dense_attention_rpe_bwd_kernel(
@@ -203,7 +221,7 @@ dense_attention_rpe_bwd_kernel(
     T* __restrict__ dkg,              // [N, K, H*D]
     T* __restrict__ dvg,              // [N, K, C]
     T* __restrict__ d_ef,             // [N, K, De]
-    float* __restrict__ partial,      // [gridDim.x, De+1, W]
+    Acc<T>* __restrict__ partial,     // [gridDim.x, De+1, W]
     int N, int K, int H, int D, int C, int De, long long ldk,
     long long ldv) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -270,11 +288,11 @@ dense_attention_rpe_bwd_kernel(
   // accumulator item t: edge-feature rows (t / W) * EPT .. + EPT, column
   // t % W
   const int n_items = DE1P / EPT * W;
-  float acc[ITEMS][EPT];
+  Acc<T> acc[ITEMS][EPT];
 #pragma unroll
   for (int it = 0; it < ITEMS; ++it)
 #pragma unroll
-    for (int ee = 0; ee < EPT; ++ee) acc[it][ee] = 0.f;
+    for (int ee = 0; ee < EPT; ++ee) acc[it][ee] = 0;
 
   // every warp of a block runs the same number of rounds (the loop bounds
   // are block-uniform), so the __syncthreads below are reached by all
@@ -463,7 +481,7 @@ dense_attention_rpe_bwd_kernel(
             const float* er = s_ef + r * DE1P + e0;
 #pragma unroll
             for (int ee = 0; ee < EPT; ++ee)
-              acc[it][ee] = fmaf(er[ee], gr, acc[it][ee]);
+              acc[it][ee] = fma_acc(er[ee], gr, acc[it][ee]);
           }
         }
       }
@@ -493,15 +511,16 @@ dense_attention_rpe_bwd_kernel(
   }
 }
 
-// out[i] = sum over blocks of partial[b, i], in block order
-__global__ void reduce_partials(const float* __restrict__ partial,
-                                int blocks, int size,
-                                float* __restrict__ out) {
+// out[i] = sum over blocks of partial[b, i], in block order, in the
+// partials' type; rounded to f32 once
+template <typename A>
+__global__ void reduce_partials(const A* __restrict__ partial, int blocks,
+                                int size, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= size) return;
-  float s = 0.f;
+  A s = 0;
   for (int b = 0; b < blocks; ++b) s += partial[(long long)b * size + i];
-  out[i] = s;
+  out[i] = (float)s;
 }
 
 int grid_blocks(int N) {
@@ -536,12 +555,12 @@ cudaError_t launch(int blocks, const void* q, const void* kg, long long ldk,
       (const T*)bk, (const T*)wq, (const T*)bq, (const T*)wv, (const T*)bv,
       (const bool*)mask, (const float*)scale, (const float*)g,
       (const float*)lse, (const float*)delta, (T*)dq, (T*)dkg, (T*)dvg,
-      (T*)d_ef, (float*)partial, N, K, H, D, C, De, ldk, ldv);
+      (T*)d_ef, (Acc<T>*)partial, N, K, H, D, C, De, ldk, ldv);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int size = (De + 1) * W;
-  reduce_partials<<<(size + 255) / 256, 256, 0, stream>>>(
-      (const float*)partial, blocks, size, (float*)dw);
+  reduce_partials<Acc<T> ><<<(size + 255) / 256, 256, 0, stream>>>(
+      (const Acc<T>*)partial, blocks, size, (float*)dw);
   return cudaGetLastError();
 }
 
@@ -598,8 +617,9 @@ cudaError_t dispatch(int nj, int items, int blocks, const void* q,
 }  // namespace
 
 // Number of blocks the backward launches for N nodes on the current
-// device: the first axis of the f32 scratch `partial` [blocks, De+1, W]
-// that the caller allocates (W = 2*H*D + C).
+// device: the first axis of the scratch `partial` [blocks, De+1, W] that
+// the caller allocates (W = 2*H*D + C): f32 for bf16 inputs, f64 for
+// float32 inputs.
 extern "C" int dense_attention_rpe_bwd_blocks(int N) {
   return N > 0 ? grid_blocks(N) : 0;
 }
@@ -611,7 +631,8 @@ extern "C" int dense_attention_rpe_bwd_blocks(int N) {
 // weights, g [N, C] f32, lse and delta [H, N] f32, kg / vg whose last
 // axis is contiguous with slot stride ldk / ldv, contiguous outputs
 // dq [N, H*D], dkg [N, K, H*D], dvg [N, K, C], d_ef [N, K, De] of the
-// input type, `partial` as `dense_attention_rpe_bwd_blocks(N)` sizes it,
+// input type, `partial` as `dense_attention_rpe_bwd_blocks(N)` sizes it
+// (f64 for float32 inputs),
 // and dw [De+1, 2*H*D + C] f32 (rows: edge features, then biases;
 // columns: [k | q | v]). Returns the CUDA error of the launches (0 on
 // success); they do not synchronize.

@@ -9,13 +9,14 @@ A flexible key -> numpy array store with SPT's conventions:
   - v_edge_attr [N, Dv]  vertical (child->parent) edge features
   - y                  labels: [N] int or [N, C+1] histogram
   - neighbor_index / neighbor_distance [N, K]
+  - obj (InstanceData) instance overlaps
 HDF5 save/load reads and writes the JAX package's files (CSR-packed y,
 byte rgb, smallest-int compression, `_not_indexable_` bookkeeping);
 h5py is imported only there.
 """
 import numpy as np
 
-from .csr import CSRData, Cluster
+from .csr import CSRData, Cluster, InstanceData
 from .io import (
     save_array, load_array, save_dense_to_csr, load_csr_to_dense)
 
@@ -182,6 +183,9 @@ class Data:
             elif isinstance(v, Cluster):
                 sg = f.create_group(f"{f.name}/_cluster_/{k}")
                 v.save(sg, fp_dtype=fp_dtype)
+            elif isinstance(v, InstanceData):
+                sg = f.create_group(f"{f.name}/_instance_data_/{k}")
+                v.save(sg, fp_dtype=fp_dtype)
             elif isinstance(v, CSRData):
                 sg = f.create_group(f"{f.name}/_csr_/{k}")
                 v.save(sg, fp_dtype=fp_dtype)
@@ -205,14 +209,12 @@ class Data:
             not_indexable |= {s.decode() if isinstance(s, bytes) else str(s)
                               for s in raw}
         out = cls()
+        groups = {'_csr_': None, '_cluster_': Cluster,
+                  '_instance_data_': InstanceData}
         for k in f.keys():
             if k == '_not_indexable_':
                 continue
-            if k == '_instance_data_':
-                raise NotImplementedError(
-                    'Data.load: instance overlaps (InstanceData) come with '
-                    'the panoptic slice of the port')
-            if k in ('_csr_', '_cluster_'):
+            if k in groups:
                 for sub_k in f[k].keys():
                     if keys is not None and sub_k not in keys:
                         continue
@@ -223,7 +225,7 @@ class Data:
                         out._store[sub_k] = load_csr_to_dense(
                             g, idx=sel, non_fp_to_long=non_fp_to_long)
                     else:
-                        v = Cluster.load(g, non_fp_to_long=non_fp_to_long)
+                        v = groups[k].load(g, non_fp_to_long=non_fp_to_long)
                         if sel is not None:
                             v, _ = v[sel]
                         out._store[sub_k] = v

@@ -1,19 +1,24 @@
-"""Model and task construction: config -> SPT backbone -> semantic task.
+"""Model and task construction: config -> SPT backbone -> semantic or
+panoptic task.
 
-Counterpart of `build_model` and `build_task` (semantic) in
+Counterpart of `build_model` and `build_task` (semantic and panoptic) in
 `superpoint_transformer_tpu/experiment.py` over a plain nested dict.
 `FLAGSHIP_CFG` holds the values that they read from `configs/train.yaml`
-composed with `experiment=semantic/s3dis`, so no YAML reader is needed; a
-test pins it to the YAML. Both entry points build on the card unless
-the caller passes `device='cpu'`.
+composed with `experiment=semantic/s3dis`, and `PANOPTIC_CFG` those of
+`experiment=panoptic/s3dis`, so no YAML reader is needed; tests pin both
+to the YAML. Both entry points build on the card unless the caller
+passes `device='cpu'`.
 """
+import copy
+
 import torch
 
+from .models.panoptic import PanopticTask
 from .models.semantic import SemanticTask
 from .models.spt import SPT
 
-__all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'build_model', 'build_task',
-           'precision_to_dtype']
+__all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'build_model',
+           'build_task', 'precision_to_dtype']
 
 
 def precision_to_dtype(precision):
@@ -95,6 +100,25 @@ FLAGSHIP_CFG = {
     },
     'trainer': {'precision': 'bf16'},
 }
+
+# SuperCluster on S3DIS (SPT-2 backbone, bf16 compute): the values
+# build_model and build_task read from configs/train.yaml +
+# experiment=panoptic/s3dis. The backbone's are FLAGSHIP_CFG's;
+# `edge_affinity_head_hidden` is the edge-affinity head's width, which
+# the JAX build_task leaves at its model default, this same 32.
+PANOPTIC_CFG = copy.deepcopy(FLAGSHIP_CFG)
+PANOPTIC_CFG['datamodule'].update({
+    'instance': True,
+    'instance_k_max': 30,
+    'instance_radius': 0.1,
+    'stuff_classes': [],
+})
+PANOPTIC_CFG['model'].update({
+    'task': 'panoptic',
+    'edge_affinity_head_hidden': 32,
+    'edge_affinity_loss_lambda': 1,
+    'edge_affinity_loss_weights': [1, 1, 1, 1],
+})
 
 
 def _dims(keys):
@@ -197,14 +221,21 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
 
 def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
                compute_dtype='auto', plain_attention=False, device='cuda'):
-    """The semantic `SemanticTask` of `cfg` (a nested dict shaped like
-    `FLAGSHIP_CFG`) around `build_model(cfg, ...)` on `device`: its loss
-    type and stage weights, AdamW's LR and weight decay, the attention
-    LR scale and the warm-up. Numbers may be strings, as the YAML loader
-    gives `1e-2`. Gradient accumulation and the plateau scheduler are not
-    ported. Raises without a CUDA device unless `device` is the CPU."""
+    """The task of `cfg` (a nested dict shaped like `FLAGSHIP_CFG`) around
+    `build_model(cfg, ...)` on `device`: the `SemanticTask`, or the
+    `PanopticTask` where `model.task` is 'panoptic' (as `PANOPTIC_CFG`
+    sets it), with its edge-affinity loss weight and case weights and
+    the datamodule's stuff classes. Both take the loss type and stage
+    weights, AdamW's LR and weight decay, the attention LR scale and the
+    warm-up. Numbers may be strings, as the YAML loader gives `1e-2`.
+    Gradient accumulation, the plateau scheduler and the partition task
+    (EZ-SP) are not ported. Raises without a CUDA device unless `device`
+    is the CPU."""
     device = _device(device, 'build_task')
     m = cfg['model']
+    task_type = str(m.get('task', 'semantic'))
+    if task_type not in ('semantic', 'panoptic'):
+        raise NotImplementedError(f'the {task_type!r} task is not ported')
     sched = m['scheduler']
     if 'plateau' in str(sched.get('_target_', 'cosine')).lower():
         raise NotImplementedError('the plateau scheduler is not ported')
@@ -213,8 +244,8 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
     net = build_model(cfg, num_graphs=num_graphs,
                       compute_dtype=compute_dtype,
                       plain_attention=plain_attention, device=device)
-    return SemanticTask(
-        net, num_classes=int(cfg['datamodule']['num_classes']),
+    common = dict(
+        num_classes=int(cfg['datamodule']['num_classes']),
         loss_type=str(m['loss_type']),
         multi_stage_loss_lambdas=tuple(
             float(x) for x in m['multi_stage_loss_lambdas']),
@@ -224,3 +255,14 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
         total_steps=total_steps, warmup_steps=int(sched['num_warmup']),
         warmup_init_lr=float(sched['warmup_init_lr']),
         eta_min=float(sched['eta_min']), class_weight=class_weight)
+    if task_type == 'panoptic':
+        return PanopticTask(
+            net, edge_affinity_loss_lambda=float(
+                m.get('edge_affinity_loss_lambda', 1.0)),
+            edge_affinity_loss_weights=tuple(
+                float(w) for w in m.get('edge_affinity_loss_weights',
+                                        (1., 1., 1., 1.))),
+            stuff_classes=tuple(
+                int(c) for c in cfg['datamodule'].get('stuff_classes', ())),
+            **common)
+    return SemanticTask(net, **common)

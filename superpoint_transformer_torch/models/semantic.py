@@ -50,8 +50,7 @@ class SemanticTask:
                  weight_decay=1e-4, transformer_lr_scale=0.1,
                  total_steps=100_000, warmup_steps=2_000,
                  warmup_init_lr=1e-6, eta_min=1e-6, class_weight=None):
-        self.model = SemanticSegmentationModel(
-            net, num_classes, device=next(net.parameters()).device)
+        self.model = self._make_model(net, num_classes)
         self.num_classes = num_classes
         self.loss_type = loss_type
         self.lambdas = tuple(multi_stage_loss_lambdas)
@@ -63,6 +62,11 @@ class SemanticTask:
             warmup_init_lr=warmup_init_lr, eta_min=eta_min)
         self.step = 0
 
+    def _make_model(self, net, num_classes):
+        """The model around `net`, made before the optimizer's groups."""
+        return SemanticSegmentationModel(
+            net, num_classes, device=next(net.parameters()).device)
+
     def lr_at(self, step):
         """LR of the base parameter group at `step` (the JAX task's host
         mirror of its schedule)."""
@@ -72,16 +76,18 @@ class SemanticTask:
         """(multi-stage loss, logits of levels 1..L) in the model's
         current mode. Supervised levels are 1..len(lambdas)."""
         logits = self.model(batch)
+        return self._semantic_loss(logits, batch), logits
+
+    def _semantic_loss(self, logits, batch):
         levels = [batch[1 + i] for i in range(len(self.lambdas))]
         cw = None
         if self.class_weight is not None:
             cw = torch.as_tensor(self.class_weight, dtype=torch.float32,
                                  device=logits[0].device)
-        loss = multi_stage_loss(
+        return multi_stage_loss(
             logits, [lvl.y for lvl in levels], self.lambdas,
             loss_type=self.loss_type, class_weight=cw,
             node_masks=[lvl.node_mask for lvl in levels])
-        return loss, logits
 
     def _confmat(self, logits, batch):
         return confusion_matrix_from_histogram(

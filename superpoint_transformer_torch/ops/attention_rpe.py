@@ -333,8 +333,11 @@ def dense_attention_rpe_bwd(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
     dkg = torch.empty((N, K, DH), dtype=dt, device=dev)
     dvg = torch.empty((N, K, C), dtype=dt, device=dev)
     d_ef = torch.empty((N, K, De), dtype=dt, device=dev)
-    partial = torch.empty((max(blocks_fn(N), 1), De + 1, W),
-                          dtype=torch.float32, device=dev)
+    # the block partials of the weight gradients: f64 for f32 inputs,
+    # whose kernel sums them in f64
+    partial = torch.empty(
+        (max(blocks_fn(N), 1), De + 1, W), device=dev,
+        dtype=torch.float64 if dt == torch.float32 else torch.float32)
     dw = torch.zeros((De + 1, W), dtype=torch.float32, device=dev)
     rc = launch(
         int(dt == torch.bfloat16), q_node.data_ptr(), kg.data_ptr(),

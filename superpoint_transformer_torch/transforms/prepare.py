@@ -17,6 +17,7 @@ from ..data.padded import from_numpy
 from ..ops.graph import _round_up
 from . import runtime as T
 from .color import color_auto_contrast, color_drop
+from .instance import on_the_fly_instance_graph
 
 __all__ = ['BatchConfig', 'prepare_batch', 'process_batch',
            'batch_signature', 'discover_caps']
@@ -82,10 +83,6 @@ def process_batch(nag_list, cfg: BatchConfig, train=True, rng=None,
     edge subsampling, so that every test-time-augmentation run sees
     every node.
     """
-    if cfg.instance:
-        raise NotImplementedError(
-            'process_batch: the instance graph comes with the panoptic '
-            'slice of the port')
     if rng is None:
         rng = np.random.default_rng()
     augment = train or tta
@@ -154,6 +151,11 @@ def process_batch(nag_list, cfg: BatchConfig, train=True, rng=None,
                     if cfg.rgb_drop > 0:
                         color_drop(nag[i], rng, p=cfg.rgb_drop)
         nag = T.add_self_loops(nag)
+        if cfg.instance:
+            nag = on_the_fly_instance_graph(
+                nag, level=1, num_classes=cfg.num_classes,
+                k_max=cfg.instance_k_max, radius=cfg.instance_radius,
+                adjacency_mode=cfg.instance_adjacency_mode)
 
         # handcrafted features -> x
         if not cfg.nano and cfg.point_hf:

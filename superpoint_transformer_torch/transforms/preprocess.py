@@ -17,7 +17,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from ..data.csr import Cluster
+from ..data.csr import Cluster, InstanceData
 from ..data.data import Data
 from ..data.nag import NAG
 from ..ops.geometry import geometric_features_np
@@ -75,9 +75,8 @@ def grid_sampling(data, size, hist_key='y', hist_size=None, mode='mean'):
     """Voxelize (reference GridSampling3D + _group_data,
     src/transforms/sampling.py:86,237): same-voxel points aggregate by
     key-specific rules — mean / majority voting ('y', 'super_index',
-    'is_val') / histogram (hist_key) / Cluster ('sub') / 'last'
-    ('batch'); normals are re-normalized. Instance ids ('obj') come
-    with the panoptic slice of the port."""
+    'is_val') / histogram (hist_key) / Cluster ('sub') / InstanceData
+    ('obj') / 'last' ('batch'); normals are re-normalized."""
     hist_keys = [hist_key] if isinstance(hist_key, str) else \
         list(hist_key or [])
     bins = {}
@@ -104,9 +103,14 @@ def grid_sampling(data, size, hist_key='y', hist_size=None, mode='mean'):
     num_nodes = data.num_nodes
     for k, item in data.items():
         if k in _INSTANCE_KEYS:
-            raise NotImplementedError(
-                f'grid_sampling: instance ids ({k!r}) come with the '
-                'panoptic slice of the port')
+            if isinstance(item, InstanceData):
+                out._store[k] = item.merge(cluster)
+            else:
+                y = data.get('y')
+                y = y if y is not None else np.zeros_like(item)
+                out._store[k] = _instance_from_dense(cluster, item, y,
+                                                     n_vox)
+            continue
         if k in _CLUSTER_KEYS and item.ndim == 1:
             out._store[k] = Cluster(cluster, item, dense=True)
             continue
@@ -134,6 +138,20 @@ def grid_sampling(data, size, hist_key='y', hist_size=None, mode='mean'):
         out._store[k] = v
     out['grid_size'] = np.array([size], dtype=np.float32)
     return out
+
+
+def _instance_from_dense(cluster, obj, y, n_vox):
+    """Build an InstanceData of (voxel -> overlapping instance) from
+    dense per-point instance ids."""
+    order = np.lexsort((obj, cluster))
+    c, o, yy = cluster[order], obj[order], y[order]
+    key = c.astype(np.int64) * (int(o.max()) + 1 if o.size else 1) + o
+    uniq, first, counts = np.unique(key, return_index=True,
+                                    return_counts=True)
+    c_u, o_u, y_u = c[first], o[first], yy[first]
+    ptr = np.zeros(n_vox + 1, dtype=np.int64)
+    np.cumsum(np.bincount(c_u, minlength=n_vox), out=ptr[1:])
+    return InstanceData(ptr, o_u, counts, y_u)
 
 
 def knn_search(data, k=45, r_max=2.0, backend='host'):
@@ -407,6 +425,8 @@ def cut_pursuit_partition(
             node_size=node_size_new)
         if x_c is not None:
             d2['x'] = x_c.astype(np.float32)
+        if d1.get('obj') is not None and isinstance(d1.obj, InstanceData):
+            d2['obj'] = d1.obj.merge(super_index)
         if d2.num_nodes > 1:
             d2 = connect_isolated(d2, k=k_adjacency)
         y = d1.get('y')
@@ -602,8 +622,10 @@ def preprocess_cloud(
     """Full raw-cloud -> NAG preprocessing (the reference `pre_transform`
     chain) with the JAX `preprocess_cloud`'s defaults: cut-pursuit
     partition, radius horizontal graph, host KNN. `verbose=True` prints
-    per-stage wall times. The contour-prior partition, the Delaunay
-    graph, the device KNN and instance labels raise
+    per-stage wall times. Per-point instance ids in `data['obj']` become
+    the `obj` InstanceData of every level; `with_instances` is accepted
+    as the JAX function accepts it and changes nothing. The contour-prior
+    partition, the Delaunay graph and the device KNN raise
     NotImplementedError."""
     if partition_mode != 'cut_pursuit':
         raise NotImplementedError(
@@ -616,10 +638,6 @@ def preprocess_cloud(
     if knn_backend != 'host':
         raise NotImplementedError(
             f'preprocess_cloud: knn_backend={knn_backend!r} is not ported')
-    if with_instances:
-        raise NotImplementedError(
-            'preprocess_cloud: instance labels come with the panoptic '
-            'slice of the port')
     t = Timings()
     rng = rng or np.random.default_rng(0)
     with t.track('save_node_index'):

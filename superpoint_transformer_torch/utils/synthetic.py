@@ -22,7 +22,7 @@ flax or h5py. It keeps every invariant of `pad_nag` (with
 """
 import numpy as np
 
-from ..data.csr import Cluster
+from ..data.csr import Cluster, InstanceData
 from ..data.data import Data
 from ..data.nag import NAG
 from ..data.pad import bucket
@@ -152,11 +152,11 @@ def random_padded_nag(seed=0, num_graphs=2, n_points=2048, n_l1=128,
 
 
 def random_nag(seed=0, n_points=512, n_l1=64, n_l2=16, num_classes=13,
-               k_edges=6, with_features=True):
+               k_edges=6, with_features=True, with_instances=False):
     """A small, structurally-valid 3-level NAG with the S3DIS feature
     layout (8 point features, 7-dim stored edge features, histogram
-    labels), with the numpy draws of the JAX `random_nag` (instances
-    come with the panoptic slice)."""
+    labels), with the numpy draws of the JAX `random_nag`;
+    `with_instances` adds level-1 `obj` InstanceData."""
     rng = np.random.default_rng(seed)
     sup0 = rng.integers(0, n_l1, n_points)
     sup0[:n_l1] = np.arange(n_l1)
@@ -207,6 +207,16 @@ def random_nag(seed=0, n_points=512, n_l1=64, n_l2=16, num_classes=13,
               log_surface=rng.random((n_l1, 1)).astype(np.float32),
               log_volume=rng.random((n_l1, 1)).astype(np.float32),
               log_size=rng.random((n_l1, 1)).astype(np.float32))
+    if with_instances:
+        # each level-1 segment overlaps its own dominant gt object
+        # (id = segment // 2, so pairs of segments share an object)
+        obj_of_seg = np.arange(n_l1) // 2
+        y_of_obj = rng.integers(0, num_classes, obj_of_seg.max() + 1)
+        ptr = np.arange(n_l1 + 1, dtype=np.int64)
+        d1['obj'] = InstanceData(
+            ptr, obj_of_seg,
+            np.bincount(sup0, minlength=n_l1).astype(np.int64),
+            y_of_obj[obj_of_seg])
     d2 = Data(pos=pos2,
               sub=Cluster(sup1, np.arange(n_l1), dense=True),
               edge_index=ei2,

@@ -28,6 +28,10 @@ BF16_TOL = dict(rtol=1.6e-2, atol=1e-3)
 # every random input is drawn from a fixed seed; the K3 tests run over a
 # few, each its own test case
 SEEDS = (0, 1, 2)
+# the f32 K3 test adds the seeds whose weight gradients left K3's
+# tolerance when the kernel summed them in f32 (a sweep over 20 seeds
+# at the flagship shape)
+K3_F32_SEEDS = SEEDS + (3, 11, 17)
 
 
 def _randn(dev, seed, *shape):
@@ -201,7 +205,7 @@ K3_FLAGSHIP = dict(N=5120, K=48, H=16, D=4, C=64, De=32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('seed', SEEDS)
+@pytest.mark.parametrize('seed', K3_F32_SEEDS)
 @pytest.mark.parametrize('shape', [
     dict(N=1000, K=37, H=4, D=4, C=32, De=8, masked_rows=7),
     dict(K3_FLAGSHIP, masked_rows=100)],

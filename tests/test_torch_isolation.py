@@ -1,8 +1,10 @@
 """The port needs none of jax, flax, optax, h5py, yaml or the JAX
 package: in a fresh interpreter where importing any of them fails, the
 port still imports every module, builds a model and runs a CPU forward,
-builds the semantic task and takes a CPU training step, and preprocesses
-a synthetic room and serves it through `prepare_batch` and `infer_nag`.
+builds the semantic task and takes a CPU training step, preprocesses
+a synthetic room and serves it through `prepare_batch` and `infer_nag`,
+and runs the panoptic path (instance ids, a panoptic training step and
+`validate_panoptic`).
 Its native library is its own build of `native/*.cpp`, never the prebuilt
 `native/libspt_native.so`, and a failed build raises."""
 import json
@@ -86,6 +88,34 @@ SCRIPT = textwrap.dedent('''
     assert pred.shape == (nag[1].num_nodes,)
     assert pred.min() >= 0 and pred.max() < 13
 
+    # the panoptic path: instance ids through preprocessing, the
+    # instance graph, a training step and a validation epoch
+    import numpy as np
+    from superpoint_transformer_torch.data.csr import InstanceData
+    from superpoint_transformer_torch.experiment import PANOPTIC_CFG
+    from superpoint_transformer_torch.trainer import validate_panoptic
+
+    raw = synthetic_room_cloud(seed=1, n_points=5_000)
+    raw['obj'] = (raw.y * 2 + (raw.pos[:, 0] % 2 < 1)).astype(np.int64)
+    nag = preprocess_cloud(raw, voxel=0.1, knn=25, knn_r=10.0,
+                           knn_min_search=10, with_instances=True)
+    assert isinstance(nag[1].obj, InstanceData)
+    pcfg = BatchConfig(sample_graph_r=-1, sample_segment_ratio=0,
+                       instance=True)
+    ptask = build_task(PANOPTIC_CFG, num_graphs=2, total_steps=10,
+                       device='cpu')
+    init_weights(ptask.model, torch.Generator().manual_seed(0))
+    host = prepare_batch([nag, nag], pcfg, train=True,
+                         rng=np.random.default_rng(0))
+    assert host.levels[1].obj_edge_mask.any()
+    metrics = ptask.train_step(from_numpy(host, 'cpu', 'bfloat16',
+                                          train=True))
+    assert bool(torch.isfinite(metrics['loss'])) and ptask.step == 1
+    out = validate_panoptic(ptask, [[nag, nag]], pcfg, 13,
+                            grid_search=True)
+    assert 0 <= out['pq'] <= 100 and out['n_pred_instances'] > 0
+    print('PANOPTIC_OK')
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
@@ -108,6 +138,14 @@ def blocked_run():
 def test_port_runs_without_jax_flax_h5py_yaml(blocked_run):
     assert blocked_run.returncode == 0, blocked_run.stderr
     assert 'PORT_OK' in blocked_run.stdout
+
+
+def test_panoptic_runs_without_jax_flax_h5py_yaml(blocked_run):
+    """Instance ids through `preprocess_cloud(with_instances=True)`, a
+    panoptic training step and `validate_panoptic` with its grid search,
+    with the same imports blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'PANOPTIC_OK' in blocked_run.stdout
 
 
 def test_native_library_is_the_ports_own_build(blocked_run):

@@ -19,9 +19,10 @@ a copy with each patch and one with all of them:
 - `no_wgrad_mma`: without the tensor-core weight-gradient call.
 
 A patched copy computes wrong gradients: it is only timed. Every variant
-is timed at the flagship training level-1 shape in bf16 (N=5120, K=48,
-H=16, D=4, C=64, De=32) as a CUDA graph of 20 calls, in R rounds that go
-forward and back over the variants; the best round is reported. Then:
+is timed at the flagship training level-1 shape (N=5120, K=48, H=16,
+D=4, C=64, De=32) in bf16, then in f32, as a CUDA graph of 20 calls, in
+R rounds that go forward and back over the variants; the best round is
+reported. Then:
 
 - `--sweep-f64 S`: the `tree` kernel in f32 at that shape over seeds
   0..S-1 (the card test's inputs), against autograd of the plain version
@@ -50,7 +51,8 @@ OUT = os.path.join(ROOT, 'superpoint_transformer_torch', '_build',
 PATCHES = {
     'no_def_fma': ('for (int jj = 0; jj < W; ++jj) sum = fmaf(wrow[jj], '
                    'grad[jj], sum);', ''),
-    'no_wgrad_fma': ('acc[it][ee] = fmaf(er[ee], gr, acc[it][ee]);', ';'),
+    'no_wgrad_fma': ('acc[it][ee] = fma_acc(er[ee], gr, acc[it][ee]);',
+                     ';'),
     'no_wgrad_mma': ('        weight_grad_mma(L, smem, tacc, warp, lane);\n',
                      ''),
 }
@@ -144,13 +146,12 @@ def worst_ratio(got, ref):
     return r.flatten()[i].item(), i, err.flatten()[i].item()
 
 
-def timing(dev, launchers, rounds):
+def timing(dev, launchers, rounds, dtype):
     import torch
     import chip_smoke as cs
     from superpoint_transformer_torch.ops import attention_rpe as k3
     gen = torch.Generator().manual_seed(7)
-    args = cs.k2_inputs(gen, dtype=torch.bfloat16, dev=dev, masked_rows=0,
-                        **SHAPE)
+    args = cs.k2_inputs(gen, dtype=dtype, dev=dev, masked_rows=0, **SHAPE)
     g = torch.randn(SHAPE['N'], SHAPE['H'], SHAPE['C'] // SHAPE['H'],
                     generator=gen).to(dev)
     out, lse = k3.dense_attention_rpe(*args, with_lse=True)
@@ -161,8 +162,9 @@ def timing(dev, launchers, rounds):
             use(k3, launchers[name])
             times[name].append(cs.graph_ms(
                 lambda: k3.dense_attention_rpe_bwd(*args, out, lse, g), 20))
+    label = 'bf16' if dtype == torch.bfloat16 else 'f32'
     for name in names:
-        print(f'K3 bf16 N={SHAPE["N"]} K={SHAPE["K"]} {name}: '
+        print(f'K3 {label} N={SHAPE["N"]} K={SHAPE["K"]} {name}: '
               f'{min(times[name]):.4f} ms; rounds '
               f'{[round(t, 4) for t in times[name]]}', flush=True)
 
@@ -263,7 +265,8 @@ def main():
     launchers = {n: bind(lib) for n, lib in
                  build(sources(named, patches)).items()}
     if opt.rounds:
-        timing(dev, launchers, opt.rounds)
+        for dtype in (torch.bfloat16, torch.float32):
+            timing(dev, launchers, opt.rounds, dtype)
     if opt.bf16_precision:
         bf16_precision(dev, {n: launchers[n] for n in named},
                        opt.bf16_precision)
