@@ -103,9 +103,7 @@ FLAGSHIP_CFG = {
 
 # SuperCluster on S3DIS (SPT-2 backbone, bf16 compute): the values
 # build_model and build_task read from configs/train.yaml +
-# experiment=panoptic/s3dis. The backbone's are FLAGSHIP_CFG's;
-# `edge_affinity_head_hidden` is the edge-affinity head's width, which
-# the JAX build_task leaves at its model default, this same 32.
+# experiment=panoptic/s3dis. The backbone's are FLAGSHIP_CFG's.
 PANOPTIC_CFG = copy.deepcopy(FLAGSHIP_CFG)
 PANOPTIC_CFG['datamodule'].update({
     'instance': True,
@@ -115,6 +113,9 @@ PANOPTIC_CFG['datamodule'].update({
 })
 PANOPTIC_CFG['model'].update({
     'task': 'panoptic',
+    # no builder reads this one, here or in JAX: the head keeps
+    # PanopticSegmentationModel's default width, this same 32; it stays
+    # so that the test pinning PANOPTIC_CFG to the YAML holds it
     'edge_affinity_head_hidden': 32,
     'edge_affinity_loss_lambda': 1,
     'edge_affinity_loss_weights': [1, 1, 1, 1],

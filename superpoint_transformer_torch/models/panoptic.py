@@ -89,16 +89,14 @@ class PanopticTask(SemanticTask):
 
     def __init__(self, net, num_classes=13, edge_affinity_loss_lambda=1.0,
                  edge_affinity_loss_weights=(1., 1., 1., 1.),
-                 stuff_classes=(), edge_affinity_hidden=32, **kwargs):
+                 stuff_classes=(), **kwargs):
         self.edge_affinity_loss_lambda = edge_affinity_loss_lambda
         self.edge_affinity_loss_weights = edge_affinity_loss_weights
         self.stuff_classes = tuple(stuff_classes)
-        self.edge_affinity_hidden = edge_affinity_hidden
         super().__init__(net, num_classes=num_classes, **kwargs)
 
     def _make_model(self, net, num_classes):
-        return PanopticSegmentationModel(
-            net, num_classes, edge_affinity_hidden=self.edge_affinity_hidden)
+        return PanopticSegmentationModel(net, num_classes)
 
     def forward_loss(self, batch):
         """(loss, logits of levels 1..L, edge-affinity logits or None) in
