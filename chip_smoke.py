@@ -58,13 +58,32 @@ kernel on them against its plain PyTorch version:
    step; finite losses; the parameters and the edge-affinity head move)
    and one step held to the plain attention in f32 and bf16; times of
    each, the host's partition and grid search included;
-9. prints the kernel table as JSON (per kernel: launches on its path,
+9. fit and evaluate (`experiment=semantic/s3dis`'s datamodule, SPT-2,
+   bf16): 5 synthetic rooms of 250k raw points written in the S3DIS
+   `Annotations/*.txt` layout (training areas Area_1 and Area_2 with 2
+   rooms each, the test area Area_5 with 1), read by the port's S3DIS
+   reader and preprocessed into a dict (`MemoryS3DIS`); the port's
+   `train(cfg, datasets)` for FIT_EPOCHS epochs with a validation each
+   (K1 7 a step, K2 7 a validation forward, no plain attention), a
+   resume from 'last' for one more epoch (the step, the LR and the epoch
+   carry on; the loaded parameters and AdamW moments equal the saved
+   ones), `evaluate(cfg, datasets)` from 'best' on the validation split
+   twice (its mIoU is the logged one within the run-to-run spread) and
+   on the test area with 2 TTA runs, and 2 micro-batches of
+   `accumulate_grad_batches=2` held against one averaged AdamW step in
+   f32; holds K1 and K2 against their plain versions on the arguments of
+   their widest launches on this path (the fit's training steps, the
+   evaluations of the validation split); prints per epoch the host batch
+   preparation, the steps (CUDA events), the validation and the wall
+   time, and the device-busy share of the resumed epoch (its `fit` alone
+   under torch.profiler, kernel time over the epoch's own wall time);
+10. prints the kernel table as JSON (per kernel: launches on its path,
    max abs error, ms, plain_ms, library_ms, the bound from the bytes and
    FLOPs of `kernel_cost` and which of the two sets it, and the share of
    the bound reached), the card line, and as the last line
    `{"ok": true, "device": {...}}`.
 
-Each of the paths 4-8 runs with the kernel counts set to 0 just before
+Each of the paths 4-9 runs with the kernel counts set to 0 just before
 it and read just after it. Any failed phase raises, so the script exits
 non-zero without printing the last line. It needs no network and fails
 without a CUDA device or outside a checkout of the repository.
@@ -150,6 +169,20 @@ ORACLE_LOGIT = 10.0
 # CPU on rooms of 30k raw points: a partition, merge or PQ that lost
 # much of its quality falls below this floor
 ORACLE_PQ_MIN = 45.0
+# fit and evaluate: rooms of raw points per area (training areas, then
+# the test area), epochs, and the evaluation's limit against the logged
+# validation mIoU: TRAIN_RATIO times the run-to-run spread of two
+# evaluations, plus a floor in mIoU points. On a CPU the evaluation and
+# the logged mIoU agree exactly. On an H100 (f32 atomics in the segment
+# sums) the first evaluation read 0.0203, 0.0204 and 0.0039 from the
+# logged mIoU in three runs whose two evaluations differed by 0.0025,
+# 0.0111 and 0.0106: two evaluations under-sample the spread, and the
+# floor is ~2.5x the largest of those gaps
+FIT_AREAS = {'Area_1': 2, 'Area_2': 2, 'Area_5': 1}
+FIT_ROOM_POINTS = 250_000
+FIT_EPOCHS = 3
+FIT_TTA_RUNS = 2
+FIT_MIOU_FLOOR = 0.05
 
 
 def kernel_cost(name, N, K, H, D, C, De=0, elem=2, q_per_edge=True):
@@ -1510,6 +1543,351 @@ def phase_panoptic(dev, card):
     return {'K2': serve_launches, 'K1': train_launches}
 
 
+def write_s3dis_rooms(root, room_points, seed):
+    """Synthetic rooms in the S3DIS raw layout, `raw/<area>/office_<r>/
+    Annotations/<class>_1.txt` with `x y z r g b` rows, FIT_AREAS rooms
+    an area, each shifted in x past the one before."""
+    import numpy as np
+    from superpoint_transformer_torch.datasets.s3dis import (
+        S3DIS_CLASS_NAMES)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+    n = 0
+    for a, (area, rooms) in enumerate(FIT_AREAS.items()):
+        for r in range(rooms):
+            raw = synthetic_room_cloud(seed=seed + 10 * a + r,
+                                       n_points=room_points)
+            pos = raw.pos + np.float32([12.0 * r, 0, 0])
+            rgb = np.round(raw.rgb * 255)
+            ann = os.path.join(root, 'raw', area, f'office_{r + 1}',
+                               'Annotations')
+            os.makedirs(ann)
+            for c in np.unique(raw.y):
+                rows = raw.y == c
+                np.savetxt(os.path.join(
+                    ann, f'{S3DIS_CLASS_NAMES[c]}_1.txt'),
+                    np.concatenate([pos[rows], rgb[rows]], 1),
+                    fmt='%.3f %.3f %.3f %d %d %d')
+            n += raw.num_nodes
+    return n
+
+
+def memory_s3dis():
+    """The port's S3DIS, whose processed NAGs stay in a dict (the card
+    machine has no h5py) and whose areas are those of FIT_AREAS:
+    reading the raw files, tiling and preprocessing are the port's own."""
+    from superpoint_transformer_torch.datasets import S3DIS
+
+    class MemoryS3DIS(S3DIS):
+        store = {}
+
+        @property
+        def all_cloud_ids(self):
+            train = [a for a in FIT_AREAS if a != f'Area_{self.fold}']
+            return {'train': train, 'val': train,
+                    'test': [f'Area_{self.fold}']}
+
+        def process(self):
+            for c in self.cloud_ids:
+                key = self.processed_path(c)
+                if key not in self.store:
+                    self.store[key] = self.process_cloud(c)
+
+        def load(self, cloud_id):
+            return self.store[self.processed_path(cloud_id)]
+
+    return MemoryS3DIS
+
+
+@contextlib.contextmanager
+def profiled_fit():
+    """While the block runs, every `Trainer.fit` runs under torch.profiler
+    and nothing else of the entry point does (set-up, probe batches and
+    the checkpoint's load stay outside); yields a dict that then holds
+    the kernel time of the last fit in ms (`busy_ms`, None where the
+    profiler records no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from superpoint_transformer_torch.trainer import Trainer
+    fit = Trainer.fit
+    got = {}
+
+    def profiling(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fit(self, *args, **kwargs)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total
+                   for e in prof.key_averages()) / 1e3
+        got['busy_ms'] = busy if busy > 0 else None
+        return out
+
+    Trainer.fit = profiling
+    try:
+        yield got
+    finally:
+        Trainer.fit = fit
+
+
+def print_epochs(label, trainer, card):
+    for t in trainer.epoch_times:
+        step = 'not measured' if t['step_ms'] is None \
+            else f'{t["step_ms"]:.1f} ms'
+        val = 'no validation' if t['val_s'] is None \
+            else f'validation {t["val_s"]:.2f} s'
+        print(f'{label} epoch {t["epoch"]} on {card}: {t["steps"]} steps, '
+              f'host batch preparation {t["prepare_s"]:.2f} s, steps '
+              f'{step} (CUDA events), {val}, wall {t["wall_s"]:.2f} s')
+
+
+def phase_fit(dev, card, room_points=FIT_ROOM_POINTS, epochs=FIT_EPOCHS):
+    """The port's train and eval entry points, `train(cfg, datasets)` and
+    `evaluate(cfg, datasets)`, at SPT-2 width in bf16 with
+    `experiment=semantic/s3dis`'s datamodule on synthetic S3DIS areas;
+    then gradient accumulation held to one averaged AdamW step."""
+    import copy
+    import tempfile
+    import numpy as np
+    import torch
+    import superpoint_transformer_torch.datasets as datasets_pkg
+    from superpoint_transformer_torch.config.loader import _to_config
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.eval import evaluate
+    from superpoint_transformer_torch.experiment import (
+        FLAGSHIP_CFG, build_datasets, build_task)
+    from superpoint_transformer_torch.optim.lr_scheduler import set_lr
+    from superpoint_transformer_torch.train import train
+    from superpoint_transformer_torch.trainer import Trainer
+    from superpoint_transformer_torch.transforms.prepare import (
+        prepare_batch)
+
+    settle()
+    tmp = tempfile.TemporaryDirectory()
+    root, out = os.path.join(tmp.name, 's3dis'), os.path.join(tmp.name, 'out')
+    t0 = time.perf_counter()
+    n_raw = write_s3dis_rooms(root, room_points, SEED)
+    write_s = time.perf_counter() - t0
+    cfg = _to_config(copy.deepcopy(FLAGSHIP_CFG))
+    for key, value in (('device', str(dev)), ('output_dir', out),
+                       ('datamodule.data_dir', root),
+                       ('trainer.max_epochs', epochs),
+                       ('trainer.check_val_every_n_epoch', 1)):
+        cfg.set_path(key, value)
+    # build_datasets takes its S3DIS from the datasets package: the
+    # dict-backed one stands in for it while the datasets are built
+    port_s3dis = datasets_pkg.S3DIS
+    datasets_pkg.S3DIS = memory_s3dis()
+    try:
+        datasets = build_datasets(cfg)
+    finally:
+        datasets_pkg.S3DIS = port_s3dis
+    t0 = time.perf_counter()
+    for ds in datasets.values():
+        ds.process()
+    prep_s = time.perf_counter() - t0
+    nodes = [[ds[i][j].num_nodes for j in ds[i].levels]
+             for ds in datasets.values() for i in range(len(ds))]
+    print(f'fit: {n_raw} raw points in {sum(FIT_AREAS.values())} rooms '
+          f'written as S3DIS text in {write_s:.2f} s; read and preprocessed '
+          f'in {prep_s:.2f} s on the host; nodes per level, by split and '
+          f'area {nodes}')
+
+    # 1. train(cfg, datasets): every launch counted from here
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_trainable') as k1_args:
+        t0 = time.perf_counter()
+        trainer = train(cfg, datasets)
+        fit_s = time.perf_counter() - t0
+    launches = counts()
+    steps = sum(t['steps'] for t in trainer.epoch_times)
+    n_val = len(datasets['val']) * len(trainer.epoch_times)
+    print_epochs('fit', trainer, card)
+    print(f'fit: train(cfg, datasets) {epochs} epochs in {fit_s:.2f} s; '
+          f'{steps} steps, {n_val} validation forwards; launches '
+          f'{launches}, plain attention calls {plain["plain"]}; best mIoU '
+          f'{trainer.best_miou:.4f}')
+    check(launches['K1'] == K1_LAUNCHES_PER_STEP * steps > 0
+          and launches['K2'] == K2_LAUNCHES_PER_FORWARD * n_val
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          'fit: not 7 K1 launches a step and 7 K2 a validation forward, or '
+          'K3 or the plain attention ran')
+    fit_launches = dict(launches)
+    hold_on_path('K1', k1_args, 'fit path')
+    del k1_args
+    task = trainer.task
+    check(task.step == steps and task.updates == steps
+          and trainer.epoch == epochs - 1, 'fit: step counts')
+    def csv_rows():
+        with open(os.path.join(out, 'metrics.csv')) as f:
+            rows = [line.strip().split(',') for line in f]
+        return rows[0], rows[1:]
+
+    head, rows = csv_rows()
+    check(sum(r[1] == 'val' for r in rows) == epochs and all(
+        np.isfinite(float(r[head.index('loss')])) for r in rows),
+        'fit: a validation row is missing or a loss is not finite')
+
+    # 2. resume from 'last': the loaded state is the saved one, then one
+    # more epoch carries on the step, the LR and the epoch
+    last = os.path.join(out, 'checkpoints', 'last')
+    fresh = Trainer(build_task(cfg, num_graphs=1, device=dev), None,
+                    output_dir=os.path.join(tmp.name, 'load'))
+    fresh.load_checkpoint(last)
+    a, b = task.state_dict(), fresh.task.state_dict()
+    check(all(torch.equal(v, b['model'][k]) for k, v in a['model'].items())
+          and all(torch.equal(v, b['optimizer']['state'][i][k])
+                  for i, st in a['optimizer']['state'].items()
+                  for k, v in st.items())
+          and (b['step'], b['updates'], fresh.epoch) == (steps, steps,
+                                                          epochs),
+          'resume: the loaded parameters, AdamW moments, step or epoch are '
+          'not the saved ones')
+    del fresh
+    cfg2 = copy.deepcopy(cfg)
+    cfg2.set_path('trainer.max_epochs', epochs + 1)
+    cfg2.set_path('ckpt_path', last)
+    reset_counts()
+    with profiled_fit() as prof:
+        resumed = train(cfg2, datasets)
+    launches = counts()
+    print_epochs('resumed fit', resumed, card)
+    t = resumed.epoch_times
+    head, rows = csv_rows()
+    new = rows[-2:]
+    check(len(t) == 1 and t[0]['epoch'] == epochs
+          and resumed.task.step == steps + t[0]['steps']
+          and [r[:2] for r in new] == [[str(epochs), 'train'],
+                                       [str(epochs), 'val']]
+          and float(new[0][head.index('lr')]) == resumed.task.lr_at(
+              resumed.task.step),
+          'resume: the epoch, the step or the logged LR did not carry on')
+    # the share of the epoch's own wall time (training, validation and
+    # checkpoints) that the card spends in kernels
+    busy_ms, wall_s = prof.get('busy_ms'), t[0]['wall_s']
+    share = 'not measured' if busy_ms is None else \
+        f'{busy_ms / (wall_s * 1e3):.4f}'
+    print(f'resumed fit: epoch {epochs} in {wall_s:.2f} s (its own clock, '
+          f'under the profiler), kernels '
+          f'{"not measured" if busy_ms is None else f"{busy_ms:.1f} ms"} '
+          f'(torch.profiler): device-busy share {share}; launches '
+          f'{launches}')
+    for k in ('K1', 'K2'):
+        fit_launches[k] += launches[k]
+
+    # 3. evaluate(cfg, datasets) from 'best': on the validation split
+    # twice (its mIoU vs the logged one, within the run-to-run spread),
+    # then on the test area with TTA
+    best_epoch = json.load(open(os.path.join(
+        out, 'checkpoints', 'best', 'spt_meta.json')))['epoch'] - 1
+    val_miou = {int(r[0]): float(r[head.index('miou')]) for r in rows
+                if r[1] == 'val'}
+    ecfg = copy.deepcopy(cfg)
+    ecfg.set_path('ckpt_path', os.path.join(out, 'checkpoints', 'best'))
+    ecfg.set_path('output_dir', os.path.join(tmp.name, 'eval'))
+    reset_counts()
+    t0 = time.perf_counter()
+    with widest_call('dense_attention_rpe') as k2_args:
+        runs = [evaluate(ecfg, {'test': datasets['val']})['miou']
+                for _ in range(2)]
+    eval_s = (time.perf_counter() - t0) / 2
+    spread = abs(runs[0] - runs[1])
+    logged = val_miou[best_epoch]
+    limit = TRAIN_RATIO * spread + FIT_MIOU_FLOOR
+    print(f'evaluate from best (epoch {best_epoch}) on the validation '
+          f'split: mIoU {runs[0]:.4f}, {runs[1]:.4f} (run to run '
+          f'{spread:.4f}) vs logged {logged:.4f}; {eval_s:.2f} s each')
+    check(abs(runs[0] - logged) <= limit,
+          f'evaluate: mIoU {runs[0]:.4f} vs the logged {logged:.4f}, beyond '
+          f'{limit:.4f}')
+    ecfg.set_path('tta_runs', FIT_TTA_RUNS)
+    t0 = time.perf_counter()
+    m = evaluate(ecfg, {'test': datasets['test']})
+    tta_s = time.perf_counter() - t0
+    launches = counts()
+    n_fwd = (2 * len(datasets['val'])
+             + (1 + FIT_TTA_RUNS) * len(datasets['test']))
+    print(f'evaluate on the test area with {FIT_TTA_RUNS} TTA runs: mIoU '
+          f'{m["miou"]:.4f}, OA {m["oa"]:.4f} in {tta_s:.2f} s; launches '
+          f'{launches}')
+    check(np.isfinite(m['miou']) and m['confmat'].sum() > 0
+          and launches['K2'] == K2_LAUNCHES_PER_FORWARD * n_fwd
+          and launches['K1'] == launches['K3'] == 0,
+          'evaluate: not 7 K2 launches a forward, or no test mass')
+    fit_launches['K2'] += launches['K2']
+    hold_on_path('K2', k2_args, 'fit path')
+    del k2_args
+
+    # 4. accumulate_grad_batches=2 over 2 loader batches, in f32, against
+    # one averaged AdamW step on them from the same weights
+    acfg = copy.deepcopy(cfg)
+    acfg.set_path('trainer.accumulate_grad_batches', 2)
+    bcfg = trainer.batch_cfg
+    rng = np.random.default_rng(SEED + 5)
+    hosts = [prepare_batch([datasets['train'][i]], bcfg, train=True,
+                           rng=rng) for i in range(2)]
+    batches = [from_numpy(h, dev, None, train=True) for h in hosts]
+
+    def f32_task(k):
+        t_ = build_task(acfg if k > 1 else cfg, num_graphs=1,
+                        compute_dtype=None, device=dev)
+        t_.model.load_state_dict(task.model.state_dict())
+        return t_
+
+    acc = f32_task(2)
+    start = [p.detach().clone() for p in acc.model.parameters()]
+    reset_counts()
+    acc.train_step(batches[0])
+    check(all(torch.equal(a_, p.detach()) for a_, p in
+              zip(start, acc.model.parameters())) and acc.updates == 0,
+          'accumulation: the parameters moved after the first micro-batch')
+    acc.train_step(batches[1])
+    launches = counts()
+    check(acc.updates == 1 and acc.step == 2 and launches['K1']
+          == 2 * K1_LAUNCHES_PER_STEP, 'accumulation: no update after the '
+          'second micro-batch, or not 7 K1 launches a micro-batch')
+    mean = [p.grad.detach().clone() if p.grad is not None else None
+            for p in acc.model.parameters()]
+
+    def averaged(t_):
+        """The mean gradient of the two batches, from two backward
+        passes, without an update."""
+        gs = [loss_grads(t_, b)[1] for b in batches]
+        return (gs[0] + gs[1]) / 2
+
+    ref = f32_task(1)
+    g_ref = averaged(ref)
+    repeats = [averaged(ref) for _ in range(SPREAD_RUNS)]
+    g_acc = torch.cat([(g if g is not None else torch.zeros_like(p))
+                       .reshape(-1).float() for g, p in
+                       zip(mean, acc.model.parameters())])
+    err = rel_l2(g_acc, g_ref)
+    spread = max(rel_l2(g, g_ref) for g in repeats)
+    floor = TRAIN_FLOOR[None][1]
+    print(f'accumulation: mean gradient of 2 micro-batches vs the average '
+          f'of 2 backward passes rel L2 {err:.3e} (run to run up to '
+          f'{spread:.3e})')
+    check(err <= TRAIN_RATIO * spread + floor,
+          f'accumulation: the mean gradient is beyond {TRAIN_RATIO}x the '
+          f'run-to-run spread + {floor}')
+    # the update itself: one AdamW step of the reference task on the same
+    # mean gradient, from the same weights and LR, gives the same weights
+    ref = f32_task(1)
+    ref.optimizer.zero_grad(set_to_none=True)
+    for p, g in zip(ref.model.parameters(), mean):
+        p.grad = None if g is None else g.clone()
+    set_lr(ref.optimizer, ref.schedules, 0)
+    ref.optimizer.step()
+    check(all(torch.equal(p.detach(), q.detach()) for p, q in zip(
+        ref.model.parameters(), acc.model.parameters())),
+        'accumulation: the update is not one AdamW step on the mean '
+        'gradient')
+    print('accumulation: 2 micro-batches made one AdamW update, equal to '
+          'one step on their mean gradient')
+    tmp.cleanup()
+    return {'K1': fit_launches['K1'], 'K2': fit_launches['K2']}
+
+
 def main():
     check(os.path.isdir(os.path.join(HERE, 'superpoint_transformer_torch')),
           'run from a checkout of the repository (the port package '
@@ -1551,15 +1929,19 @@ def main():
                 'K3': phase_fused_rpe_training(dev)}
     host_path = phase_host_path(dev, card)
     panoptic = phase_panoptic(dev, card)
+    fit = phase_fit(dev, card)
     print(f'launches by path: serving/training/fused-RPE {launches}, '
           f'host path {host_path}')
     print(f'launches on the panoptic path: {panoptic}')
+    print(f'launches on the fit-and-evaluate path: {fit}')
     for name, n in launches.items():
         check(n > 0, f'its path launched no {name} kernel')
     for name, n in host_path.items():
         check(n > 0, f'the host path launched no {name} kernel')
     for name, n in panoptic.items():
         check(n > 0, f'the panoptic path launched no {name} kernel')
+    for name, n in fit.items():
+        check(n > 0, f'the fit-and-evaluate path launched no {name} kernel')
     table = []
     for name, fn, line in (('K1', 'dense_attention', 74),
                            ('K2', 'dense_attention_rpe', 256),

@@ -20,8 +20,12 @@
 //   dwq, dbq (from dq_full) and dwv, dbv (from dv_full).
 //
 // Per-edge gradients are written in the input type T; weight and bias
-// gradients are f32. All math is f32, except the f32 variant's
-// weight-gradient sums, which are f64 (see below).
+// gradients are f32. In the bf16 variant all math is f32. The f32
+// variant, which the tests and the f32 model check hold to autograd in
+// f64, runs its whole per-slot chain in f64 (the projections, the logit,
+// p, e and every product that feeds a gradient, and the weight-gradient
+// sums) and rebuilds lse and delta in f64 from a first pass over the
+// node's slots; each output is rounded to f32 once (see below).
 //
 // What bounds it on an H100: per slot it reads the gathered k/v rows and
 // the edge features once and writes their gradients once (about 640
@@ -67,7 +71,13 @@
 //   them in f64 (the accumulators, the block partials and their sum; the
 //   f32 products are exact in f64) and rounds to f32 once, at the end:
 //   with f32 sums over N*K = 245,760 slots its worst weight gradient
-//   reached 1.54x the tolerance from f64 autograd over 20 seeds.
+//   reached 1.54x the tolerance from f64 autograd over 20 seeds. f64
+//   sums alone left one seed at 1.26x: each of the N*K terms carried
+//   its own f32 roundings (the projections, exp, g . v - delta, and the
+//   f32 lse and delta that the forward and the caller rounded). So the
+//   f32 variant takes lse and delta from its own first pass (the row
+//   max, the sum of exponentials and delta = sum_k p_k (g . v_full_k),
+//   which is sum_c g * out) and carries every per-slot value in f64.
 #include <type_traits>
 
 #include "node_tiles.cuh"
@@ -98,6 +108,12 @@ __device__ __forceinline__ float fma_acc(float a, float b, float acc) {
 __device__ __forceinline__ double fma_acc(float a, float b, double acc) {
   return fma((double)a, (double)b, acc);
 }
+__device__ __forceinline__ double fma_acc(float a, double b, double acc) {
+  return fma((double)a, b, acc);
+}
+__device__ __forceinline__ void store(float* p, double v) { *p = (float)v; }
+__device__ __forceinline__ float exp_c(float x) { return expf(x); }
+__device__ __forceinline__ double exp_c(double x) { return exp(x); }
 
 // four 8x8 b16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8
@@ -120,8 +136,9 @@ __host__ __device__ inline size_t up16(size_t bytes) {
 
 // Shared-memory layout in bytes, the same on host and device; every
 // region starts on 16 bytes. Both variants: the weights [De, W+1] and
-// biases [W] in f32, the staged edge features [ROWS, DE1P] and gradient
-// rows [ROWS, W] in f32, the per-warp head scratch. The bf16 variant
+// biases [W] in f32, the staged edge features [ROWS, DE1P] in f32, the
+// gradient rows [ROWS, W] and the per-warp head scratch in the chain's
+// type (f32 in bf16, f64 in f32). The bf16 variant
 // adds the weights as the B fragments of the edge-feature gradient (NTA
 // tiles of 8 edge features, KSA k-steps of 16 gradient columns) and the
 // gradient rows split into bf16 hi and lo parts, [ROWS, LDG] each, zero
@@ -136,12 +153,13 @@ struct Layout {
     NTA = (De + 7) / 8;
     KSA = (W + 15) / 16;
     LDG = KSA * 16 + 8;  // 16 * odd bytes: ldmatrix rows on distinct banks
+    const size_t chain = bf16 ? sizeof(float) : sizeof(double);
     size_t o = 0;
     w = o;    o += up16(sizeof(float) * De * WP);
     b = o;    o += up16(sizeof(float) * W);
     ef = o;   o += up16(sizeof(float) * ROWS * DE1P);
-    grad = o; o += up16(sizeof(float) * ROWS * W);
-    head = o; o += up16(sizeof(float) * WARPS_PER_BLOCK * 2 * H);
+    grad = o; o += up16(chain * ROWS * W);
+    head = o; o += up16(chain * WARPS_PER_BLOCK * 2 * H);
     frag = ghi = glo = o;
     if (bf16) {
       frag = o; o += sizeof(uint2) * NTA * KSA * WARP;
@@ -196,8 +214,8 @@ __device__ __forceinline__ void edge_grad_mma(
   }
 }
 
-// the type of the weight-gradient sums: f32 in the bf16 variant, f64 in
-// the f32 variant
+// the type of the per-slot chain and of the weight-gradient sums: f32 in
+// the bf16 variant, f64 in the f32 variant
 template <typename T>
 using Acc = typename std::conditional<
     std::is_same<T, __nv_bfloat16>::value, float, double>::type;
@@ -226,6 +244,7 @@ dense_attention_rpe_bwd_kernel(
     long long ldv) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  using Ch = Acc<T>;  // the per-slot chain's type
   const Layout L(H, D, C, De, BF16);
   const int DH = H * D;
   const int CH = C / H;
@@ -236,8 +255,8 @@ dense_attention_rpe_bwd_kernel(
   float* s_w = reinterpret_cast<float*>(smem + L.w);   // [De, WP]
   float* s_b = reinterpret_cast<float*>(smem + L.b);   // [W]
   float* s_ef = reinterpret_cast<float*>(smem + L.ef);      // [ROWS, DE1P]
-  float* s_grad = reinterpret_cast<float*>(smem + L.grad);  // [ROWS, W]
-  float* s_head = reinterpret_cast<float*>(smem + L.head);
+  Ch* s_grad = reinterpret_cast<Ch*>(smem + L.grad);  // [ROWS, W]
+  Ch* s_head = reinterpret_cast<Ch*>(smem + L.head);
   __nv_bfloat16* s_ghi = reinterpret_cast<__nv_bfloat16*>(smem + L.ghi);
   __nv_bfloat16* s_glo = reinterpret_cast<__nv_bfloat16*>(smem + L.glo);
 
@@ -282,8 +301,8 @@ dense_attention_rpe_bwd_kernel(
 
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
-  float* s_logit = s_head + warp * 2 * H;  // [H]
-  float* s_e = s_logit + H;                // [H]
+  Ch* s_logit = s_head + warp * 2 * H;  // [H]
+  Ch* s_e = s_logit + H;                // [H]
 
   // accumulator item t: edge-feature rows (t / W) * EPT .. + EPT, column
   // t % W
@@ -303,11 +322,12 @@ dense_attention_rpe_bwd_kernel(
     const float sc = node_ok ? scale[n] : 0.f;
     // node query with the q bias folded in; cotangent, lse and delta of
     // the head of each value channel
-    float qn[NJ], gq[NJ], lse_c[NJ], delta_c[NJ], dq_acc[NJ];
+    Ch qn[NJ], gq[NJ], lse_c[NJ], delta_c[NJ], dq_acc[NJ];
 #pragma unroll
     for (int i = 0; i < NJ; ++i) {
       const int j = lane + WARP * i;
-      qn[i] = node_ok && j < DH ? to_f32(q[n * DH + j]) + s_b[DH + j] : 0.f;
+      qn[i] = node_ok && j < DH ? (Ch)to_f32(q[n * DH + j]) + s_b[DH + j]
+                                : 0.f;
       const bool c_ok = node_ok && j < C;
       const long long hn = (long long)(j / CH) * N + n;
       gq[i] = c_ok ? g[n * C + j] : 0.f;
@@ -316,9 +336,9 @@ dense_attention_rpe_bwd_kernel(
       dq_acc[i] = 0.f;
     }
 
-    for (int k0 = 0; k0 < K; k0 += SLOTS) {
-      // stage the edge features of SLOTS slots (zeros past K or N), with
-      // the constant 1 at index De
+    // stage the edge features of SLOTS slots from k0 (zeros past K or N),
+    // with the constant 1 at index De
+    auto stage = [&](int k0) {
       for (int t = lane; t < SLOTS * DE1P; t += WARP) {
         const int u = t / DE1P, e = t % DE1P, kk = k0 + u;
         float val = 0.f;
@@ -330,15 +350,16 @@ dense_attention_rpe_bwd_kernel(
         s_ef[(warp * SLOTS + u) * DE1P + e] = val;
       }
       __syncwarp();
-
-      // recomputed RPE projections of the SLOTS slots: one pass over the
-      // weights (q's bias is folded into qn)
-      float kr[SLOTS][NJ], qr[SLOTS][NJ], vr[SLOTS][NJ];
+    };
+    // recomputed RPE projections of the staged slots: one pass over the
+    // weights (q's bias is folded into qn)
+    auto project = [&](Ch (&kr)[SLOTS][NJ], Ch (&qr)[SLOTS][NJ],
+                       Ch (&vr)[SLOTS][NJ]) {
 #pragma unroll
       for (int i = 0; i < NJ; ++i) {
         const int j = lane + WARP * i;
-        const float b_k = j < DH ? s_b[j] : 0.f;
-        const float b_v = j < C ? s_b[2 * DH + j] : 0.f;
+        const Ch b_k = j < DH ? s_b[j] : 0.f;
+        const Ch b_v = j < C ? s_b[2 * DH + j] : 0.f;
 #pragma unroll
         for (int u = 0; u < SLOTS; ++u) {
           kr[u][i] = b_k;
@@ -359,18 +380,101 @@ dense_attention_rpe_bwd_kernel(
             const float a = wrow[j], b = wrow[DH + j];
 #pragma unroll
             for (int u = 0; u < SLOTS; ++u) {
-              kr[u][i] = fmaf(efu[u], a, kr[u][i]);
-              qr[u][i] = fmaf(efu[u], b, qr[u][i]);
+              kr[u][i] = fma_acc(efu[u], a, kr[u][i]);
+              qr[u][i] = fma_acc(efu[u], b, qr[u][i]);
             }
           }
           if (j < C) {
             const float w = wrow[2 * DH + j];
 #pragma unroll
             for (int u = 0; u < SLOTS; ++u)
-              vr[u][i] = fmaf(efu[u], w, vr[u][i]);
+              vr[u][i] = fma_acc(efu[u], w, vr[u][i]);
           }
         }
       }
+    };
+    // q/k lanes: the head logits of slot u into s_logit, partial products
+    // summed over D lanes; k_full and q_full stay in kf and qf
+    auto logits = [&](int u, bool slot_ok, long long row,
+                      const Ch (&kr)[SLOTS][NJ], const Ch (&qr)[SLOTS][NJ],
+                      Ch (&kf)[NJ], Ch (&qf)[NJ]) {
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int j = lane + WARP * i;
+        kf[i] = 0.f;
+        qf[i] = 0.f;
+        if (slot_ok && j < DH) {
+          kf[i] = to_f32(kg[row * ldk + j]) + kr[u][i];
+          qf[i] = qn[i] + qr[u][i];
+        }
+        Ch prod = qf[i] * kf[i];
+        for (int off = D / 2; off > 0; off >>= 1)
+          prod += __shfl_xor_sync(FULL, prod, off);
+        if (j < DH && j % D == 0) s_logit[j / D] = prod;
+      }
+      __syncwarp();
+    };
+
+    if constexpr (!BF16) {
+      // f32: lse and delta of each head in f64, from a first pass over the
+      // node's slots: the running max, the sum of exponentials and the
+      // sum of exponentials times g . v_full (an online softmax)
+      Ch mx[NJ], se[NJ], te[NJ];
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        mx[i] = -1e300;
+        se[i] = 0.f;
+        te[i] = 0.f;
+      }
+      for (int k0 = 0; k0 < K; k0 += SLOTS) {
+        stage(k0);
+        Ch kr[SLOTS][NJ], qr[SLOTS][NJ], vr[SLOTS][NJ];
+        project(kr, qr, vr);
+#pragma unroll
+        for (int u = 0; u < SLOTS; ++u) {
+          const int kk = k0 + u;
+          const bool slot_ok = node_ok && kk < K;  // warp-uniform
+          const long long row = n * K + kk;
+          const bool live = slot_ok && mask[row];
+          Ch kf[NJ], qf[NJ];
+          logits(u, slot_ok, row, kr, qr, kf, qf);
+#pragma unroll
+          for (int i = 0; i < NJ; ++i) {
+            const int c = lane + WARP * i;
+            Ch logit = 0.f, gv = 0.f;
+            if (slot_ok && c < C) {
+              logit = s_logit[c / CH] * sc;
+              gv = gq[i] * ((Ch)to_f32(vg[row * ldv + c]) + vr[u][i]);
+            }
+            for (int off = CH / 2; off > 0; off >>= 1)
+              gv += __shfl_xor_sync(FULL, gv, off);
+            if (live && c < C) {
+              if (logit > mx[i]) {
+                const Ch r = exp_c(mx[i] - logit);
+                se[i] = se[i] * r + 1.0;
+                te[i] = te[i] * r + gv;
+                mx[i] = logit;
+              } else {
+                const Ch w = exp_c(logit - mx[i]);
+                se[i] += w;
+                te[i] += w * gv;
+              }
+            }
+          }
+          __syncwarp();
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        lse_c[i] = se[i] > 0.0 ? mx[i] + log(se[i]) : 0.0;
+        delta_c[i] = se[i] > 0.0 ? te[i] / se[i] : 0.0;
+      }
+    }
+
+    for (int k0 = 0; k0 < K; k0 += SLOTS) {
+      stage(k0);
+      Ch kr[SLOTS][NJ], qr[SLOTS][NJ], vr[SLOTS][NJ];
+      project(kr, qr, vr);
 
 #pragma unroll
       for (int u = 0; u < SLOTS; ++u) {
@@ -378,12 +482,12 @@ dense_attention_rpe_bwd_kernel(
         const bool slot_ok = node_ok && kk < K;  // warp-uniform
         const long long row = n * K + kk;
         const float maskk = slot_ok && mask[row] ? 1.f : 0.f;
-        float* grad = s_grad + (warp * SLOTS + u) * W;
+        Ch* grad = s_grad + (warp * SLOTS + u) * W;
         __nv_bfloat16* ghi = s_ghi + (warp * SLOTS + u) * L.LDG;
         __nv_bfloat16* glo = s_glo + (warp * SLOTS + u) * L.LDG;
         // column j of the slot's gradient row: f32, and in bf16 also split
         // into hi + lo for the tensor cores
-        auto put = [&](int j, float v) {
+        auto put = [&](int j, Ch v) {
           grad[j] = v;
           if constexpr (BF16) {
             const __nv_bfloat16 hi = __float2bfloat16(v);
@@ -392,37 +496,22 @@ dense_attention_rpe_bwd_kernel(
           }
         };
 
-        // q/k lanes: the head logits, partial products summed over D lanes
-        float kf[NJ], qf[NJ];
-#pragma unroll
-        for (int i = 0; i < NJ; ++i) {
-          const int j = lane + WARP * i;
-          kf[i] = 0.f;
-          qf[i] = 0.f;
-          if (slot_ok && j < DH) {
-            kf[i] = to_f32(kg[row * ldk + j]) + kr[u][i];
-            qf[i] = qn[i] + qr[u][i];
-          }
-          float prod = qf[i] * kf[i];
-          for (int off = D / 2; off > 0; off >>= 1)
-            prod += __shfl_xor_sync(FULL, prod, off);
-          if (j < DH && j % D == 0) s_logit[j / D] = prod;
-        }
-        __syncwarp();
+        Ch kf[NJ], qf[NJ];
+        logits(u, slot_ok, row, kr, qr, kf, qf);
 
         // value lanes: attention weight, value gradient, and the logit
         // gradient e of each head (g . v_full summed over C/H lanes)
-        float dv[NJ];
+        Ch dv[NJ];
 #pragma unroll
         for (int i = 0; i < NJ; ++i) {
           const int c = lane + WARP * i;
-          float p = 0.f, gv = 0.f;
+          Ch p = 0.f, gv = 0.f;
           dv[i] = 0.f;
           if (slot_ok && c < C) {
-            const float logit =
+            const Ch logit =
                 maskk > 0.f ? s_logit[c / CH] * sc : -1e30f;
-            p = expf(logit - lse_c[i]) * maskk;
-            const float vf = to_f32(vg[row * ldv + c]) + vr[u][i];
+            p = exp_c(logit - lse_c[i]) * maskk;
+            const Ch vf = to_f32(vg[row * ldv + c]) + vr[u][i];
             dv[i] = p * gq[i];
             gv = gq[i] * vf;
           }
@@ -438,8 +527,8 @@ dense_attention_rpe_bwd_kernel(
         for (int i = 0; i < NJ; ++i) {
           const int j = lane + WARP * i;
           if (j < DH) {
-            const float e = s_e[j / D];
-            const float dqf = e * kf[i], dkf = e * qf[i];
+            const Ch e = s_e[j / D];
+            const Ch dqf = e * kf[i], dkf = e * qf[i];
             dq_acc[i] += dqf;
             put(j, dkf);
             put(DH + j, dqf);
@@ -457,9 +546,9 @@ dense_attention_rpe_bwd_kernel(
         if constexpr (!BF16) {
           for (int e = lane; e < De; e += WARP) {
             const float* wrow = s_w + e * WP;
-            float sum = 0.f;
+            Ch sum = 0.f;
             for (int jj = 0; jj < W; ++jj)
-              sum = fmaf(wrow[jj], grad[jj], sum);
+              sum = fma_acc(wrow[jj], grad[jj], sum);
             if (slot_ok) store(&d_ef[row * De + e], sum);
           }
         }
@@ -477,7 +566,7 @@ dense_attention_rpe_bwd_kernel(
         if (t < n_items) {
           const int j = t % W, e0 = t / W * EPT;
           for (int r = 0; r < ROWS; ++r) {
-            const float gr = s_grad[r * W + j];
+            const Ch gr = s_grad[r * W + j];
             const float* er = s_ef + r * DE1P + e0;
 #pragma unroll
             for (int ee = 0; ee < EPT; ++ee)

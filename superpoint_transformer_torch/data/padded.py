@@ -86,18 +86,23 @@ _DROPPED = ('nbr_in_idx', 'nbr_in_mask', 'node_id')
 _FEATURES = ('x', 'edge_feat', 'v_edge_attr')
 
 
-def _to_tensor(name, a, device, feat_dtype):
+def _to_tensor(name, a, device, feat_dtype, pin):
     a = np.asarray(a)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if a.dtype == np.bool_:
-        return t.to(device)
-    if np.issubdtype(a.dtype, np.integer):
-        return t.to(device=device, dtype=torch.int64)
-    dtype = feat_dtype if name in _FEATURES else torch.float32
+        dtype = torch.bool
+    elif np.issubdtype(a.dtype, np.integer):
+        dtype = torch.int64
+    else:
+        dtype = feat_dtype if name in _FEATURES else torch.float32
+    if pin:
+        # cast on the host, then one asynchronous copy from pinned memory
+        return t.to(dtype).pin_memory().to(device, non_blocking=True)
     return t.to(device=device, dtype=dtype)
 
 
-def from_numpy(batch, device, compute_dtype=None, train=False):
+def from_numpy(batch, device, compute_dtype=None, train=False,
+               pin_memory=False):
     """Convert a batch with numpy leaves into a `PaddedNAG` of tensors
     on `device`, ready for an inference forward, or with `train` for a
     training step.
@@ -109,8 +114,11 @@ def from_numpy(batch, device, compute_dtype=None, train=False):
     `level1_node_id`); the label histograms `y` are kept when `train` and
     dropped otherwise, as the JAX `strip_for_inference` does. `x`,
     `edge_feat` and `v_edge_attr` are cast to bf16 when `compute_dtype` is
-    bf16. Index tensors become int64."""
+    bf16. Index tensors become int64. With `pin_memory` and a CUDA
+    `device`, each leaf is copied from pinned host memory without
+    blocking the host."""
     device = torch.device(device)
+    pin = pin_memory and device.type == 'cuda'
     feat_dtype = torch.bfloat16 if compute_dtype in ('bf16', 'bfloat16') \
         else torch.float32
     start = int(batch.start_i_level)
@@ -128,7 +136,7 @@ def from_numpy(batch, device, compute_dtype=None, train=False):
                 kw[f.name] = int(v)
             elif v is not None and f.name not in _DROPPED \
                     and (train or f.name != 'y'):
-                kw[f.name] = _to_tensor(f.name, v, device, feat_dtype)
+                kw[f.name] = _to_tensor(f.name, v, device, feat_dtype, pin)
         levels.append(PaddedLevel(**kw))
     return PaddedNAG(levels=tuple(levels), start_i_level=start,
                      num_graphs=int(batch.num_graphs),

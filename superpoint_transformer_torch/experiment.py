@@ -1,24 +1,29 @@
-"""Model and task construction: config -> SPT backbone -> semantic or
-panoptic task.
+"""Experiment construction: config -> SPT backbone -> semantic or
+panoptic task, batch configuration and datasets.
 
-Counterpart of `build_model` and `build_task` (semantic and panoptic) in
-`superpoint_transformer_tpu/experiment.py` over a plain nested dict.
-`FLAGSHIP_CFG` holds the values that they read from `configs/train.yaml`
-composed with `experiment=semantic/s3dis`, and `PANOPTIC_CFG` those of
+Counterpart of `build_model`, `build_task` (semantic and panoptic),
+`build_batch_config`, `_pre_transform_config` and `build_datasets` in
+`superpoint_transformer_tpu/experiment.py`, over a plain nested dict or a
+`config.Config`. `FLAGSHIP_CFG` holds the values that they and the
+Trainer read from `configs/train.yaml` composed with
+`experiment=semantic/s3dis`, and `PANOPTIC_CFG` those of
 `experiment=panoptic/s3dis`, so no YAML reader is needed; tests pin both
-to the YAML. Both entry points build on the card unless the caller
-passes `device='cpu'`.
+to the YAML. `build_model` and `build_task` build on the card unless the
+caller passes `device='cpu'`.
 """
 import copy
 
+import numpy as np
 import torch
 
 from .models.panoptic import PanopticTask
 from .models.semantic import SemanticTask
 from .models.spt import SPT
+from .transforms.prepare import BatchConfig
 
 __all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'build_model',
-           'build_task', 'precision_to_dtype']
+           'build_task', 'build_batch_config', 'build_datasets',
+           'precision_to_dtype']
 
 
 def precision_to_dtype(precision):
@@ -52,11 +57,64 @@ for _k in list(FEAT_SIZE):
     FEAT_SIZE.setdefault('std_' + _k, FEAT_SIZE[_k])
     FEAT_SIZE.setdefault('log_' + _k, FEAT_SIZE[_k])
 
-# SPT-2 on S3DIS with bf16 compute: the values build_model and build_task
-# read from configs/train.yaml + experiment=semantic/s3dis
+# SPT-2 on S3DIS with bf16 compute: the values that build_model,
+# build_task, build_batch_config, _pre_transform_config, build_datasets
+# and the train entry point read from configs/train.yaml +
+# experiment=semantic/s3dis
 FLAGSHIP_CFG = {
+    'seed': 0,
+    'output_dir': 'outputs',
+    'ckpt_path': None,
     'datamodule': {
+        'dataset': 's3dis',
+        'data_dir': 'data',
+        'fold': 5,
+        'mini': False,
+        'in_memory': True,
+        'num_workers': 1,
+        'dataloader': {'batch_size': 1, 'num_workers': 0},
         'num_classes': 13,
+        'stuff_classes': [],
+        'nano': False,
+        'instance': False,
+        # preprocessing
+        'voxel': 0.03,
+        'knn': 45,
+        'knn_r': 2,
+        'knn_step': -1,
+        'knn_min_search': 25,
+        'knn_backend': 'host',
+        'partition_hf': ['rgb', 'linearity', 'planarity', 'scattering',
+                         'verticality', 'elevation'],
+        'pcp_regularization': [0.01, 0.1, 0.5],
+        'pcp_spatial_weight': [0.1, 0.1, 0.1],
+        'pcp_cutoff': [10, 10, 10],
+        'pcp_k_adjacency': 10,
+        'pcp_w_adjacency': 1,
+        'graph_k_min': 1,
+        'graph_k_max': 30,
+        'graph_gap': [0.2, 0.5, 1],
+        'ground_threshold': 1.5,
+        'ground_scale': 4.0,
+        # batches: sampling and augmentation
+        'sample_point_min': 32,
+        'sample_point_max': 128,
+        'sample_graph_r': 7,
+        'sample_graph_k': 4,
+        'sample_graph_max_nodes': 10000,
+        'sample_segment_ratio': 0.1,
+        'sample_segment_by_size': True,
+        'sample_edge_n_max': -1,
+        'max_num_nodes': 50000,
+        'max_num_edges': 1000000,
+        'pos_jitter': 0.03,
+        'tilt_n_rotate_phi': 0.1,
+        'tilt_n_rotate_theta': 180,
+        'anisotropic_scaling': 0.2,
+        'node_feat_jitter': 0.01,
+        'h_edge_feat_jitter': 0.01,
+        'rgb_autocontrast': 0.5,
+        'rgb_drop': 0.3,
         'point_hf': ['linearity', 'planarity', 'scattering',
                      'verticality', 'elevation', 'rgb'],
         'segment_base_hf': [],
@@ -78,6 +136,8 @@ FLAGSHIP_CFG = {
         '_mlp_depth': 2,
         'loss_type': 'ce_kl',
         'multi_stage_loss_lambdas': [1, 50],
+        'weighted_loss': True,
+        'weighted_loss_smooth': 'sqrt',
         'transformer_lr_scale': 0.1,
         # the YAML loader reads `1e-2` (no dot) as a string, and these
         # values are kept as it gives them; build_task converts
@@ -98,7 +158,16 @@ FLAGSHIP_CFG = {
             'up_num_heads': 16, 'up_num_blocks': 1, 'up_ffn_ratio': 1,
         },
     },
-    'trainer': {'precision': 'bf16'},
+    'trainer': {
+        'precision': 'bf16',
+        'max_epochs': 2000,
+        'check_val_every_n_epoch': 10,
+        'devices': 1,
+        'accumulate_grad_batches': 1,
+        'early_stopping_patience': -1,
+        'logger': ['csv'],
+        'track_val_idx': -1,
+    },
 }
 
 # SuperCluster on S3DIS (SPT-2 backbone, bf16 compute): the values
@@ -119,6 +188,7 @@ PANOPTIC_CFG['model'].update({
     'edge_affinity_head_hidden': 32,
     'edge_affinity_loss_lambda': 1,
     'edge_affinity_loss_weights': [1, 1, 1, 1],
+    'partition_every_n_epoch': 50,
 })
 
 
@@ -228,20 +298,19 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
     sets it), with its edge-affinity loss weight and case weights and
     the datamodule's stuff classes. Both take the loss type and stage
     weights, AdamW's LR and weight decay, the attention LR scale and the
-    warm-up. Numbers may be strings, as the YAML loader gives `1e-2`.
-    Gradient accumulation, the plateau scheduler and the partition task
-    (EZ-SP) are not ported. Raises without a CUDA device unless `device`
-    is the CPU."""
+    warm-up, the scheduler (`model.scheduler._target_`: the plateau one
+    where it names it, else cosine) and `trainer.accumulate_grad_batches`.
+    Numbers may be strings, as the YAML loader gives `1e-2`. The
+    partition task (EZ-SP) is not ported. Raises without a CUDA device
+    unless `device` is the CPU."""
     device = _device(device, 'build_task')
     m = cfg['model']
     task_type = str(m.get('task', 'semantic'))
     if task_type not in ('semantic', 'panoptic'):
-        raise NotImplementedError(f'the {task_type!r} task is not ported')
+        raise NotImplementedError(
+            f'the {task_type!r} task is not ported (EZ-SP: ROADMAP Queue 1 '
+            'item 6)')
     sched = m['scheduler']
-    if 'plateau' in str(sched.get('_target_', 'cosine')).lower():
-        raise NotImplementedError('the plateau scheduler is not ported')
-    if int(cfg.get('trainer', {}).get('accumulate_grad_batches', 1)) != 1:
-        raise NotImplementedError('gradient accumulation is not ported')
     net = build_model(cfg, num_graphs=num_graphs,
                       compute_dtype=compute_dtype,
                       plain_attention=plain_attention, device=device)
@@ -255,7 +324,11 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
         transformer_lr_scale=float(m['transformer_lr_scale']),
         total_steps=total_steps, warmup_steps=int(sched['num_warmup']),
         warmup_init_lr=float(sched['warmup_init_lr']),
-        eta_min=float(sched['eta_min']), class_weight=class_weight)
+        eta_min=float(sched['eta_min']), class_weight=class_weight,
+        scheduler=('plateau' if 'plateau' in str(
+            sched.get('_target_', 'cosine')).lower() else 'cosine'),
+        accumulate_grad_batches=int(
+            (cfg.get('trainer') or {}).get('accumulate_grad_batches', 1)))
     if task_type == 'panoptic':
         return PanopticTask(
             net, edge_affinity_loss_lambda=float(
@@ -267,3 +340,136 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
                 int(c) for c in cfg['datamodule'].get('stuff_classes', ())),
             **common)
     return SemanticTask(net, **common)
+
+
+def _segment_hf(dm):
+    return (list(dm['segment_base_hf'])
+            + ['mean_' + k for k in dm['segment_mean_hf']]
+            + ['std_' + k for k in dm['segment_std_hf']])
+
+
+def build_batch_config(cfg):
+    """The `BatchConfig` of `cfg`'s datamodule: features, sampling and
+    augmentation of the batches, as the JAX `build_batch_config`."""
+    dm = cfg['datamodule']
+    return BatchConfig(
+        num_classes=int(dm['num_classes']),
+        point_hf=tuple(dm['point_hf']),
+        segment_hf=tuple(_segment_hf(dm)),
+        edge_hf=tuple(dm['edge_hf']),
+        v_edge_hf=tuple(dm['v_edge_hf']),
+        use_mean_normal='normal' in dm['segment_mean_hf'],
+        sample_point_min=int(dm['sample_point_min']),
+        sample_point_max=int(dm['sample_point_max']),
+        sample_graph_r=float(dm['sample_graph_r']),
+        sample_graph_k=int(dm['sample_graph_k']),
+        sample_graph_max_nodes=int(dm['sample_graph_max_nodes']),
+        sample_segment_ratio=float(dm['sample_segment_ratio']),
+        sample_segment_by_size=bool(dm['sample_segment_by_size']),
+        sample_edge_n_max=int(dm['sample_edge_n_max']),
+        max_num_nodes=int(dm['max_num_nodes']),
+        max_num_edges=int(dm['max_num_edges']),
+        pos_jitter=float(dm['pos_jitter']),
+        voxel=float(dm['voxel']),
+        tilt_n_rotate_phi=float(dm['tilt_n_rotate_phi']),
+        tilt_n_rotate_theta=float(dm['tilt_n_rotate_theta']),
+        anisotropic_scaling=float(dm['anisotropic_scaling']),
+        node_feat_jitter=float(dm['node_feat_jitter']),
+        h_edge_feat_jitter=float(dm['h_edge_feat_jitter']),
+        rgb_autocontrast=float(dm['rgb_autocontrast']),
+        rgb_drop=float(dm['rgb_drop']),
+        nano=bool(dm['nano']),
+        instance=bool(dm.get('instance', False)),
+        instance_k_max=int(dm.get('instance_k_max', 30)),
+        instance_radius=float(dm.get('instance_radius', 0.1)))
+
+
+def _pre_transform_config(cfg):
+    """The `preprocess_cloud` keyword arguments of `cfg`'s datamodule,
+    as the JAX `_pre_transform_config` builds them: their repr keys the
+    processed files' hash, so it must stay the same dict."""
+    dm = cfg['datamodule']
+    out = dict(
+        voxel=float(dm['voxel']), knn=int(dm['knn']),
+        knn_r=float(dm['knn_r']),
+        knn_step=int(dm.get('knn_step', -1)),
+        knn_min_search=int(dm.get('knn_min_search', 25)),
+        knn_backend=str(dm.get('knn_backend', 'host')),
+        partition_hf=tuple(dm['partition_hf']),
+        point_hf_preprocess=tuple(sorted(
+            set(list(dm['point_hf']) + list(dm['partition_hf'])
+                + ['normal']) - {'rgb', 'intensity', 'elevation'})),
+        pcp_regularization=tuple(dm['pcp_regularization']),
+        pcp_spatial_weight=tuple(dm['pcp_spatial_weight']),
+        pcp_cutoff=tuple(dm['pcp_cutoff']),
+        pcp_k_adjacency=int(dm['pcp_k_adjacency']),
+        pcp_w_adjacency=float(dm['pcp_w_adjacency']),
+        graph_k_min=int(dm['graph_k_min']),
+        graph_k_max=int(dm['graph_k_max']),
+        graph_gap=tuple(dm['graph_gap']),
+        ground_threshold=float(dm['ground_threshold']),
+        ground_scale=float(dm['ground_scale']),
+        segment_mean_hf=tuple(dm['segment_mean_hf']),
+        segment_std_hf=tuple(dm['segment_std_hf']))
+    if dm.get('instance'):
+        # instance-aware preprocessing caches separately
+        out['with_instances'] = True
+    if str(dm.get('graph_builder', 'radius')) != 'radius':
+        out['graph_builder'] = str(dm['graph_builder'])
+        out['graph_delaunay_max_dist'] = dm.get(
+            'graph_delaunay_max_dist', -1)
+    # EZ-SP's learned partition; preprocess_cloud raises on it (ROADMAP
+    # Queue 1 item 6). Added only when requested, so the default hashes
+    # stay JAX's.
+    mode = str(dm.get('partition_mode', 'cut_pursuit'))
+    if mode != 'cut_pursuit':
+        out.update(
+            partition_mode=mode,
+            pretrained_cnn_ckpt_path=dm.get('pretrained_cnn_ckpt_path'),
+            pretrained_cnn_channels=tuple(dm.get(
+                'pretrained_cnn_channels', (32, 32, 32))),
+            contour_prior_reg=dm.get('contour_prior_reg', 2e-2),
+            contour_prior_min_size=tuple(dm.get(
+                'contour_prior_min_size', (5, 30, 90))),
+            contour_prior_edge_weight_mode=str(dm.get(
+                'contour_prior_edge_weight_mode',
+                'exp_neg_latent_distance')),
+            contour_prior_k_isolated=int(dm.get(
+                'contour_prior_k_isolated', 5)))
+    return out
+
+
+# the readers that the port does not have yet, and the ROADMAP Queue 1
+# item that brings them
+_NOT_PORTED = {'dales': 'DALES', 'kitti360': 'KITTI-360',
+               'scannet': 'ScanNet'}
+
+
+def build_datasets(cfg, stages=('train', 'val', 'test')):
+    """{stage: dataset} of `cfg`'s datamodule (`s3dis` or `s3dis_room`,
+    the Mini variants where `mini` is set), as the JAX `build_datasets`."""
+    from .datasets import S3DIS, MiniS3DIS, S3DISRoom, MiniS3DISRoom
+    dm = cfg['datamodule']
+    name = str(dm['dataset'])
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f'the {_NOT_PORTED[name]} reader is not ported (ROADMAP Queue '
+            '1, "what items 2 and 3 still leave": the DALES, KITTI-360 and '
+            'ScanNet readers with utils/ply.py)')
+    full, mini = {'s3dis': (S3DIS, MiniS3DIS),
+                  's3dis_room': (S3DISRoom, MiniS3DISRoom)}[name]
+    cls = mini if bool(dm.get('mini', False)) else full
+    kwargs = dict(
+        pre_transform_config=_pre_transform_config(cfg),
+        in_memory=bool(dm.get('in_memory', False)),
+        nano=bool(dm.get('nano', False)),
+        num_workers=int(dm.get('num_workers', 1)),
+        # panoptic configs read gt instances from the raw data
+        instances=bool(dm.get('instance', False)))
+    if dm.get('xy_tiling'):
+        t = dm['xy_tiling']
+        kwargs['xy_tiling'] = tuple(t) if not np.isscalar(t) else int(t)
+    if dm.get('pc_tiling'):
+        kwargs['pc_tiling'] = int(dm['pc_tiling'])
+    kwargs['fold'] = int(dm.get('fold', 5))
+    return {s: cls(dm['data_dir'], stage=s, **kwargs) for s in stages}

@@ -2,10 +2,10 @@
 supervised level) and the training task around it. Counterparts of
 `SemanticSegmentationModel` and `SemanticTask` in
 `superpoint_transformer_tpu/models/semantic.py`: the multi-stage
-histogram loss, AdamW with cosine warm-up and a scaled LR on the
-attention parameters, and the level-1 confusion matrix. The JAX task's
-gradient accumulation (optax.MultiSteps) and plateau scheduler are not
-ported.
+histogram loss, AdamW with cosine warm-up (or warm-up then the plateau
+controller's multiplier) and a scaled LR on the attention parameters,
+gradient accumulation with the semantics of `optax.MultiSteps`, and the
+level-1 confusion matrix.
 """
 import torch
 from torch import nn
@@ -13,7 +13,8 @@ from torch import nn
 from ..loss.semantic import multi_stage_loss
 from ..metrics.semantic import confusion_matrix_from_histogram
 from ..nn.mlp import Classifier
-from ..optim.lr_scheduler import make_optimizer, set_lr
+from ..optim.lr_scheduler import (cosine_with_warmup, make_optimizer,
+                                  make_plateau_optimizer, set_lr)
 
 __all__ = ['SemanticSegmentationModel', 'SemanticTask']
 
@@ -40,27 +41,55 @@ class SemanticSegmentationModel(nn.Module):
 
 
 class SemanticTask:
-    """Owns the model, its optimizer and the step count. A batch is a
+    """Owns the model, its optimizer and the step counts. A batch is a
     `PaddedNAG` of tensors with the label histograms `y` of the
     supervised levels (`data.padded.from_numpy(..., train=True)`) on the
-    device of `net`, where the heads are made too."""
+    device of `net`, where the heads are made too.
+
+    `scheduler` is 'cosine' (cosine warm-up) or 'plateau' (warm-up, then
+    constant times `lr_mult`, which the Trainer's `ReduceOnPlateau` sets).
+    With `accumulate_grad_batches` k > 1, `train_step` works as
+    `optax.MultiSteps` around AdamW: the k micro-batch gradients are
+    averaged and one update is applied on every k-th call; the
+    parameters do not move in between. `step` counts calls (micro-steps,
+    the JAX TrainState's step), `updates` counts optimizer updates (the
+    inner optimizer's count, which indexes the LR schedule)."""
 
     def __init__(self, net, num_classes=13, loss_type='ce_kl',
                  multi_stage_loss_lambdas=(1., 50.), lr=0.01,
                  weight_decay=1e-4, transformer_lr_scale=0.1,
                  total_steps=100_000, warmup_steps=2_000,
-                 warmup_init_lr=1e-6, eta_min=1e-6, class_weight=None):
+                 warmup_init_lr=1e-6, eta_min=1e-6, class_weight=None,
+                 scheduler='cosine', accumulate_grad_batches=1):
+        if scheduler not in ('cosine', 'plateau'):
+            raise ValueError(f'unknown scheduler {scheduler!r}')
         self.model = self._make_model(net, num_classes)
         self.num_classes = num_classes
         self.loss_type = loss_type
         self.lambdas = tuple(multi_stage_loss_lambdas)
         self.class_weight = class_weight
-        self.optimizer, self.schedules = make_optimizer(
-            self.model, lr=lr, weight_decay=weight_decay,
-            transformer_lr_scale=transformer_lr_scale,
-            total_steps=total_steps, num_warmup_steps=warmup_steps,
-            warmup_init_lr=warmup_init_lr, eta_min=eta_min)
+        self.scheduler = scheduler
+        self.accumulate_grad_batches = int(accumulate_grad_batches)
+        opt = dict(lr=lr, weight_decay=weight_decay,
+                   transformer_lr_scale=transformer_lr_scale,
+                   num_warmup_steps=warmup_steps,
+                   warmup_init_lr=warmup_init_lr)
+        if scheduler == 'plateau':
+            self.optimizer, self.schedules = make_plateau_optimizer(
+                self.model, **opt)
+        else:
+            self.optimizer, self.schedules = make_optimizer(
+                self.model, total_steps=total_steps, eta_min=eta_min,
+                **opt)
+        # the JAX task's host mirror of the cosine schedule, which its
+        # Trainer logs whatever the scheduler
+        self._logged_lr = cosine_with_warmup(
+            lr, total_steps, warmup_steps, warmup_init_lr=warmup_init_lr,
+            eta_min=eta_min)
+        self.lr_mult = 1.0
         self.step = 0
+        self.updates = 0
+        self.mini_step = 0   # micro-batches accumulated since the update
 
     def _make_model(self, net, num_classes):
         """The model around `net`, made before the optimizer's groups."""
@@ -68,9 +97,10 @@ class SemanticTask:
             net, num_classes, device=next(net.parameters()).device)
 
     def lr_at(self, step):
-        """LR of the base parameter group at `step` (the JAX task's host
-        mirror of its schedule)."""
-        return self.schedules[0](step)
+        """The base group's cosine warm-up LR at `step`: the JAX task's
+        host mirror, which reads the cosine schedule under the plateau
+        scheduler too."""
+        return self._logged_lr(step)
 
     def loss(self, batch):
         """(multi-stage loss, logits of levels 1..L) in the model's
@@ -95,18 +125,71 @@ class SemanticTask:
             node_mask=batch[1].node_mask)
 
     def train_step(self, batch):
-        """One AdamW step on `batch`, at the LR of the current step count.
-        Returns {'loss': scalar tensor, 'confmat': [C, C] int64} computed
-        before the update, like the JAX step."""
+        """One micro-step on `batch`: its gradient joins the accumulated
+        ones, and on every `accumulate_grad_batches`-th call one AdamW
+        update on their mean, at the LR of the update count (times
+        `lr_mult`). Returns {'loss': scalar tensor, 'confmat': [C, C]
+        int64} computed before the update, like the JAX step."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss, logits = self.loss(batch)
         loss.backward()
-        set_lr(self.optimizer, self.schedules, self.step)
-        self.optimizer.step()
+        k = self.accumulate_grad_batches
+        if k > 1:
+            self._accumulate()
+        self.mini_step += 1
         self.step += 1
+        if self.mini_step == k:
+            if k > 1:
+                for p, acc in zip(self.model.parameters(), self._acc):
+                    p.grad = acc
+            set_lr(self.optimizer, self.schedules, self.updates,
+                   self.lr_mult)
+            self.optimizer.step()
+            self.updates += 1
+            self.mini_step = 0
         return {'loss': loss.detach(), 'confmat': self._confmat(logits,
                                                                 batch)}
+
+    def _accumulate(self):
+        """Fold this micro-batch's gradients into their running mean, in
+        optax.MultiSteps' arithmetic: acc + (g - acc) / (n + 1)."""
+        n = self.mini_step
+        if n == 0:
+            # the next zero_grad drops these tensors from the parameters
+            self._acc = [p.grad for p in self.model.parameters()]
+            return
+        for i, p in enumerate(self.model.parameters()):
+            if p.grad is not None:
+                acc = self._acc[i]
+                self._acc[i] = p.grad.clone() if acc is None \
+                    else acc + (p.grad - acc) / (n + 1)
+
+    def state_dict(self):
+        """Everything a resumed run needs: the model's and the optimizer's
+        state, the step counts, the plateau multiplier, and the mean
+        gradients of an unfinished accumulation."""
+        grads = None
+        if self.mini_step:
+            grads = [None if g is None else g.detach().clone()
+                     for g in self._acc]
+        return {'model': self.model.state_dict(),
+                'optimizer': self.optimizer.state_dict(),
+                'step': self.step, 'updates': self.updates,
+                'mini_step': self.mini_step, 'lr_mult': self.lr_mult,
+                'grads': grads}
+
+    def load_state_dict(self, state):
+        self.model.load_state_dict(state['model'])
+        self.optimizer.load_state_dict(state['optimizer'])
+        self.step = int(state['step'])
+        self.updates = int(state['updates'])
+        self.mini_step = int(state['mini_step'])
+        self.lr_mult = float(state['lr_mult'])
+        if state.get('grads') is not None:
+            device = next(self.model.parameters()).device
+            self._acc = [None if g is None else g.to(device).clone()
+                         for g in state['grads']]
 
     @torch.no_grad()
     def eval_step(self, batch):

@@ -1,19 +1,447 @@
-"""The panoptic validation epoch: `validate_panoptic` and `_cat_instance`,
-counterparts of those in `superpoint_transformer_tpu/trainer.py`. The
-`Trainer` class (fit and validation loops, loggers, checkpoints) is not
-ported.
-"""
-import numpy as np
+"""Training and evaluation loops: the `Trainer` (fit, validation with
+test-time augmentation, test, early stopping, best-model selection, the
+plateau controller, the panoptic cadence, checkpoints), its loggers and
+the panoptic validation epoch `validate_panoptic`. Counterparts of those
+in `superpoint_transformer_tpu/trainer.py`; EZ-SP's `fit_partition` is
+not ported.
 
+Checkpoints go under `<output_dir>/checkpoints/{last,best}/`: a
+`torch.save` of the task's state (the model's and the optimizer's
+`state_dict`, the step counts, the plateau multiplier, the gradients of
+an unfinished accumulation) as `state.pt`, beside the `spt_meta.json`
+that the JAX Trainer writes.
+"""
+import csv
+import json
+import os
+import os.path as osp
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import __version__
 from .data.csr import InstanceData
-from .data.padded import from_numpy
+from .data.padded import PaddedNAG, from_numpy
 from .metrics.mean_average_precision import MeanAveragePrecision3D
 from .metrics.panoptic import PanopticQuality3D
+from .metrics.semantic import ConfusionMatrix
 from .models.panoptic import (grid_search_panoptic_partition,
                               instance_partition)
+from .optim.lr_scheduler import ReduceOnPlateau, set_lr_multiplier
 from .transforms.prepare import prepare_batch
 
-__all__ = ['validate_panoptic']
+__all__ = ['Trainer', 'CSVLogger', 'TensorBoardLogger', 'WandbLogger',
+           'MultiLogger', 'make_loggers', 'validate_panoptic']
+
+
+class CSVLogger:
+    """Rows to a CSV file whose columns are the first row's keys."""
+
+    def __init__(self, path):
+        self.path = path
+        os.makedirs(osp.dirname(path), exist_ok=True)
+        self._keys = None
+
+    def log(self, row):
+        if self._keys is None:
+            self._keys = list(row.keys())
+            if not osp.exists(self.path):
+                with open(self.path, 'w', newline='') as f:
+                    csv.writer(f).writerow(self._keys)
+        with open(self.path, 'a', newline='') as f:
+            csv.writer(f).writerow([row.get(k) for k in self._keys])
+
+
+class TensorBoardLogger:
+    """Scalars to TensorBoard event files under `<split>/<metric>`, step
+    = epoch. Needs the tensorboard package (raises here without it)."""
+
+    def __init__(self, logdir):
+        from torch.utils.tensorboard import SummaryWriter
+        self.writer = SummaryWriter(logdir)
+
+    def log(self, row):
+        epoch = int(row.get('epoch', 0))
+        split = row.get('split', '')
+        for k, v in row.items():
+            if k in ('epoch', 'split') or v is None:
+                continue
+            if isinstance(v, (int, float)):
+                self.writer.add_scalar(f'{split}/{k}', v, epoch)
+        self.writer.flush()
+
+
+class WandbLogger:
+    """Rows to a wandb run (`utils/wandb.py:WandbRun`, local files when
+    the package is absent), and the validation confusion-matrix
+    figures."""
+
+    def __init__(self, output_dir, project='spt'):
+        from .utils.wandb import WandbRun
+        self.run = WandbRun(output_dir, project=project)
+
+    def log(self, row):
+        split = row.get('split', '')
+        flat = {f'{split}/{k}' if split else k: v
+                for k, v in row.items() if k != 'split' and v is not None}
+        self.run.log(flat, step=row.get('epoch'))
+
+    def log_figure(self, name, fig, step=None):
+        self.run.log_figure(name, fig, step=step)
+
+
+class MultiLogger:
+    def __init__(self, loggers):
+        self.loggers = list(loggers)
+
+    def log(self, row):
+        for lg in self.loggers:
+            lg.log(row)
+
+    def log_figure(self, name, fig, step=None):
+        for lg in self.loggers:
+            if hasattr(lg, 'log_figure'):
+                lg.log_figure(name, fig, step=step)
+
+    @property
+    def wants_figures(self):
+        return any(hasattr(lg, 'log_figure') for lg in self.loggers)
+
+
+def make_loggers(names, output_dir, csv_name='metrics.csv'):
+    """'csv' | 'tensorboard' | 'wandb' names -> a MultiLogger."""
+    out = []
+    for name in names:
+        if name == 'csv':
+            out.append(CSVLogger(osp.join(output_dir, csv_name)))
+        elif name == 'tensorboard':
+            out.append(TensorBoardLogger(osp.join(output_dir, 'tb')))
+        elif name == 'wandb':
+            out.append(WandbLogger(output_dir))
+        else:
+            raise ValueError(f"unknown logger {name!r} (expected 'csv', "
+                             "'tensorboard' or 'wandb')")
+    return MultiLogger(out)
+
+
+class _StepClock:
+    """CUDA events around each train step on a card, read once per epoch
+    (no synchronisation in between); None on the CPU."""
+
+    def __init__(self, device):
+        self.on = device.type == 'cuda'
+        self.pairs = []
+
+    def start(self):
+        if self.on:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.pairs.append([e, None])
+
+    def stop(self):
+        if self.on:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.pairs[-1][1] = e
+
+    def total_ms(self):
+        if not self.on:
+            return None
+        torch.cuda.synchronize()
+        return float(sum(a.elapsed_time(b) for a, b in self.pairs))
+
+
+@dataclass
+class Trainer:
+    """Fit and evaluation loops around a `SemanticTask` or `PanopticTask`
+    (the port's tasks own their model, optimizer and step counts), on the
+    device of the task's model.
+
+    Batches come from a `DataLoader` (lists of NAGs, prepared here with
+    `batch_cfg`, augmented for training, `eval_batch_cfg` for evaluation)
+    or a `PreparedDataLoader` (ready `PaddedNAG`s). Every epoch's host
+    batch preparation, step time (CUDA events on a card), validation and
+    wall time land in `epoch_times`."""
+    task: object
+    batch_cfg: object
+    # evaluation takes whole tiles (no crops), so it has its own
+    # capacities; defaults to batch_cfg
+    eval_batch_cfg: Optional[object] = None
+    output_dir: str = 'outputs'
+    max_epochs: int = 100
+    check_val_every_n_epoch: int = 10
+    devices: int = 1
+    seed: int = 0
+    # panoptic: the instance partition and PQ every N validation epochs
+    # (<= 0 disables)
+    partition_every_n_epoch: int = -1
+    stuff_classes: tuple = ()
+    panoptic_grid_search: bool = True
+    # the metric that selects the 'best' checkpoint: 'miou' or 'pq'
+    monitor: str = 'miou'
+    # stop after this many validations without a better monitored metric
+    # (<= 0 disables)
+    early_stopping_patience: int = -1
+    # dump the predictions of this val/test batch index each epoch to
+    # <output_dir>/predictions/ (-1 disables, -2: every batch)
+    track_val_idx: int = -1
+    loggers: tuple = ('csv',)
+    # ReduceOnPlateau, where the task's scheduler is 'plateau'
+    plateau_factor: float = 0.5
+    plateau_patience: int = 3
+
+    def __post_init__(self):
+        if self.devices > 1:
+            raise NotImplementedError(
+                'trainer.devices > 1: data parallelism is not ported '
+                '(ROADMAP Queue 1 item 7)')
+        if self.eval_batch_cfg is None:
+            self.eval_batch_cfg = self.batch_cfg
+        os.makedirs(self.output_dir, exist_ok=True)
+        self.logger = make_loggers(self.loggers, self.output_dir)
+        self.best_miou = -1.0
+        self.epoch = 0
+        self.epoch_times = []
+        self._partition_settings = None
+        self._stale_validations = 0
+        self._plateau = None
+        if getattr(self.task, 'scheduler', 'cosine') == 'plateau':
+            self._plateau = ReduceOnPlateau(
+                mode='max', factor=self.plateau_factor,
+                patience=self.plateau_patience)
+
+    @property
+    def device(self):
+        return next(self.task.model.parameters()).device
+
+    def _to_device(self, host):
+        return from_numpy(host, self.device,
+                          self.task.model.net.compute_dtype, train=True,
+                          pin_memory=True)
+
+    # -- checkpoints -----------------------------------------------------
+    def _ckpt_dir(self, name):
+        """`<output_dir>/checkpoints/<name>`, or `name` where it is an
+        absolute path."""
+        return osp.abspath(osp.join(self.output_dir, 'checkpoints', name))
+
+    def save_checkpoint(self, name='last'):
+        path = self._ckpt_dir(name)
+        os.makedirs(path, exist_ok=True)
+        torch.save(self.task.state_dict(), osp.join(path, 'state.pt'))
+        # epoch + 1: the next epoch to run on resume (a checkpoint is
+        # written at the end of an epoch)
+        meta = {'version': __version__, 'epoch': self.epoch + 1,
+                'best_miou': self.best_miou, 'time': time.time()}
+        with open(osp.join(path, 'spt_meta.json'), 'w') as f:
+            json.dump(meta, f)
+
+    def load_checkpoint(self, name_or_path='last'):
+        """Restore the task's state from a checkpoint, and the epoch to
+        resume at and the best monitored metric from its metadata."""
+        path = self._ckpt_dir(name_or_path)
+        # loaded on the host: the optimizer moves its moments to the
+        # parameters' device and keeps AdamW's step counts on the host,
+        # where its update reads them without a device sync
+        self.task.load_state_dict(torch.load(
+            osp.join(path, 'state.pt'), map_location='cpu',
+            weights_only=True))
+        meta_path = osp.join(path, 'spt_meta.json')
+        if osp.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            self.epoch = int(meta.get('epoch', 0))
+            self.best_miou = float(meta.get('best_miou', -1))
+
+    # -- loops -----------------------------------------------------------
+    def fit(self, train_loader, val_loader=None):
+        """Train from `self.epoch` to `max_epochs`, validating every
+        `check_val_every_n_epoch` epochs and at the last. Per-step losses
+        and confusion matrices stay on the device: one host copy per
+        epoch."""
+        np_rng = np.random.default_rng(self.seed)
+        for epoch in range(self.epoch, self.max_epochs):
+            self.epoch = epoch
+            t0 = time.time()
+            prep = 0.0
+            clock = _StepClock(self.device)
+            dev_losses, dev_cms = [], []
+            for nags in train_loader:
+                tp = time.time()
+                batch = nags if isinstance(nags, PaddedNAG) \
+                    else self._to_device(prepare_batch(
+                        nags, self.batch_cfg, train=True, rng=np_rng))
+                prep += time.time() - tp
+                clock.start()
+                metrics = self.task.train_step(batch)
+                clock.stop()
+                dev_losses.append(metrics['loss'])
+                dev_cms.append(metrics['confmat'])
+            cm = ConfusionMatrix(self.task.num_classes)
+            losses = []
+            if dev_losses:
+                # one host copy: the losses, then the summed matrix
+                host = torch.cat([
+                    torch.stack(dev_losses).double(),
+                    torch.stack(dev_cms).sum(0).double().flatten()]).cpu()
+                losses = host[:len(dev_losses)].numpy()
+                cm.merge(host[len(dev_losses):].numpy().round().reshape(
+                    cm.confmat.shape))
+            step_ms = clock.total_ms()
+            m = cm.all_metrics()
+            row = {'epoch': epoch, 'split': 'train',
+                   'loss': float(np.mean(losses)) if len(losses) else None,
+                   'miou': m['miou'], 'oa': m['oa'], 'macc': m['macc'],
+                   'lr': self.task.lr_at(self.task.step),
+                   'time': time.time() - t0}
+            self.logger.log(row)
+            loss_s = f"{row['loss']:.4f}" if row['loss'] is not None \
+                else 'n/a'
+            print(f"[epoch {epoch}] train loss={loss_s} "
+                  f"miou={m['miou']:.2f} ({row['time']:.1f}s)")
+
+            stop = False
+            tv = time.time()
+            validated = val_loader is not None and (
+                (epoch + 1) % self.check_val_every_n_epoch == 0
+                or epoch == self.max_epochs - 1)
+            if validated:
+                vm = self.validate(val_loader)
+                if self._panoptic_due(epoch):
+                    vm = {**vm, **self.validate_panoptic(val_loader)}
+                score = vm.get(self.monitor, vm['miou'])
+                if self._plateau is not None and score is not None \
+                        and self._plateau.step(score):
+                    set_lr_multiplier(self.task, self._plateau.multiplier)
+                    print(f'[epoch {epoch}] plateau: lr x '
+                          f'{self._plateau.multiplier:g}')
+                if score is not None and score > self.best_miou:
+                    self.best_miou = score
+                    self.save_checkpoint('best')
+                    self._stale_validations = 0
+                else:
+                    self._stale_validations += 1
+                    p = self.early_stopping_patience
+                    if 0 < p <= self._stale_validations:
+                        print(f'[epoch {epoch}] early stopping: '
+                              f'{self.monitor} did not improve for '
+                              f'{self._stale_validations} validations')
+                        stop = True
+            self.save_checkpoint('last')
+            self.epoch_times.append(dict(
+                epoch=epoch, prepare_s=prep, step_ms=step_ms,
+                steps=len(dev_losses),
+                val_s=time.time() - tv if validated else None,
+                wall_s=time.time() - t0))
+            if stop:
+                break
+
+    def _panoptic_due(self, epoch):
+        """The instance partition and PQ run on validation epochs that
+        also hit the partition cadence."""
+        n = self.partition_every_n_epoch
+        if n is None or n <= 0:
+            return False
+        return (epoch + 1) % n == 0 or epoch == self.max_epochs - 1
+
+    def validate_panoptic(self, loader, split='val', pq=None, ap=None):
+        """Panoptic validation epoch (`validate_panoptic`), logged to
+        panoptic.csv. The partition settings are grid-searched once and
+        kept for the later validations. `pq` / `ap` accumulate across
+        calls when given (6-fold)."""
+        out = validate_panoptic(
+            self.task, loader, self.eval_batch_cfg, self.task.num_classes,
+            stuff_classes=self.stuff_classes,
+            grid_search=(self.panoptic_grid_search
+                         and self._partition_settings is None),
+            settings=self._partition_settings, pq=pq, ap=ap)
+        self._partition_settings = out.get('settings')
+        if not hasattr(self, '_panoptic_logger'):
+            self._panoptic_logger = CSVLogger(
+                osp.join(self.output_dir, 'panoptic.csv'))
+        scalars = {k: v for k, v in out.items()
+                   if isinstance(v, (int, float))}
+        self._panoptic_logger.log({'epoch': self.epoch, 'split': split,
+                                   **scalars})
+        msg = ' '.join(f'{k}={v:.2f}' for k, v in out.items()
+                       if isinstance(v, float))
+        print(f'[epoch {self.epoch}] {split} panoptic {msg}')
+        return scalars
+
+    def validate(self, loader, split='val', tta_runs=0):
+        """One evaluation epoch. `tta_runs > 0`: per batch, the level-1
+        logits of `tta_runs` augmented passes are added to the clean
+        pass's before the argmax (needs lists of NAGs from a
+        `DataLoader`). Returns the metrics with the raw `confmat`."""
+        cm = ConfusionMatrix(self.task.num_classes)
+        losses = []
+        np_rng = np.random.default_rng(self.seed)
+        for i_batch, nags in enumerate(loader):
+            if isinstance(nags, PaddedNAG):
+                if tta_runs > 0:
+                    raise ValueError(
+                        'TTA validation needs raw NAG batches (augmented '
+                        're-preparation per run): use a DataLoader, not a '
+                        'PreparedDataLoader')
+                batch = nags
+            else:
+                batch = self._to_device(prepare_batch(
+                    nags, self.eval_batch_cfg, train=False))
+            out = self.task.eval_step(batch)
+            losses.append(float(out['loss']))
+            if tta_runs > 0:
+                acc = out['logits_level1'].double().cpu().numpy()
+                for _ in range(tta_runs):
+                    b = self._to_device(prepare_batch(
+                        nags, self.eval_batch_cfg, train=False, rng=np_rng,
+                        tta=True))
+                    acc += self.task.eval_step(b)['logits_level1'] \
+                        .double().cpu().numpy()
+                # the JAX Trainer's argmax reads the sums in f32
+                cm.update(acc.astype(np.float32),
+                          batch[1].y.cpu().numpy(),
+                          node_mask=batch[1].node_mask.cpu().numpy())
+            else:
+                cm.merge(out['confmat'].cpu().numpy())
+            if self.track_val_idx == -2 or i_batch == self.track_val_idx:
+                self._track_batch(batch, out, split, i_batch)
+        m = cm.all_metrics()
+        self.logger.log({'epoch': self.epoch, 'split': split,
+                         'loss': float(np.mean(losses)) if losses else None,
+                         'miou': m['miou'], 'oa': m['oa'],
+                         'macc': m['macc'], 'time': None})
+        if self.logger.wants_figures:
+            import matplotlib.pyplot as plt
+            from .utils.wandb import confusion_matrix_figure
+            fig = confusion_matrix_figure(cm.confmat)
+            self.logger.log_figure(f'{split}/confusion_matrix', fig,
+                                   step=self.epoch)
+            plt.close(fig)
+        print(f"[epoch {self.epoch}] {split} miou={m['miou']:.2f} "
+              f"oa={m['oa']:.2f} macc={m['macc']:.2f}")
+        # raw counts, so that callers can sum them across runs (6-fold)
+        m['confmat'] = cm.confmat.copy()
+        return m
+
+    def _track_batch(self, batch, out, split, i_batch):
+        """Dump one batch's level-1 logits, predictions, positions and
+        label histograms to <output_dir>/predictions/."""
+        d = osp.join(self.output_dir, 'predictions')
+        os.makedirs(d, exist_ok=True)
+        n1 = int(batch[1].num_nodes)
+        logits = _numpy(out['logits_level1'])[:n1]
+        payload = dict(logits=logits, pred=logits.argmax(-1),
+                       pos=_numpy(batch[1].pos)[:n1])
+        if batch[1].y is not None:
+            payload['y_hist'] = _numpy(batch[1].y)[:n1]
+        np.savez(osp.join(d, f'{split}_e{self.epoch}_b{i_batch}.npz'),
+                 **payload)
+
+    def test(self, loader):
+        return self.validate(loader, split='test')
 
 
 def _numpy(t):

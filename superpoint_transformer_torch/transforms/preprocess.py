@@ -32,6 +32,7 @@ __all__ = [
     'ground_elevation', 'adjacency_graph', 'connect_isolated',
     'add_keys_to', 'cut_pursuit_partition', 'segment_features',
     'radius_horizontal_graph', 'preprocess_cloud', 'Timings',
+    'sample_xy_tiling', 'sample_recursive_main_xy_axis_tiling',
 ]
 
 _VOTING_KEYS = ('y', 'super_index', 'is_val')
@@ -681,3 +682,41 @@ def preprocess_cloud(
     if verbose:
         print(t.summary(), flush=True)
     return nag
+
+
+def sample_xy_tiling(data, tiling=(2, 2), tile=(0, 0)):
+    """Select one tile of a regular XY grid over the cloud's bounding
+    box (the JAX `sample_xy_tiling`; huge clouds are split so at
+    preprocessing)."""
+    pos = np.asarray(data.pos)
+    tx, ty = (tiling, tiling) if np.isscalar(tiling) else tiling
+    pos2 = pos[:, :2].astype(np.float64)
+    lo = pos2.min(0)
+    hi = pos2.max(0)
+    span = np.maximum(hi - lo, 1e-9)
+    # clip after the int cast: rounding can put the max point at tx
+    ix = np.clip(((pos2[:, 0] - lo[0]) / span[0] * tx).astype(int),
+                 0, tx - 1)
+    iy = np.clip(((pos2[:, 1] - lo[1]) / span[1] * ty).astype(int),
+                 0, ty - 1)
+    keep = (ix == tile[0]) & (iy == tile[1])
+    out, _ = data.select(np.where(keep)[0])
+    return out
+
+
+def sample_recursive_main_xy_axis_tiling(data, steps=1, tile=0):
+    """Split the cloud in half along its principal XY direction (PCA),
+    `steps` times, and return tile `tile` in [0, 2**steps) (the JAX
+    `sample_recursive_main_xy_axis_tiling`)."""
+    out = data
+    for s in range(steps):
+        pos = np.asarray(out.pos)[:, :2]
+        c = pos - pos.mean(0)
+        cov = c.T @ c / max(pos.shape[0] - 1, 1)
+        _, v = np.linalg.eigh(cov)
+        proj = c @ v[:, -1]
+        half = (tile >> (steps - 1 - s)) & 1
+        med = np.median(proj)
+        keep = proj >= med if half else proj < med
+        out, _ = out.select(np.where(keep)[0])
+    return out

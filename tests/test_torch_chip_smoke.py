@@ -2,6 +2,7 @@
 FLOPs of one call of each kernel at the flagship shapes, and which of the
 two bounds it. The script imports nothing but the standard library at
 module level, so it imports here."""
+import contextlib
 import os
 import sys
 
@@ -113,3 +114,41 @@ def test_random_twins_at_the_batch_counts(flagship_cpu):
     assert same[1] == caps
     for counts_ in (own[0], same[0]):
         assert all(abs(a - b) <= 0.25 * b for a, b in zip(counts_, n))
+
+
+def test_fit_phase_rehearsal_on_the_cpu(monkeypatch):
+    """`phase_fit` end to end on the CPU at tiny rooms and 1 epoch (+ the
+    resumed one): its datasets, entry points, checks and printing run;
+    the card-only calls are stubbed (synchronize, the profiler, the
+    memory statistics) and each CPU call of an attention entry point
+    counts as a launch of its kernel, as the wrapper counts one on the
+    card."""
+    import torch
+    from superpoint_transformer_torch.nn import attention as block
+    from superpoint_transformer_torch.ops import attention, attention_rpe
+    threads = torch.get_num_threads()
+    # one intra-op thread: the suite runs its files in parallel processes
+    torch.set_num_threads(1)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    monkeypatch.setattr(chip_smoke, 'settle', lambda: None)
+    # one repeat for the run-to-run spread: the CPU repeats itself
+    monkeypatch.setattr(chip_smoke, 'SPREAD_RUNS', 1)
+    monkeypatch.setattr(chip_smoke, 'profiled_fit',
+                        lambda: contextlib.nullcontext({}))
+    for name, kernel in (('dense_attention_rpe',
+                          attention_rpe.dense_attention_rpe),
+                         ('dense_attention_trainable',
+                          attention.dense_attention)):
+        def counted(*args, _fn=getattr(block, name), _kernel=kernel):
+            _kernel.launches += 1
+            return _fn(*args)
+        monkeypatch.setattr(block, name, counted)
+    try:
+        out = chip_smoke.phase_fit(torch.device('cpu'), 'cpu',
+                                   room_points=3_000, epochs=1)
+    finally:
+        torch.set_num_threads(threads)
+    # 1 + 1 epochs of 2 steps (7 K1 each) and 2 accumulation micro-steps;
+    # 2 validations of 2 areas, 2 evaluations of them, 3 TTA passes of
+    # the test area (7 K2 each)
+    assert out == {'K1': 7 * (4 + 0), 'K2': 7 * (4 + 4 + 3)}

@@ -3,8 +3,11 @@ package: in a fresh interpreter where importing any of them fails, the
 port still imports every module, builds a model and runs a CPU forward,
 builds the semantic task and takes a CPU training step, preprocesses
 a synthetic room and serves it through `prepare_batch` and `infer_nag`,
-and runs the panoptic path (instance ids, a panoptic training step and
-`validate_panoptic`).
+runs the panoptic path (instance ids, a panoptic training step and
+`validate_panoptic`), and fits the flagship task for one epoch with the
+`Trainer` on an in-memory dataset (checkpoints and CSV metrics written).
+No module of the port imports the JAX package, jax, flax or optax, even
+inside a function.
 Its native library is its own build of `native/*.cpp`, never the prebuilt
 `native/libspt_native.so`, and a failed build raises."""
 import json
@@ -116,6 +119,45 @@ SCRIPT = textwrap.dedent('''
     assert 0 <= out['pq'] <= 100 and out['n_pred_instances'] > 0
     print('PANOPTIC_OK')
 
+    # the Trainer on an in-memory S3DIS (no HDF5 file): one epoch of fit
+    # with a validation, checkpoints and CSV metrics
+    import os
+    import tempfile
+    from superpoint_transformer_torch.datasets import S3DIS, DataLoader
+    from superpoint_transformer_torch.trainer import Trainer
+
+    class MemoryS3DIS(S3DIS):
+        def __init__(self, clouds, **kw):
+            self.clouds = clouds
+            super().__init__('unused', **kw)
+
+        @property
+        def all_cloud_ids(self):
+            return {'train': ['a', 'b'], 'val': ['a'], 'test': ['b']}
+
+        def process(self):
+            pass
+
+        def load(self, cloud_id):
+            return self.clouds[cloud_id]
+
+    clouds = {'a': nag, 'b': nag}
+    train = MemoryS3DIS(clouds, stage='train')
+    ftask = build_task(FLAGSHIP_CFG, num_graphs=1, total_steps=2,
+                       class_weight=train.get_class_weight(),
+                       device='cpu')
+    out_dir = tempfile.mkdtemp()
+    trainer = Trainer(ftask, BatchConfig(), output_dir=out_dir,
+                      max_epochs=1, check_val_every_n_epoch=1)
+    trainer.fit(DataLoader(train, batch_size=1, shuffle=True),
+                DataLoader(MemoryS3DIS(clouds, stage='val')))
+    assert ftask.step == 2 and trainer.best_miou >= 0
+    for name in ('last', 'best'):
+        assert os.path.exists(os.path.join(out_dir, 'checkpoints', name,
+                                           'state.pt'))
+    assert len(open(os.path.join(out_dir, 'metrics.csv')).readlines()) == 3
+    print('FIT_OK')
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
@@ -129,7 +171,9 @@ SCRIPT = textwrap.dedent('''
 
 @pytest.fixture(scope='module')
 def blocked_run():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread for torch and OpenMP: the suite runs its files in
+    # parallel processes, and a thread a core each oversubscribes the CPU
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     return subprocess.run([sys.executable, '-c', SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
@@ -146,6 +190,40 @@ def test_panoptic_runs_without_jax_flax_h5py_yaml(blocked_run):
     with the same imports blocked."""
     assert blocked_run.returncode == 0, blocked_run.stderr
     assert 'PANOPTIC_OK' in blocked_run.stdout
+
+
+def test_trainer_fit_runs_without_jax_flax_optax_h5py_yaml(blocked_run):
+    """One epoch of `Trainer.fit` with a validation on an in-memory
+    dataset, with the same imports blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'FIT_OK' in blocked_run.stdout
+
+
+def _imports(path):
+    import ast
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, fs in os.walk(os.path.join(REPO, 'superpoint_transformer_torch'))
+    for f in fs if f.endswith('.py'))
+
+
+@pytest.mark.parametrize('path', PORT_FILES)
+def test_no_port_module_imports_the_jax_package(path):
+    """Every import statement of every module of the port, those inside
+    functions included: none names jax, flax, optax or the JAX
+    package."""
+    banned = ('jax', 'jaxlib', 'flax', 'optax', 'superpoint_transformer_tpu')
+    bad = [m for m in _imports(os.path.join(REPO, path))
+           if m.split('.')[0] in banned]
+    assert not bad, bad
 
 
 def test_native_library_is_the_ports_own_build(blocked_run):

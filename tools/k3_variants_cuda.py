@@ -49,8 +49,7 @@ CSRC = os.path.join(ROOT, 'superpoint_transformer_torch', 'csrc')
 OUT = os.path.join(ROOT, 'superpoint_transformer_torch', '_build',
                    'variants')
 PATCHES = {
-    'no_def_fma': ('for (int jj = 0; jj < W; ++jj) sum = fmaf(wrow[jj], '
-                   'grad[jj], sum);', ''),
+    'no_def_fma': ('sum = fma_acc(wrow[jj], grad[jj], sum);', ';'),
     'no_wgrad_fma': ('acc[it][ee] = fma_acc(er[ee], gr, acc[it][ee]);',
                      ';'),
     'no_wgrad_mma': ('        weight_grad_mma(L, smem, tacc, warp, lane);\n',
@@ -167,6 +166,17 @@ def timing(dev, launchers, rounds, dtype):
         print(f'K3 {label} N={SHAPE["N"]} K={SHAPE["K"]} {name}: '
               f'{min(times[name]):.4f} ms; rounds '
               f'{[round(t, 4) for t in times[name]]}', flush=True)
+    # every unpatched variant's ten gradients against the tree's, bit for
+    # bit (a variant that only reorders the code gives the same bits)
+    grads = {}
+    for name in names:
+        if ':' not in name:
+            use(k3, launchers[name])
+            grads[name] = k3.dense_attention_rpe_bwd(*args, out, lse, g)
+    for name, got in grads.items():
+        if name != 'tree':
+            same = all(torch.equal(a, b) for a, b in zip(got, grads['tree']))
+            print(f'K3 {label} {name} bit-equal to tree: {same}', flush=True)
 
 
 def fwd64(args):
