@@ -77,22 +77,44 @@ kernel on them against its plain PyTorch version:
    preparation, the steps (CUDA events), the validation and the wall
    time, and the device-busy share of the resumed epoch (its `fit` alone
    under torch.profiler, kernel time over the epoch's own wall time);
-10. prints the kernel table as JSON (per kernel: launches on its path,
-   max abs error, ms, plain_ms, library_ms, the bound from the bytes and
-   FLOPs of `kernel_cost` and which of the two sets it, and the share of
-   the bound reached), the card line, and as the last line
-   `{"ok": true, "device": {...}}`.
+10. EZ-SP on the fit phase's rooms: stage 1, `train(cfg, datasets)`
+   with `experiment=partition/s3dis_ezsp` (the sparse CNN at (32, 32,
+   32) in f32, `fit_partition` for EZSP_STAGE1_EPOCHS epochs over the 2
+   training areas at 50,000-voxel crops; its clouds are the fit phase's,
+   same cache hash): finite losses that move, inter edges in every
+   epoch, `last` and `best` written, no attention kernel launched; the
+   host batch preparation and the step (CUDA events) per epoch; one
+   crop's embeddings on the card held to the same module and weights on
+   the CPU. Stage 2, `experiment=semantic/s3dis_ezsp` with the stage-1
+   `last` checkpoint: preprocessing with the frozen CNN on the card and
+   the greedy contour-prior partition (per cloud: the CNN and the
+   partition in s per 1M raw points beside the fit phase's cut pursuit,
+   the node counts per level, the level 1 compressing; the level-1
+   oracle mIoU of both partitions by `partition_purity`), the frozen CNN
+   of one cloud on the card and on the CPU, then SPT-2 in bf16 for one
+   epoch with its validation (K1 7 a step, K2 7 a forward, no plain
+   attention) and `evaluate(cfg, datasets)` on the validation split; K1
+   and K2 held against their plain versions on the arguments of their
+   widest launches on this path, and the forward of one validation area
+   timed;
+11. prints the kernel table as JSON (per kernel: its launches over every
+   path and by path, max abs error, ms, plain_ms, library_ms, the bound
+   from the bytes and FLOPs of `kernel_cost` and which of the two sets
+   it, and the share of the bound reached), the card line, and as the
+   last line `{"ok": true, "device": {...}}`.
 
-Each of the paths 4-9 runs with the kernel counts set to 0 just before
+Each of the paths 4-10 runs with the kernel counts set to 0 just before
 it and read just after it. Any failed phase raises, so the script exits
 non-zero without printing the last line. It needs no network and fails
 without a CUDA device or outside a checkout of the repository.
 """
 import contextlib
+import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -183,6 +205,17 @@ FIT_ROOM_POINTS = 250_000
 FIT_EPOCHS = 3
 FIT_TTA_RUNS = 2
 FIT_MIOU_FLOOR = 0.05
+# EZ-SP (experiment=partition/s3dis_ezsp, then semantic/s3dis_ezsp) on the
+# fit phase's rooms: stage-1 epochs over the 2 training areas, then one
+# stage-2 epoch with its validation. Stage-1 embeddings on the card are
+# held to the same module and weights on the CPU: both compute in f32 in
+# another summation order (the GraphNorm sums' f32 atomics on the card),
+# within TRAIN_RATIO times the card's own run-to-run spread plus a floor,
+# far above the f32 rounding of the embeddings (values up to ~25 after
+# 2 epochs on a CPU rehearsal) and below any real difference
+EZSP_STAGE1_EPOCHS = 2
+EZSP_STAGE2_EPOCHS = 1
+EZSP_EMB_FLOOR = 1e-4
 
 
 def kernel_cost(name, N, K, H, D, C, De=0, elem=2, q_per_edge=True):
@@ -1572,14 +1605,25 @@ def write_s3dis_rooms(root, room_points, seed):
     return n
 
 
+# the partitions' stages of `preprocess_cloud`, timed per cloud
+PARTITION_STAGES = ('cut_pursuit_partition', 'pretrained_cnn_features',
+                    'greedy_contour_prior_partition')
+
+
+@functools.lru_cache(maxsize=None)
 def memory_s3dis():
     """The port's S3DIS, whose processed NAGs stay in a dict (the card
     machine has no h5py) and whose areas are those of FIT_AREAS:
-    reading the raw files, tiling and preprocessing are the port's own."""
+    reading the raw files, tiling and preprocessing are the port's own.
+    One class, so that the phases share the dict: a cloud preprocessed
+    under one configuration's hash is preprocessed once. `stage_s` holds
+    the seconds of each partition stage (PARTITION_STAGES) per cloud."""
     from superpoint_transformer_torch.datasets import S3DIS
+    from superpoint_transformer_torch.transforms import preprocess
 
     class MemoryS3DIS(S3DIS):
         store = {}
+        stage_s = {}
 
         @property
         def all_cloud_ids(self):
@@ -1591,12 +1635,28 @@ def memory_s3dis():
             for c in self.cloud_ids:
                 key = self.processed_path(c)
                 if key not in self.store:
-                    self.store[key] = self.process_cloud(c)
+                    with host_timers(preprocess, PARTITION_STAGES) as spent:
+                        self.store[key] = self.process_cloud(c)
+                    self.stage_s[key] = {k: v[0] for k, v in spent.items()
+                                         if v[1]}
 
         def load(self, cloud_id):
             return self.store[self.processed_path(cloud_id)]
 
     return MemoryS3DIS
+
+
+def memory_datasets(cfg):
+    """`build_datasets(cfg)` over the dict-backed S3DIS: it stands in for
+    the datasets package's S3DIS while the datasets are built."""
+    import superpoint_transformer_torch.datasets as datasets_pkg
+    from superpoint_transformer_torch.experiment import build_datasets
+    port_s3dis = datasets_pkg.S3DIS
+    datasets_pkg.S3DIS = memory_s3dis()
+    try:
+        return build_datasets(cfg)
+    finally:
+        datasets_pkg.S3DIS = port_s3dis
 
 
 @contextlib.contextmanager
@@ -1640,21 +1700,23 @@ def print_epochs(label, trainer, card):
               f'{step} (CUDA events), {val}, wall {t["wall_s"]:.2f} s')
 
 
-def phase_fit(dev, card, room_points=FIT_ROOM_POINTS, epochs=FIT_EPOCHS):
+def phase_fit(dev, card, room_points=FIT_ROOM_POINTS, epochs=FIT_EPOCHS,
+              tmp=None):
     """The port's train and eval entry points, `train(cfg, datasets)` and
     `evaluate(cfg, datasets)`, at SPT-2 width in bf16 with
     `experiment=semantic/s3dis`'s datamodule on synthetic S3DIS areas;
-    then gradient accumulation held to one averaged AdamW step."""
+    then gradient accumulation held to one averaged AdamW step. The rooms
+    are written under `tmp` (a TemporaryDirectory that the caller keeps
+    for the EZ-SP phase), or under a directory of the phase's own."""
     import copy
     import tempfile
     import numpy as np
     import torch
-    import superpoint_transformer_torch.datasets as datasets_pkg
     from superpoint_transformer_torch.config.loader import _to_config
     from superpoint_transformer_torch.data.padded import from_numpy
     from superpoint_transformer_torch.eval import evaluate
     from superpoint_transformer_torch.experiment import (
-        FLAGSHIP_CFG, build_datasets, build_task)
+        FLAGSHIP_CFG, build_task)
     from superpoint_transformer_torch.optim.lr_scheduler import set_lr
     from superpoint_transformer_torch.train import train
     from superpoint_transformer_torch.trainer import Trainer
@@ -1662,7 +1724,9 @@ def phase_fit(dev, card, room_points=FIT_ROOM_POINTS, epochs=FIT_EPOCHS):
         prepare_batch)
 
     settle()
-    tmp = tempfile.TemporaryDirectory()
+    own = tmp is None
+    if own:
+        tmp = tempfile.TemporaryDirectory()
     root, out = os.path.join(tmp.name, 's3dis'), os.path.join(tmp.name, 'out')
     t0 = time.perf_counter()
     n_raw = write_s3dis_rooms(root, room_points, SEED)
@@ -1673,24 +1737,21 @@ def phase_fit(dev, card, room_points=FIT_ROOM_POINTS, epochs=FIT_EPOCHS):
                        ('trainer.max_epochs', epochs),
                        ('trainer.check_val_every_n_epoch', 1)):
         cfg.set_path(key, value)
-    # build_datasets takes its S3DIS from the datasets package: the
-    # dict-backed one stands in for it while the datasets are built
-    port_s3dis = datasets_pkg.S3DIS
-    datasets_pkg.S3DIS = memory_s3dis()
-    try:
-        datasets = build_datasets(cfg)
-    finally:
-        datasets_pkg.S3DIS = port_s3dis
+    datasets = memory_datasets(cfg)
     t0 = time.perf_counter()
     for ds in datasets.values():
         ds.process()
     prep_s = time.perf_counter() - t0
     nodes = [[ds[i][j].num_nodes for j in ds[i].levels]
              for ds in datasets.values() for i in range(len(ds))]
+    cp_s = [round(memory_s3dis().stage_s[ds.processed_path(c)][
+        'cut_pursuit_partition'], 3) for ds in (datasets['train'],
+                                                 datasets['test'])
+        for c in ds.cloud_ids]
     print(f'fit: {n_raw} raw points in {sum(FIT_AREAS.values())} rooms '
           f'written as S3DIS text in {write_s:.2f} s; read and preprocessed '
-          f'in {prep_s:.2f} s on the host; nodes per level, by split and '
-          f'area {nodes}')
+          f'in {prep_s:.2f} s on the host (cut pursuit {cp_s} s by training '
+          f'and test area); nodes per level, by split and area {nodes}')
 
     # 1. train(cfg, datasets): every launch counted from here
     reset_counts()
@@ -1884,8 +1945,246 @@ def phase_fit(dev, card, room_points=FIT_ROOM_POINTS, epochs=FIT_EPOCHS):
         'gradient')
     print('accumulation: 2 micro-batches made one AdamW update, equal to '
           'one step on their mean gradient')
-    tmp.cleanup()
+    if own:
+        tmp.cleanup()
     return {'K1': fit_launches['K1'], 'K2': fit_launches['K2']}
+
+
+def phase_ezsp(dev, card, tmp, stage1_epochs=EZSP_STAGE1_EPOCHS):
+    """EZ-SP through the port's train and eval entry points on the fit
+    phase's rooms (under `tmp`): stage 1, `train(cfg, datasets)` with
+    `experiment=partition/s3dis_ezsp` (the sparse CNN at (32, 32, 32),
+    f32, `fit_partition` on 50,000-voxel crops); stage 2, the datasets of
+    `experiment=semantic/s3dis_ezsp` with the stage-1 `last` checkpoint
+    (the frozen CNN on the card, then the greedy contour-prior partition),
+    SPT-2 in bf16 trained for an epoch with a validation, and
+    `evaluate(cfg, datasets)` on the validation split."""
+    import copy
+    import csv
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch import trainer as trainer_mod
+    from superpoint_transformer_torch.config.loader import _to_config
+    from superpoint_transformer_torch.data.data import Data
+    from superpoint_transformer_torch.data.padded import (
+        from_numpy, point_cloud_from_numpy)
+    from superpoint_transformer_torch.eval import evaluate
+    from superpoint_transformer_torch.experiment import (
+        EZSP_CFG, EZSP_PARTITION_CFG, build_batch_config)
+    from superpoint_transformer_torch.metrics.semantic import (
+        miou_from_confmat)
+    from superpoint_transformer_torch.models.partition import (
+        partition_purity)
+    from superpoint_transformer_torch.train import train
+    from superpoint_transformer_torch.transforms import preprocess
+    from superpoint_transformer_torch.transforms.prepare import (
+        prepare_batch, prepare_partition_batch)
+
+    settle()
+    root = os.path.join(tmp.name, 's3dis')
+    check(os.path.isdir(root), "ezsp: the fit phase's rooms are missing")
+
+    def config(base, out, paths):
+        cfg = _to_config(copy.deepcopy(base))
+        for key, value in [('device', str(dev)), ('output_dir', out),
+                           ('datamodule.data_dir', root)] + paths:
+            cfg.set_path(key, value)
+        return cfg
+
+    # 1. stage 1: the partition task. Its datamodule preprocesses as the
+    # fit phase's (one hash), so its clouds come from the same dict
+    out1 = os.path.join(tmp.name, 'ezsp_stage1')
+    cfg1 = config(EZSP_PARTITION_CFG, out1,
+                  [('trainer.max_epochs', stage1_epochs)])
+    data1 = memory_datasets(cfg1)
+    store = memory_s3dis().store
+    n_stored = len(store)
+    fits = []
+    fit_partition = trainer_mod.fit_partition
+
+    def keeping(*args, **kwargs):
+        fits.append(fit_partition(*args, **kwargs))
+        return fits[-1]
+
+    trainer_mod.fit_partition = keeping
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        returned = train(cfg1, data1)
+        s1 = time.perf_counter() - t0
+    finally:
+        trainer_mod.fit_partition = fit_partition
+    launches = counts()
+    check(returned is None and len(fits) == 1,
+          'ezsp stage 1: train() did not run fit_partition alone')
+    check(len(store) == n_stored, 'ezsp stage 1 preprocessed its clouds '
+          "again: its cache hash is not the fit phase's")
+    check(not any(launches.values()),
+          f'ezsp stage 1 launched attention kernels: {launches}')
+    tr1 = fits[0]
+    with open(os.path.join(out1, 'metrics.csv')) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r['loss']) for r in rows]
+    inter = [int(r['n_inter_edge']) for r in rows]
+    for t in tr1.epoch_times:
+        step = 'not measured' if t['step_ms'] is None else \
+            f'{t["step_ms"] / t["steps"]:.2f} ms a step'
+        print(f'ezsp stage 1 epoch {t["epoch"]} on {card}: {t["steps"]} '
+              f'steps, prepare_partition_batch {t["prepare_s"]:.2f} s, '
+              f'{step} (CUDA events), wall {t["wall_s"]:.2f} s')
+    print(f'ezsp stage 1: train(cfg, datasets) {stage1_epochs} epochs in '
+          f'{s1:.2f} s; epoch losses {losses}, inter edges {inter}')
+    ckpt = os.path.join(out1, 'checkpoints', 'last')
+    check(len(rows) == stage1_epochs and all(np.isfinite(losses))
+          and len(set(losses)) == len(losses) and min(inter) > 0
+          and all(os.path.exists(os.path.join(out1, 'checkpoints', n,
+                                              'state.pt'))
+                  for n in ('last', 'best')),
+          'ezsp stage 1: a loss is not finite or did not move, an epoch '
+          'saw no inter edge, or a checkpoint is missing')
+
+    # the trained CNN's embeddings of one crop, card vs CPU
+    task1 = tr1.task
+    host = prepare_partition_batch(
+        [data1['train'][0]], build_batch_config(cfg1), train=True,
+        rng=np.random.default_rng(SEED + 7))
+    cpu_model = copy.deepcopy(task1.model).cpu().eval()
+    task1.model.eval()
+    with torch.no_grad():
+        on_card = point_cloud_from_numpy(host, dev)
+        runs = [task1.model(on_card).cpu() for _ in range(2)]
+        ref = cpu_model(point_cloud_from_numpy(host, 'cpu'))
+    del on_card
+    spread = (runs[0] - runs[1]).abs().max().item()
+    err = (runs[0] - ref).abs().max().item()
+    limit = TRAIN_RATIO * spread + EZSP_EMB_FLOOR
+    print(f'ezsp stage 1 embeddings of {host.num_nodes} voxels, card vs CPU: '
+          f'max abs {err:.3e} (card run to run {spread:.3e}; limit '
+          f'{limit:.3e}; values up to {ref.abs().max().item():.2f})')
+    check(err <= limit, 'ezsp stage 1: the embeddings on the card are not '
+          "the CPU's")
+    if dev.type == 'cuda':
+        # where a stage-1 step's time goes (after the checkpoints: these
+        # steps move the task's weights, not the saved ones)
+        crop = point_cloud_from_numpy(host, dev)
+        step_ms = cuda_ms(lambda: task1.train_step(crop), 5)
+        dev_ms, top = device_profile(lambda: task1.train_step(crop))
+        print(f'ezsp stage 1 step on that crop on {card}: {step_ms:.2f} ms '
+              f'(CUDA events, 5 steps); kernels '
+              f'{"not measured" if dev_ms is None else f"{dev_ms:.2f} ms"} '
+              f'(torch.profiler), top {top}')
+        del crop
+
+    # 2. stage-2 preprocessing: the frozen CNN on the card, the greedy
+    # contour-prior partition on the host
+    out2 = os.path.join(tmp.name, 'ezsp_stage2')
+    cfg2 = config(EZSP_CFG, out2, [
+        ('datamodule.pretrained_cnn_ckpt_path', ckpt),
+        ('trainer.max_epochs', EZSP_STAGE2_EPOCHS),
+        ('trainer.check_val_every_n_epoch', 1)])
+    data2 = memory_datasets(cfg2)
+    t0 = time.perf_counter()
+    for ds in data2.values():
+        ds.process()
+    prep_s = time.perf_counter() - t0
+    stage_s = memory_s3dis().stage_s
+    n_cls = int(cfg2['datamodule']['num_classes'])
+    cms = {'learned': np.zeros((n_cls, n_cls), np.int64),
+           'cut pursuit': np.zeros((n_cls, n_cls), np.int64)}
+    for split in ('train', 'test'):
+        ds2, ds1 = data2[split], data1[split]
+        for i, c in enumerate(ds2.cloud_ids):
+            nag2, nag1 = ds2[i], ds1[i]
+            raw = nag2[0].sub.num_items
+            per = 1e6 / raw
+            st2, st1 = stage_s[ds2.processed_path(c)], \
+                stage_s[ds1.processed_path(c)]
+            n2 = [nag2[j].num_nodes for j in nag2.levels]
+            n1 = [nag1[j].num_nodes for j in nag1.levels]
+            print(f'ezsp stage 2 {c} on {card}: {raw} raw points; s per 1M '
+                  f'raw points: pretrained_cnn '
+                  f'{st2["pretrained_cnn_features"] * per:.3f}, '
+                  f'greedy_contour_prior_partition '
+                  f'{st2["greedy_contour_prior_partition"] * per:.3f}, cut '
+                  f'pursuit (fit phase) '
+                  f'{st1["cut_pursuit_partition"] * per:.3f}; nodes per '
+                  f'level {n2}, cut pursuit {n1}')
+            check(raw == nag1[0].sub.num_items
+                  and FIT_AREAS[c] < n2[1] < n2[0],
+                  f'ezsp stage 2 {c}: the learned partition does not '
+                  'compress the voxels, or no more than to one node a room')
+            for name, nag in (('learned', nag2), ('cut pursuit', nag1)):
+                cms[name] += partition_purity(nag[0].super_index, nag[0].y,
+                                              n_cls)
+    oracle = {k: miou_from_confmat(v) for k, v in cms.items()}
+    print(f'ezsp stage 2: preprocessing {prep_s:.2f} s for '
+          f'{len(data2["train"]) + len(data2["test"])} clouds; level-1 '
+          f'oracle mIoU (partition_purity) learned {oracle["learned"]:.2f} '
+          f'vs cut pursuit {oracle["cut pursuit"]:.2f}')
+    check(all(np.isfinite(list(oracle.values()))), 'ezsp: oracle mIoU')
+
+    # where the frozen CNN runs: one cloud on the card and on the CPU
+    nag = data1['test'][0]
+    x = preprocess.add_keys_to(
+        Data(**{k: nag[0][k] for k in cfg2['datamodule']['partition_hf']}),
+        list(cfg2['datamodule']['partition_hf'])).x
+    cnn = {}
+    for where in (dev, torch.device('cpu')):
+        data = Data(pos=nag[0].pos, x=x)
+        t0 = time.perf_counter()
+        cnn[where.type] = preprocess.pretrained_cnn_features(
+            data, ckpt_path=ckpt, channels=tuple(
+                cfg2['datamodule']['pretrained_cnn_channels']),
+            voxel=float(cfg2['datamodule']['voxel']), device=where).x
+        cnn[where.type + ' s'] = time.perf_counter() - t0
+    print(f'ezsp frozen CNN on {nag[0].num_nodes} voxels (rulebook '
+          f'included): {dev.type} {cnn[dev.type + " s"]:.3f} s, cpu '
+          f'{cnn["cpu s"]:.3f} s ({torch.get_num_threads()} torch threads); '
+          f'max abs difference '
+          f'{np.abs(cnn[dev.type] - cnn["cpu"]).max():.3e}')
+
+    # 3. stage 2: SPT-2 on the learned partition, then its evaluation
+    ecfg = copy.deepcopy(cfg2)
+    ecfg.set_path('ckpt_path', os.path.join(out2, 'checkpoints', 'best'))
+    ecfg.set_path('output_dir', os.path.join(tmp.name, 'ezsp_eval'))
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_trainable') as k1_args, \
+            widest_call('dense_attention_rpe') as k2_args:
+        t0 = time.perf_counter()
+        trainer2 = train(cfg2, data2)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = evaluate(ecfg, {'test': data2['val']})
+        eval_s = time.perf_counter() - t0
+    launches = counts()
+    steps = sum(t['steps'] for t in trainer2.epoch_times)
+    n_fwd = len(data2['val']) * (len(trainer2.epoch_times) + 1)
+    print_epochs('ezsp stage 2 fit', trainer2, card)
+    print(f'ezsp stage 2: train(cfg, datasets) {fit_s:.2f} s, {steps} steps; '
+          f'evaluate on the validation split {eval_s:.2f} s: mIoU '
+          f'{m["miou"]:.4f}; launches {launches}, plain attention calls '
+          f'{plain["plain"]}')
+    check(launches['K1'] == K1_LAUNCHES_PER_STEP * steps > 0
+          and launches['K2'] == K2_LAUNCHES_PER_FORWARD * n_fwd
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          'ezsp stage 2: not 7 K1 launches a step and 7 K2 a forward, or '
+          'K3 or the plain attention ran')
+    check(np.isfinite(m['miou']) and m['confmat'].sum() > 0,
+          'ezsp stage 2: the evaluation has no finite mIoU or no mass')
+    hold_on_path('K1', k1_args, 'ezsp path')
+    hold_on_path('K2', k2_args, 'ezsp path')
+    del k1_args, k2_args
+    if dev.type == 'cuda':
+        task2 = trainer2.task
+        vb = from_numpy(prepare_batch([data2['val'][0]],
+                                      trainer2.eval_batch_cfg, train=False),
+                        dev, task2.model.net.compute_dtype, train=True)
+        fwd_ms = cuda_ms(lambda: task2.eval_step(vb), 5)
+        print(f'ezsp stage 2 forward (eval_step) of one validation area '
+              f'on {card}: {fwd_ms:.3f} ms (CUDA events, 5 calls); nodes '
+              f'{[lvl.num_nodes for lvl in vb.levels]}')
+    return {'K1': launches['K1'], 'K2': launches['K2']}
 
 
 def main():
@@ -1929,19 +2228,23 @@ def main():
                 'K3': phase_fused_rpe_training(dev)}
     host_path = phase_host_path(dev, card)
     panoptic = phase_panoptic(dev, card)
-    fit = phase_fit(dev, card)
+    # the fit phase's rooms serve the EZ-SP phase too
+    rooms = tempfile.TemporaryDirectory()
+    try:
+        fit = phase_fit(dev, card, tmp=rooms)
+        ezsp = phase_ezsp(dev, card, rooms)
+    finally:
+        rooms.cleanup()
+    paths = {'serving/training/fused-RPE': launches, 'host': host_path,
+             'panoptic': panoptic, 'fit-and-evaluate': fit, 'ezsp': ezsp}
     print(f'launches by path: serving/training/fused-RPE {launches}, '
           f'host path {host_path}')
     print(f'launches on the panoptic path: {panoptic}')
     print(f'launches on the fit-and-evaluate path: {fit}')
-    for name, n in launches.items():
-        check(n > 0, f'its path launched no {name} kernel')
-    for name, n in host_path.items():
-        check(n > 0, f'the host path launched no {name} kernel')
-    for name, n in panoptic.items():
-        check(n > 0, f'the panoptic path launched no {name} kernel')
-    for name, n in fit.items():
-        check(n > 0, f'the fit-and-evaluate path launched no {name} kernel')
+    print(f'launches on the EZ-SP path: {ezsp}')
+    for path, got in paths.items():
+        for name, n in got.items():
+            check(n > 0, f'the {path} path launched no {name} kernel')
     table = []
     for name, fn, line in (('K1', 'dense_attention', 74),
                            ('K2', 'dense_attention_rpe', 256),
@@ -1953,7 +2256,10 @@ def main():
             'source': f'superpoint_transformer_torch/csrc/{fn}.cu',
             'replaces': 'superpoint_transformer_tpu/ops/pallas_attention.py'
                         f':{line}',
-            'launches': launches[name], **res, 'bound_ms': bound_ms,
+            'launches': sum(p.get(name, 0) for p in paths.values()),
+            'launches_by_path': {k: p[name] for k, p in paths.items()
+                                 if name in p},
+            **res, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'bound_share': bound_ms / res['ms']})
     print(json.dumps({'kernels': table}))
     print(card)

@@ -1,6 +1,6 @@
 """From NAGs to one padded batch on the host: a copy of `bucket`,
-`batch_nags`, `sort_nag_by_super` and `pad_nag` of the JAX package's
-`data/pad.py`.
+`batch_nags`, `sort_nag_by_super`, `pad_nag` and `pad_point_cloud` of
+the JAX package's `data/pad.py`.
 
 Ragged `NAG` hierarchies (numpy) become one `PaddedNAG` of
 fixed-capacity numpy arrays and masks, with the JAX field names;
@@ -18,10 +18,12 @@ import numpy as np
 from .csr import Cluster
 from .data import Data
 from .nag import NAG
-from .padded import PaddedLevel, PaddedNAG
+from .padded import PaddedLevel, PaddedNAG, PaddedPointCloud
 from ..ops.graph import edges_to_dense_neighbors, _round_up
+from ..ops.voxel_conv import build_sparse_conv_neighbors
 
-__all__ = ['batch_nags', 'sort_nag_by_super', 'pad_nag', 'bucket']
+__all__ = ['batch_nags', 'sort_nag_by_super', 'pad_nag', 'bucket',
+           'pad_point_cloud']
 
 
 def bucket(n, mode='pow2_fine', minimum=128):
@@ -279,8 +281,9 @@ def pad_nag(nag, num_classes=None, node_caps=None, k_caps=None,
 
         if 'coords' in d:
             raise NotImplementedError(
-                'pad_nag: sparse-convolution neighbors (`coords`) come with '
-                'the EZ-SP slice of the port')
+                'pad_nag: sparse-convolution neighbors (`coords`) feed the '
+                'sparse-CNN point stage, which is not ported (ROADMAP Queue '
+                '1 item 9)')
 
         if 'obj_edge_index' in d:
             oe = d.obj_edge_index
@@ -304,3 +307,77 @@ def pad_nag(nag, num_classes=None, node_caps=None, k_caps=None,
     return PaddedNAG(levels=tuple(levels),
                      start_i_level=nag.start_i_level,
                      num_graphs=num_graphs)
+
+
+def pad_point_cloud(data_list, num_classes=None, node_cap=None,
+                    edge_cap=None, kernel_size=3, dilation=1,
+                    bucket_mode='pow2'):
+    """Collate and pad level-0 `Data` (pos, x, coords, edge_index, y) into
+    one `PaddedPointCloud` with numpy leaves, for EZ-SP's partition
+    stage; the sparse-convolution rulebook is built here, once a batch.
+    Labels `y` are histograms [N, C+1], or ids one-hot encoded over
+    `num_classes` + 1 columns (out-of-range ids give an empty row)."""
+    node_off = np.cumsum([0] + [d.num_nodes for d in data_list])
+    n = int(node_off[-1])
+    pos = np.concatenate([np.asarray(d.pos) for d in data_list])
+    x = np.concatenate(
+        [np.asarray(d.x, np.float32) for d in data_list])
+    batch_vec = np.concatenate([
+        np.full(d.num_nodes, j, dtype=np.int64)
+        for j, d in enumerate(data_list)])
+    ei = np.concatenate([
+        np.asarray(d.edge_index, np.int64) + node_off[j]
+        for j, d in enumerate(data_list)], axis=1)
+    coords = np.concatenate(
+        [np.asarray(d.coords, np.int64) for d in data_list])
+    nbr = build_sparse_conv_neighbors(
+        coords, kernel_size=kernel_size, dilation=dilation,
+        batch=batch_vec)
+
+    cap = node_cap or bucket(n, bucket_mode)
+    e_cap = edge_cap or bucket(ei.shape[1], bucket_mode)
+    pad = cap - n
+    if pad < 0 or e_cap < ei.shape[1]:
+        raise ValueError(f'pad_point_cloud: {n} nodes and {ei.shape[1]} '
+                         f'edges over capacities {cap} and {e_cap}')
+
+    def padn(a, fill=0.0):
+        if pad == 0:
+            return a
+        width = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
+        return np.pad(a, width, constant_values=fill)
+
+    mask = np.zeros(cap, bool)
+    mask[:n] = True
+    batch_arr = np.full(cap, -1, np.int32)
+    batch_arr[:n] = batch_vec
+    nbr_full = np.full((cap, nbr.shape[1]), -1, np.int32)
+    nbr_full[:n] = nbr
+    eif = np.zeros((2, e_cap), np.int32)
+    eif[:, :ei.shape[1]] = ei
+    em = np.zeros(e_cap, bool)
+    em[:ei.shape[1]] = True
+
+    y = None
+    ys = [d.get('y') for d in data_list]
+    if all(v is not None for v in ys):
+        ys = [np.asarray(v) for v in ys]
+        if ys[0].ndim == 1:
+            if num_classes is None:
+                raise ValueError('pad_point_cloud: label ids need '
+                                 'num_classes')
+            hs = []
+            for v in ys:
+                h = np.zeros((v.shape[0], num_classes + 1), np.float32)
+                valid = (v >= 0) & (v <= num_classes)
+                h[np.arange(v.shape[0])[valid], v[valid]] = 1.0
+                hs.append(h)
+            y = np.concatenate(hs)
+        else:
+            y = np.concatenate(ys).astype(np.float32)
+        y = padn(y)
+
+    return PaddedPointCloud(
+        pos=padn(pos.astype(np.float32)), x=padn(x), node_mask=mask,
+        batch=batch_arr, num_nodes=n, cnn_nbr_idx=nbr_full,
+        edge_index=eif, edge_mask=em, y=y)

@@ -7,6 +7,9 @@ same field names. The host path (`data.pad.pad_nag`,
 `utils.synthetic.random_padded_nag`) fills them with numpy arrays;
 `from_numpy`, the one host-to-device boundary, converts such a batch
 into an inference or training batch of tensors on a torch device.
+`PaddedPointCloud` is EZ-SP's single-level batch of voxels
+(`data.pad.pad_point_cloud`), moved to a device by
+`point_cloud_from_numpy`.
 
 Padding invariants (set by the host path, relied on by the model):
 levels are sorted by `super_index`; padded rows have `batch == -1` and
@@ -20,7 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ['PaddedLevel', 'PaddedNAG', 'from_numpy']
+__all__ = ['PaddedLevel', 'PaddedNAG', 'PaddedPointCloud', 'from_numpy',
+           'point_cloud_from_numpy']
 
 
 @dataclass
@@ -75,6 +79,28 @@ class PaddedNAG:
     @property
     def end_i_level(self):
         return self.absolute_num_levels - 1
+
+
+@dataclass
+class PaddedPointCloud:
+    """One padded level of voxels for EZ-SP's partition stage: features,
+    the sparse-convolution rulebook and the adjacency edges of a batch of
+    graphs, numpy arrays on the host or tensors on a device. Padded rows
+    have `batch == -1` and `node_mask` False; padded edges are (0, 0)
+    with `edge_mask` False."""
+    pos: torch.Tensor                     # [N, 3] f32
+    x: torch.Tensor                       # [N, D] f32
+    node_mask: torch.Tensor               # [N] bool
+    batch: torch.Tensor                   # [N] graph id, -1 pad
+    num_nodes: int                        # valid rows (host int)
+    cnn_nbr_idx: torch.Tensor             # [N, K^3], -1 empty site
+    edge_index: torch.Tensor              # [2, E]
+    edge_mask: torch.Tensor               # [E] bool
+    y: Optional[torch.Tensor] = None      # [N, C+1] label histograms
+
+    @property
+    def capacity(self):
+        return self.pos.shape[0]
 
 
 # fields the port never reads on the device: the transpose neighbor
@@ -141,3 +167,18 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
     return PaddedNAG(levels=tuple(levels), start_i_level=start,
                      num_graphs=int(batch.num_graphs),
                      level1_node_id=nid)
+
+
+def point_cloud_from_numpy(cloud, device):
+    """A `PaddedPointCloud` with numpy leaves as one of tensors on
+    `device`: floats in f32, index tensors in int64, masks in bool;
+    `num_nodes` stays a host int."""
+    device = torch.device(device)
+    kw = {}
+    for f in dataclasses.fields(PaddedPointCloud):
+        v = getattr(cloud, f.name)
+        if f.name == 'num_nodes':
+            kw[f.name] = int(v)
+        elif v is not None:
+            kw[f.name] = _to_tensor(f.name, v, device, torch.float32, False)
+    return PaddedPointCloud(**kw)

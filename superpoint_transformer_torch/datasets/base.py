@@ -60,7 +60,7 @@ class BaseDataset:
                  point_load_keys=None, segment_load_keys=None,
                  nano=False, in_memory=False, host_id=0, num_hosts=1,
                  num_workers=1, xy_tiling=None, pc_tiling=None,
-                 verbose=False):
+                 verbose=False, device=None):
         if stage not in ('train', 'val', 'trainval', 'test'):
             raise ValueError(f'unknown stage {stage!r}')
         self.root = root
@@ -80,6 +80,9 @@ class BaseDataset:
         if pc_tiling is not None:
             self.pc_tiling = pc_tiling
         self.verbose = verbose
+        # where EZ-SP's frozen stage-1 CNN runs in preprocessing (None:
+        # the card); not part of the cache's hash
+        self.device = device
         self._cache = {}
 
     # ----- to be overridden -------------------------------------------
@@ -179,6 +182,10 @@ class BaseDataset:
         if not osp.exists(first_raw) and not osp.exists(self.raw_dir):
             self.download()
         n_workers = min(self.num_workers, len(todo))
+        if self._cnn_on_card:
+            # the workers see no card: the clouds whose partition needs
+            # the frozen CNN there are preprocessed here, one by one
+            n_workers = 1
         if n_workers > 1:
             import multiprocessing as mp
             ctx = mp.get_context('spawn')
@@ -187,6 +194,14 @@ class BaseDataset:
         else:
             for cloud_id in todo:
                 self._process_single_cloud(cloud_id)
+
+    @property
+    def _cnn_on_card(self):
+        """Whether preprocessing runs EZ-SP's frozen CNN on a card."""
+        cfg = self.pre_transform_config
+        return (cfg.get('partition_mode') == 'contour_prior'
+                and bool(cfg.get('pretrained_cnn_ckpt_path'))
+                and str(self.device or 'cuda').startswith('cuda'))
 
     def process_cloud(self, cloud_id):
         """The preprocessed NAG of `cloud_id` (a tile id reads its cloud
@@ -204,6 +219,7 @@ class BaseDataset:
         if self.verbose:
             print(f'preprocessing {cloud_id}: {data.num_nodes} points')
         return preprocess_cloud(data, num_classes=self.num_classes,
+                                cnn_device=self.device or 'cuda',
                                 **self.pre_transform_config)
 
     def _process_single_cloud(self, cloud_id):

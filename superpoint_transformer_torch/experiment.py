@@ -1,14 +1,16 @@
 """Experiment construction: config -> SPT backbone -> semantic or
-panoptic task, batch configuration and datasets.
+panoptic task, or EZ-SP's partition task, batch configuration and
+datasets.
 
-Counterpart of `build_model`, `build_task` (semantic and panoptic),
+Counterpart of `build_model`, `build_task` (semantic, panoptic, partition),
 `build_batch_config`, `_pre_transform_config` and `build_datasets` in
 `superpoint_transformer_tpu/experiment.py`, over a plain nested dict or a
 `config.Config`. `FLAGSHIP_CFG` holds the values that they and the
 Trainer read from `configs/train.yaml` composed with
-`experiment=semantic/s3dis`, and `PANOPTIC_CFG` those of
-`experiment=panoptic/s3dis`, so no YAML reader is needed; tests pin both
-to the YAML. `build_model` and `build_task` build on the card unless the
+`experiment=semantic/s3dis`, `PANOPTIC_CFG` those of
+`experiment=panoptic/s3dis`, and `EZSP_PARTITION_CFG` / `EZSP_CFG` those
+of EZ-SP's two stages, so no YAML reader is needed; tests pin each to the
+YAML. `build_model` and `build_task` build on the card unless the
 caller passes `device='cpu'`.
 """
 import copy
@@ -17,11 +19,13 @@ import numpy as np
 import torch
 
 from .models.panoptic import PanopticTask
+from .models.partition import PartitionModel, PartitionTask
 from .models.semantic import SemanticTask
 from .models.spt import SPT
 from .transforms.prepare import BatchConfig
 
-__all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'build_model',
+__all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'EZSP_PARTITION_CFG',
+           'EZSP_CFG', 'build_model',
            'build_task', 'build_batch_config', 'build_datasets',
            'precision_to_dtype']
 
@@ -192,6 +196,42 @@ PANOPTIC_CFG['model'].update({
 })
 
 
+# EZ-SP on S3DIS: the values that build_task, build_datasets and the train
+# entry point read from configs/train.yaml + experiment=partition/
+# s3dis_ezsp (stage 1: the sparse CNN in f32) and + experiment=
+# semantic/s3dis_ezsp (stage 2: SPT-2 on the learned partition, whose
+# `datamodule.pretrained_cnn_ckpt_path` is the stage-1 checkpoint). Both
+# datamodules are FLAGSHIP_CFG's with the contour-prior keys; stage 1
+# preprocesses as the flagship does (one cache for both).
+_CONTOUR_PRIOR = {
+    'contour_prior_reg': '2e-2',
+    'contour_prior_min_size': [5, 30, 90],
+    'contour_prior_edge_weight_mode': 'exp_neg_latent_distance',
+    'contour_prior_k_isolated': 5,
+    'num_hf_partition': 6,
+}
+EZSP_PARTITION_CFG = copy.deepcopy(FLAGSHIP_CFG)
+EZSP_PARTITION_CFG['datamodule'].update(_CONTOUR_PRIOR)
+EZSP_PARTITION_CFG['model'].update({
+    'task': 'partition',
+    'cnn_width': 32,
+    'cnn_depth': 2,
+    'cnn_out': 32,
+    'partition_criterion': {'gamma': 1, 'affinity_temperature': 1,
+                            'adaptive_sampling_ratio': 0.9},
+    'optimizer': {'lr': '1e-4', 'weight_decay': '1e-4'},
+    'scheduler': None,
+})
+EZSP_PARTITION_CFG['trainer']['max_epochs'] = 100
+EZSP_CFG = copy.deepcopy(FLAGSHIP_CFG)
+EZSP_CFG['datamodule'].update(_CONTOUR_PRIOR)
+EZSP_CFG['datamodule'].update({
+    'partition_mode': 'contour_prior',
+    'pretrained_cnn_ckpt_path': None,
+    'pretrained_cnn_channels': [32, 32, 32],
+})
+
+
 def _dims(keys):
     return sum(FEAT_SIZE[k] for k in keys)
 
@@ -300,16 +340,22 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
     weights, AdamW's LR and weight decay, the attention LR scale and the
     warm-up, the scheduler (`model.scheduler._target_`: the plateau one
     where it names it, else cosine) and `trainer.accumulate_grad_batches`.
-    Numbers may be strings, as the YAML loader gives `1e-2`. The
-    partition task (EZ-SP) is not ported. Raises without a CUDA device
+    Numbers may be strings, as the YAML loader gives `1e-2`.
+
+    Where `model.task` is 'partition' (EZ-SP's stage 1), the
+    `PartitionTask` around a `PartitionModel` of widths
+    `[cnn_width] * cnn_depth + [cnn_out]` over the `datamodule.point_hf`
+    features, drawn from a generator seeded with `cfg.seed`, with the
+    criterion's keys, the LR and the weight decay; `compute_dtype` and
+    `plain_attention` do not apply to it. Raises without a CUDA device
     unless `device` is the CPU."""
     device = _device(device, 'build_task')
     m = cfg['model']
     task_type = str(m.get('task', 'semantic'))
+    if task_type == 'partition':
+        return _partition_task(cfg, num_graphs, total_steps, device)
     if task_type not in ('semantic', 'panoptic'):
-        raise NotImplementedError(
-            f'the {task_type!r} task is not ported (EZ-SP: ROADMAP Queue 1 '
-            'item 6)')
+        raise ValueError(f'unknown model.task {task_type!r}')
     sched = m['scheduler']
     net = build_model(cfg, num_graphs=num_graphs,
                       compute_dtype=compute_dtype,
@@ -340,6 +386,27 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
                 int(c) for c in cfg['datamodule'].get('stuff_classes', ())),
             **common)
     return SemanticTask(net, **common)
+
+
+def _partition_task(cfg, num_graphs, total_steps, device):
+    """EZ-SP's stage-1 task of `cfg` (see `build_task`)."""
+    m, dm = cfg['model'], cfg['datamodule']
+    crit = m.get('partition_criterion') or {}
+    channels = [int(m['cnn_width'])] * int(m['cnn_depth']) \
+        + [int(m['cnn_out'])]
+    ratio = crit.get('adaptive_sampling_ratio', 0.9)
+    model = PartitionModel(
+        _dims(dm['point_hf']), channels=channels, num_graphs=num_graphs,
+        device=device, generator=torch.Generator().manual_seed(
+            int(cfg.get('seed', 0))))
+    return PartitionTask(
+        model, num_classes=int(dm['num_classes']),
+        affinity_temperature=float(crit.get('affinity_temperature', 1.0)),
+        adaptive_sampling_ratio=None if ratio is None else float(ratio),
+        focal_gamma=float(crit.get('gamma', 1.0)),
+        lr=float(m['optimizer']['lr']),
+        weight_decay=float(m['optimizer']['weight_decay']),
+        total_steps=total_steps)
 
 
 def _segment_hf(dm):
@@ -418,9 +485,8 @@ def _pre_transform_config(cfg):
         out['graph_builder'] = str(dm['graph_builder'])
         out['graph_delaunay_max_dist'] = dm.get(
             'graph_delaunay_max_dist', -1)
-    # EZ-SP's learned partition; preprocess_cloud raises on it (ROADMAP
-    # Queue 1 item 6). Added only when requested, so the default hashes
-    # stay JAX's.
+    # EZ-SP's stage 2: the learned partition. Added only when requested,
+    # so the default hashes stay JAX's; the CNN's device is no part of it.
     mode = str(dm.get('partition_mode', 'cut_pursuit'))
     if mode != 'cut_pursuit':
         out.update(
@@ -447,7 +513,9 @@ _NOT_PORTED = {'dales': 'DALES', 'kitti360': 'KITTI-360',
 
 def build_datasets(cfg, stages=('train', 'val', 'test')):
     """{stage: dataset} of `cfg`'s datamodule (`s3dis` or `s3dis_room`,
-    the Mini variants where `mini` is set), as the JAX `build_datasets`."""
+    the Mini variants where `mini` is set), as the JAX `build_datasets`.
+    The datasets run EZ-SP's frozen CNN, where their preprocessing needs
+    it, on `cfg.device` (the card where unset)."""
     from .datasets import S3DIS, MiniS3DIS, S3DISRoom, MiniS3DISRoom
     dm = cfg['datamodule']
     name = str(dm['dataset'])
@@ -465,7 +533,9 @@ def build_datasets(cfg, stages=('train', 'val', 'test')):
         nano=bool(dm.get('nano', False)),
         num_workers=int(dm.get('num_workers', 1)),
         # panoptic configs read gt instances from the raw data
-        instances=bool(dm.get('instance', False)))
+        instances=bool(dm.get('instance', False)),
+        # EZ-SP's frozen CNN in stage-2 preprocessing: the run's device
+        device=cfg.get('device'))
     if dm.get('xy_tiling'):
         t = dm['xy_tiling']
         kwargs['xy_tiling'] = tuple(t) if not np.isscalar(t) else int(t)

@@ -9,6 +9,19 @@ clouds, pins the batch capacities (`discover_caps`: training from a few
 probe batches, evaluation from the whole validation split), takes the
 class weights, builds the task and fits, resuming from `ckpt_path`. The
 run is on the card unless `device=cpu`; without a card it raises.
+
+EZ-SP trains in two stages:
+
+    python -m superpoint_transformer_torch.train \
+        experiment=partition/s3dis_ezsp
+    python -m superpoint_transformer_torch.train \
+        experiment=semantic/s3dis_ezsp \
+        datamodule.pretrained_cnn_ckpt_path=<stage 1>/checkpoints/last
+
+The first fits the partition task (`trainer.fit_partition`: the sparse
+CNN under the contrastive edge loss, checkpoints `last` and `best`); the
+second preprocesses with the frozen CNN and the greedy contour-prior
+partition, then fits SPT as above.
 """
 import os.path as osp
 import sys
@@ -36,7 +49,9 @@ def train(cfg, datasets=None):
     """Fit the task of `cfg` (a `Config` or a nested dict shaped like
     `experiment.FLAGSHIP_CFG`). `datasets` ({'train', 'val'}) replaces
     `build_datasets(cfg)`. Returns the `Trainer`, whose `best_miou` is
-    what the JAX `train.py` returns."""
+    what the JAX `train.py` returns; for the partition task (EZ-SP's
+    stage 1: `fit_partition`, no validation, no resume) None, as the JAX
+    `train.py` returns."""
     from .datasets import DataLoader, PreparedDataLoader
     from .experiment import (build_batch_config, build_datasets,
                              build_task, precision_to_dtype)
@@ -45,10 +60,6 @@ def train(cfg, datasets=None):
 
     device = _device(cfg, 'train')
     dm, m, tr = cfg['datamodule'], cfg['model'], cfg['trainer']
-    if str(m.get('task', 'semantic')) == 'partition':
-        raise NotImplementedError(
-            'the partition task (EZ-SP) is not ported (ROADMAP Queue 1 '
-            'item 6)')
     seed = int(cfg.get('seed', 0))
     if datasets is None:
         datasets = build_datasets(cfg, stages=('train', 'val'))
@@ -62,6 +73,15 @@ def train(cfg, datasets=None):
     val_loader = DataLoader(datasets['val'], batch_size=1)
 
     max_epochs = int(tr['max_epochs'])
+    if str(m.get('task', 'semantic')) == 'partition':
+        from .trainer import fit_partition
+        task = build_task(cfg, num_graphs=max(batch_size, 1),
+                          total_steps=max_epochs * max(len(train_loader), 1),
+                          device=device)
+        fit_partition(task, train_loader, batch_cfg,
+                      output_dir=str(cfg.get('output_dir', 'outputs')),
+                      max_epochs=max_epochs, seed=seed)
+        return None
     devices = int(tr.get('devices', 1))
     # as in JAX: with data parallelism a step takes `devices` batches
     steps_per_epoch = max(len(train_loader) // max(devices, 1), 1)
@@ -128,7 +148,8 @@ def train(cfg, datasets=None):
 def main(argv=None):
     from .config import load_config
     argv = sys.argv[1:] if argv is None else list(argv)
-    return train(load_config(CONFIG_DIR, 'train', argv)).best_miou
+    trainer = train(load_config(CONFIG_DIR, 'train', argv))
+    return None if trainer is None else trainer.best_miou
 
 
 if __name__ == '__main__':

@@ -1,9 +1,9 @@
 """Training and evaluation loops: the `Trainer` (fit, validation with
 test-time augmentation, test, early stopping, best-model selection, the
 plateau controller, the panoptic cadence, checkpoints), its loggers and
-the panoptic validation epoch `validate_panoptic`. Counterparts of those
-in `superpoint_transformer_tpu/trainer.py`; EZ-SP's `fit_partition` is
-not ported.
+the panoptic validation epoch `validate_panoptic`, and EZ-SP's stage-1
+loop `fit_partition`. Counterparts of those in
+`superpoint_transformer_tpu/trainer.py`.
 
 Checkpoints go under `<output_dir>/checkpoints/{last,best}/`: a
 `torch.save` of the task's state (the model's and the optimizer's
@@ -31,10 +31,11 @@ from .metrics.semantic import ConfusionMatrix
 from .models.panoptic import (grid_search_panoptic_partition,
                               instance_partition)
 from .optim.lr_scheduler import ReduceOnPlateau, set_lr_multiplier
-from .transforms.prepare import prepare_batch
+from .transforms.prepare import prepare_batch, prepare_partition_batch
 
 __all__ = ['Trainer', 'CSVLogger', 'TensorBoardLogger', 'WandbLogger',
-           'MultiLogger', 'make_loggers', 'validate_panoptic']
+           'MultiLogger', 'make_loggers', 'validate_panoptic',
+           'fit_partition']
 
 
 class CSVLogger:
@@ -447,6 +448,82 @@ class Trainer:
 def _numpy(t):
     return t.detach().float().cpu().numpy() if t.is_floating_point() \
         else t.cpu().numpy()
+
+
+def fit_partition(task, train_loader, batch_cfg, output_dir='outputs',
+                  max_epochs=50, seed=0, node_cap=None, edge_cap=None):
+    """EZ-SP's stage-1 loop: a `PartitionTask` (sparse-CNN embeddings,
+    contrastive edge loss) over `prepare_partition_batch` batches of the
+    level-0 voxels, on the device of the task's model. The capacities
+    are those of the first batch unless given. Each epoch logs its mean
+    loss and inter-edge count to `<output_dir>/metrics.csv` (the losses
+    stay on the device: one host copy an epoch) and writes the
+    checkpoints `last` and `best` (lowest loss) under
+    `<output_dir>/checkpoints/`; an epoch without a single inter edge
+    raises RuntimeError. Returns the `Trainer` that wrote them: its
+    `task` is the trained task, its `epoch_times` the host batch
+    preparation, the steps (CUDA events on a card) and the wall time of
+    each epoch."""
+    os.makedirs(output_dir, exist_ok=True)
+    logger = CSVLogger(osp.join(output_dir, 'metrics.csv'))
+    np_rng = np.random.default_rng(seed)
+    trainer = Trainer(task=task, batch_cfg=batch_cfg,
+                      output_dir=output_dir, max_epochs=max_epochs,
+                      seed=seed)
+    device = trainer.device
+
+    example = prepare_partition_batch(
+        next(iter(train_loader)), batch_cfg, train=True, rng=np_rng,
+        node_cap=node_cap, edge_cap=edge_cap)
+    if node_cap is None:
+        node_cap = example.capacity
+        edge_cap = example.edge_index.shape[1]
+    del example
+
+    best = np.inf
+    for epoch in range(max_epochs):
+        trainer.epoch = epoch
+        t0 = time.time()
+        prep = 0.0
+        clock = _StepClock(device)
+        dev_losses, dev_inter = [], []
+        for nags in train_loader:
+            tp = time.time()
+            batch = prepare_partition_batch(
+                nags, batch_cfg, train=True, rng=np_rng,
+                node_cap=node_cap, edge_cap=edge_cap, device=device)
+            prep += time.time() - tp
+            clock.start()
+            m = task.train_step(batch)
+            clock.stop()
+            dev_losses.append(m['loss'])
+            dev_inter.append(m['n_inter_edge'])
+        losses, inter = [], 0
+        if dev_losses:
+            # one host copy: the losses, then the summed inter-edge count
+            host = torch.cat([
+                torch.stack(dev_losses).double(),
+                torch.stack(dev_inter).sum().double().reshape(1)]).cpu()
+            losses = host[:-1].numpy()
+            inter = int(host[-1])
+        row = {'epoch': epoch, 'split': 'train',
+               'loss': float(np.mean(losses)) if len(losses) else None,
+               'n_inter_edge': inter, 'time': time.time() - t0}
+        logger.log(row)
+        print(f"[epoch {epoch}] partition loss={row['loss']:.4f} "
+              f"inter_edges={inter} ({row['time']:.1f}s)")
+        if inter == 0:
+            raise RuntimeError(
+                'fit_partition: no inter edge in a whole epoch; check the '
+                'labels and the crops')
+        trainer.save_checkpoint('last')
+        if row['loss'] < best:
+            best = row['loss']
+            trainer.save_checkpoint('best')
+        trainer.epoch_times.append(dict(
+            epoch=epoch, prepare_s=prep, step_ms=clock.total_ms(),
+            steps=len(dev_losses), val_s=None, wall_s=time.time() - t0))
+    return trainer
 
 
 def validate_panoptic(task, loader, batch_cfg, num_classes,

@@ -1,10 +1,10 @@
 """Batch preparation on the host: loaded NAGs -> augmented,
 feature-complete, padded batch. A copy of `BatchConfig`,
-`process_batch`, `prepare_batch`, `batch_signature` and `discover_caps`
-of the JAX package's `transforms/prepare.py`, with the same arguments and
-the same numpy random draws. The padded batch has numpy leaves
-(`device=None`) or, given a device, tensors there
-(`data.padded.from_numpy`).
+`process_batch`, `prepare_batch`, `batch_signature`, `discover_caps` and
+`prepare_partition_batch` of the JAX package's `transforms/prepare.py`,
+with the same arguments and the same numpy random draws. The padded batch
+has numpy leaves (`device=None`) or, given a device, tensors there
+(`data.padded.from_numpy`, `point_cloud_from_numpy`).
 """
 import dataclasses
 from dataclasses import dataclass
@@ -12,15 +12,16 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from ..data.pad import batch_nags, bucket, pad_nag
-from ..data.padded import from_numpy
+from ..data.data import Data
+from ..data.pad import batch_nags, bucket, pad_nag, pad_point_cloud
+from ..data.padded import from_numpy, point_cloud_from_numpy
 from ..ops.graph import _round_up
 from . import runtime as T
 from .color import color_auto_contrast, color_drop
 from .instance import on_the_fly_instance_graph
 
 __all__ = ['BatchConfig', 'prepare_batch', 'process_batch',
-           'batch_signature', 'discover_caps']
+           'batch_signature', 'discover_caps', 'prepare_partition_batch']
 
 
 @dataclass
@@ -236,3 +237,57 @@ def discover_caps(nag_lists, cfg: BatchConfig, train=True, rng=None,
     return dataclasses.replace(
         cfg, node_caps=node_caps, k_caps=k_caps or None,
         k_in_caps=k_in_caps or None)
+
+
+def prepare_partition_batch(nag_list, cfg: BatchConfig, train=True,
+                            rng=None, knn_adjacency=10, voxel=None,
+                            node_cap=None, edge_cap=None, device=None):
+    """Batch preparation for EZ-SP's partition stage: the level-0 voxels
+    of each NAG, their `cfg.point_hf` features (rgb over 1.5 rescaled by
+    1/255), a KNN adjacency (`knn_adjacency` neighbors, rebuilt with the
+    native KNN, as cached NAGs drop it), quantized coordinates at the
+    stored grid size (or `voxel`), and in training a random crop to
+    `cfg.max_num_nodes` voxels with its adjacency rebuilt; then
+    `pad_point_cloud`. Returns a `PaddedPointCloud` with numpy leaves
+    when `device` is None, else of tensors on `device`."""
+    from .preprocess import (adjacency_graph, knn_search,
+                             quantize_coordinates)
+
+    if rng is None:
+        rng = np.random.default_rng()
+    datas = []
+    for nag in nag_list:
+        d0 = nag[0]
+        pos = np.asarray(d0.pos, np.float32)
+        feats = []
+        for k in cfg.point_hf:
+            v = d0.get(k)
+            if v is None:
+                continue
+            v = np.asarray(v, np.float32).reshape(pos.shape[0], -1)
+            if k == 'rgb' and v.max() > 1.5:
+                v = v / 255.0
+            feats.append(v)
+        x = np.concatenate(feats, 1) if feats else \
+            np.zeros((pos.shape[0], 1), np.float32)
+        d = Data(pos=pos, x=x, y=d0.get('y'))
+        d = knn_search(d, k=knn_adjacency, r_max=np.inf)
+        d = adjacency_graph(d, k=knn_adjacency)
+        vox = voxel if voxel is not None else float(
+            np.asarray(d0.get('grid_size', 0.04)).reshape(-1)[0])
+        d = quantize_coordinates(d, size=max(vox, 1e-6))
+        if train and cfg.max_num_nodes and \
+                pos.shape[0] > cfg.max_num_nodes:
+            keep = rng.choice(pos.shape[0], cfg.max_num_nodes,
+                              replace=False)
+            keep.sort()
+            d, _ = d.select(keep)
+            d = knn_search(d, k=knn_adjacency, r_max=np.inf)
+            d = adjacency_graph(d, k=knn_adjacency)
+        datas.append(d)
+    host = pad_point_cloud(
+        datas, num_classes=cfg.num_classes, node_cap=node_cap,
+        edge_cap=edge_cap, bucket_mode=cfg.bucket_mode)
+    if device is None:
+        return host
+    return point_cloud_from_numpy(host, device)

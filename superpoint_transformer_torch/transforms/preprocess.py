@@ -8,12 +8,17 @@ configs/datamodule/semantic/default.yaml:102-185):
 
 The hot kernels (partition solver, radius KNN, eigen features, subedges)
 run in the native library (`ops/native.py`); the orchestration is numpy.
-The contour-prior partition (EZ-SP), the Delaunay graph and device KNN
-raise NotImplementedError.
+EZ-SP's stage 2 swaps cut pursuit for the greedy contour-prior partition
+(`partition_mode='contour_prior'`), over the embeddings of the frozen
+stage-1 sparse CNN where a checkpoint is given (`pretrained_cnn_features`,
+the one step here that runs on a torch device). The Delaunay graph and
+device KNN raise NotImplementedError.
 """
 import contextlib
 import time
 from collections import defaultdict
+
+import os.path as osp
 
 import numpy as np
 
@@ -21,6 +26,7 @@ from ..data.csr import Cluster, InstanceData
 from ..data.data import Data
 from ..data.nag import NAG
 from ..ops.geometry import geometric_features_np
+from ..ops.components import merge_components_by_contour_prior_np
 from ..ops.graph import isolated_nodes_np, to_trimmed_np
 from ..ops.native import greedy_cut, radius_knn
 from ..ops.subedges import (_segment_csr, cluster_radius_nn_graph_np,
@@ -33,6 +39,8 @@ __all__ = [
     'add_keys_to', 'cut_pursuit_partition', 'segment_features',
     'radius_horizontal_graph', 'preprocess_cloud', 'Timings',
     'sample_xy_tiling', 'sample_recursive_main_xy_axis_tiling',
+    'quantize_coordinates', 'greedy_contour_prior_partition',
+    'pretrained_cnn_features',
 ]
 
 _VOTING_KEYS = ('y', 'super_index', 'is_val')
@@ -618,20 +626,28 @@ def preprocess_cloud(
         graph_k_min=1, graph_k_max=30, graph_gap=(0.2, 0.5, 1.0),
         ground_threshold=1.5, ground_scale=4.0,
         segment_mean_hf=(), segment_std_hf=(), rng=None,
-        partition_mode='cut_pursuit', with_instances=False,
-        graph_builder='radius', verbose=False):
+        partition_mode='cut_pursuit', pretrained_cnn_ckpt_path=None,
+        pretrained_cnn_channels=(32, 32, 32), contour_prior_reg=2e-2,
+        contour_prior_min_size=(5, 30, 90),
+        contour_prior_edge_weight_mode='exp_neg_latent_distance',
+        contour_prior_k_isolated=5, with_instances=False,
+        graph_builder='radius', cnn_device='cuda', verbose=False):
     """Full raw-cloud -> NAG preprocessing (the reference `pre_transform`
     chain) with the JAX `preprocess_cloud`'s defaults: cut-pursuit
     partition, radius horizontal graph, host KNN. `verbose=True` prints
     per-stage wall times. Per-point instance ids in `data['obj']` become
     the `obj` InstanceData of every level; `with_instances` is accepted
-    as the JAX function accepts it and changes nothing. The contour-prior
-    partition, the Delaunay graph and the device KNN raise
-    NotImplementedError."""
-    if partition_mode != 'cut_pursuit':
-        raise NotImplementedError(
-            f'preprocess_cloud: partition_mode={partition_mode!r} (EZ-SP) '
-            'is not ported')
+    as the JAX function accepts it and changes nothing.
+
+    `partition_mode='contour_prior'` is EZ-SP's stage 2: the greedy
+    contour-prior partition on the partition features, or, given
+    `pretrained_cnn_ckpt_path` (a stage-1 checkpoint of this package),
+    on the embeddings of its frozen sparse CNN, which runs on
+    `cnn_device` (the card unless the caller asks for the CPU; the one
+    argument the JAX function lacks, and no part of a cache's hash). The
+    Delaunay graph and the device KNN raise NotImplementedError."""
+    if partition_mode not in ('cut_pursuit', 'contour_prior'):
+        raise ValueError(f'unknown partition_mode {partition_mode!r}')
     if graph_builder != 'radius':
         raise NotImplementedError(
             f'preprocess_cloud: graph_builder={graph_builder!r} is not '
@@ -661,11 +677,26 @@ def preprocess_cloud(
         data = connect_isolated(data, k=1)
         data = add_keys_to(data, list(partition_hf), to='x',
                            delete_after=False)
-    with t.track('cut_pursuit_partition'):
-        nag = cut_pursuit_partition(
-            data, regularization=pcp_regularization,
-            spatial_weight=pcp_spatial_weight, cutoff=pcp_cutoff,
-            k_adjacency=pcp_k_adjacency)
+    if partition_mode == 'contour_prior':
+        if pretrained_cnn_ckpt_path:
+            with t.track('pretrained_cnn'):
+                data = quantize_coordinates(data, size=voxel)
+                data = pretrained_cnn_features(
+                    data, ckpt_path=pretrained_cnn_ckpt_path,
+                    channels=pretrained_cnn_channels, voxel=voxel,
+                    key='x', out_key='x', device=cnn_device)
+        with t.track('greedy_contour_prior_partition'):
+            nag = greedy_contour_prior_partition(
+                data, reg=contour_prior_reg,
+                min_size=contour_prior_min_size,
+                edge_weight_mode=contour_prior_edge_weight_mode,
+                k=contour_prior_k_isolated)
+    else:
+        with t.track('cut_pursuit_partition'):
+            nag = cut_pursuit_partition(
+                data, regularization=pcp_regularization,
+                spatial_weight=pcp_spatial_weight, cutoff=pcp_cutoff,
+                k_adjacency=pcp_k_adjacency)
     for i in nag.levels:
         nag[i]._store.pop('x', None)
     with t.track('segment_features'):
@@ -682,6 +713,163 @@ def preprocess_cloud(
     if verbose:
         print(t.summary(), flush=True)
     return nag
+
+
+def quantize_coordinates(data, size=0.1):
+    """Integer voxel coordinates `coords` for the sparse CNN (reference
+    QuantizePointCoordinates); with the voxel grid's own `size` they are
+    unique."""
+    data['coords'] = np.floor(
+        np.asarray(data.pos) / size).astype(np.int64)
+    return data
+
+
+def greedy_contour_prior_partition(
+        data, reg, min_size, spatial_weight=None,
+        edge_weight_mode='unit', d_0=None, edge_reduce='add',
+        k=0, w_adjacency=0.0, verbose=False):
+    """EZ-SP's hierarchical partition by greedy contour-prior merges
+    (reference GreedyContourPriorPartition): for each level, edge
+    weights from a distance, optionally the weighted positions beside
+    the features, then the merge of `ops/components.py` under `reg` and
+    that level's `min_size`. Returns a NAG.
+
+    edge_weight_mode: 'unit', or from the distance d of each edge in
+    space ('inverse_distance': 1 / (1 + d / d0), 'exp_neg_distance':
+    exp(-d / d0)) or between features ('exp_neg_latent_distance'), with
+    d0 the mean distance unless `d_0` is given."""
+    regs = list(np.atleast_1d(reg).astype(float))
+    sizes = list(np.atleast_1d(min_size).astype(int))
+    if len(regs) == 1:
+        regs = regs * len(sizes)
+    if len(regs) != len(sizes):
+        raise ValueError(f'greedy_contour_prior_partition: {len(regs)} '
+                         f'regularizations for {len(sizes)} levels')
+
+    d1 = data
+    if d1.get('node_size') is None:
+        d1['node_size'] = np.ones(d1.num_nodes, dtype=np.int64)
+    levels = [d1]
+    for level, (r, ms) in enumerate(zip(regs, sizes)):
+        d1 = levels[level]
+        ei = d1.edge_index.astype(np.int64)
+
+        if edge_weight_mode == 'unit':
+            w = np.ones(ei.shape[1], np.float32)
+        elif edge_weight_mode in ('inverse_distance', 'exp_neg_distance',
+                                  'exp_neg_latent_distance'):
+            ref = d1.pos if edge_weight_mode != 'exp_neg_latent_distance' \
+                else d1.x
+            diff = np.asarray(ref)[ei[0]] - np.asarray(ref)[ei[1]]
+            dist = np.sqrt((diff * diff).sum(1))
+            d0 = float(dist.mean()) if d_0 is None else float(d_0)
+            d0 = max(d0, 1e-12)
+            if edge_weight_mode == 'inverse_distance':
+                w = (1.0 / (1.0 + dist / d0)).astype(np.float32)
+            else:
+                w = np.exp(-dist / d0).astype(np.float32)
+        else:
+            raise ValueError(f'unknown edge_weight_mode {edge_weight_mode!r}')
+
+        x = np.asarray(d1.x, np.float32)
+        if spatial_weight:
+            x = np.concatenate(
+                [x, np.asarray(d1.pos, np.float32) * spatial_weight], 1)
+
+        size_arr = np.asarray(d1.node_size, np.float32)
+        labels, n_comp, (x_m, s_m, ei_m, w_m, _) = \
+            merge_components_by_contour_prior_np(
+                x, size_arr, ei, w, r, ms, pos=np.asarray(d1.pos),
+                k=k, w_adjacency=w_adjacency, edge_reduce=edge_reduce)
+        if verbose:
+            print(f'level {level}: {d1.num_nodes} -> {n_comp}')
+        d1['super_index'] = labels
+
+        pos_m = np.zeros((n_comp, 3), np.float32)
+        np.add.at(pos_m, labels,
+                  np.asarray(d1.pos, np.float32) * size_arr[:, None])
+        pos_m /= np.maximum(s_m[:, None], 1e-12)
+
+        d2 = Data(
+            pos=pos_m,
+            x=x_m[:, :np.asarray(d1.x).shape[1]],
+            node_size=s_m.astype(np.int64),
+            sub=Cluster(labels, np.arange(d1.num_nodes), dense=True),
+            edge_index=ei_m,
+            edge_attr=w_m.astype(np.float32))
+        y = d1.get('y')
+        if y is not None:
+            if y.ndim != 2:
+                raise ValueError('greedy_contour_prior_partition: `y` must '
+                                 'be label histograms')
+            acc = np.zeros((n_comp, y.shape[1]), dtype=np.int64)
+            np.add.at(acc, labels, y)
+            d2['y'] = acc
+        sp = d1.get('semantic_pred')
+        if sp is not None and sp.ndim == 2:
+            acc = np.zeros((n_comp, sp.shape[1]), dtype=np.int64)
+            np.add.at(acc, labels, sp)
+            d2['semantic_pred'] = acc
+        if d1.get('obj') is not None and isinstance(d1.obj, InstanceData):
+            d2['obj'] = d1.obj.merge(labels)
+        levels.append(d2)
+    return NAG(levels, start_i_level=0)
+
+
+def _cnn_state(ckpt_path):
+    """The sparse CNN's state_dict from a stage-1 checkpoint of this
+    package: a checkpoint directory (`state.pt`, a `torch.save` of
+    `PartitionTask.state_dict()`) or the file itself."""
+    import torch
+    path = osp.join(ckpt_path, 'state.pt') if osp.isdir(ckpt_path) \
+        else ckpt_path
+    state = torch.load(path, map_location='cpu', weights_only=True)
+    return state.get('model', state)
+
+
+def pretrained_cnn_features(data, ckpt_path=None, params=None,
+                            channels=(32, 32, 32), voxel=0.1,
+                            key='x', out_key='x', device='cuda'):
+    """EZ-SP stage 2: the frozen stage-1 sparse CNN's embeddings of
+    `data[key]` as `data[out_key]` (f32), so that the partition sees
+    learned features (reference PretrainedCNN).
+
+    The weights come from `params` (a `state_dict` of a `PartitionModel`,
+    `cnn.*` keys, or of its `SparseCNN`) or from the checkpoint at
+    `ckpt_path` that `fit_partition` writes (`torch.save`, `state.pt`);
+    `channels` are the blocks' widths and must match them. The CNN runs
+    on `device`: the card unless the caller asks for the CPU; without a
+    card it raises."""
+    import torch
+    from ..nn.sparse import SparseCNN
+    from ..ops.voxel_conv import build_sparse_conv_neighbors
+
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('pretrained_cnn_features: no CUDA device; pass '
+                           'device="cpu" to run the CNN on the CPU')
+    if params is None:
+        if ckpt_path is None:
+            raise ValueError('pretrained_cnn_features: give ckpt_path or '
+                             'params')
+        params = _cnn_state(ckpt_path)
+    state = {k[len('cnn.'):] if k.startswith('cnn.') else k: v
+             for k, v in params.items()}
+
+    if data.get('coords') is None:
+        data = quantize_coordinates(data, size=voxel)
+    nbr = build_sparse_conv_neighbors(data.coords)
+    x = np.asarray(data[key], np.float32)
+    model = SparseCNN(x.shape[1], channels, num_graphs=1, device=device)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    model.eval()
+    with torch.no_grad():
+        emb = model(torch.from_numpy(x).to(device),
+                    torch.from_numpy(nbr).long().to(device),
+                    batch=torch.zeros(x.shape[0], dtype=torch.long,
+                                      device=device))
+    data[out_key] = emb.cpu().numpy().astype(np.float32)
+    return data
 
 
 def sample_xy_tiling(data, tiling=(2, 2), tile=(0, 0)):

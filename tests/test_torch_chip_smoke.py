@@ -116,19 +116,14 @@ def test_random_twins_at_the_batch_counts(flagship_cpu):
         assert all(abs(a - b) <= 0.25 * b for a, b in zip(counts_, n))
 
 
-def test_fit_phase_rehearsal_on_the_cpu(monkeypatch):
-    """`phase_fit` end to end on the CPU at tiny rooms and 1 epoch (+ the
-    resumed one): its datasets, entry points, checks and printing run;
-    the card-only calls are stubbed (synchronize, the profiler, the
-    memory statistics) and each CPU call of an attention entry point
-    counts as a launch of its kernel, as the wrapper counts one on the
-    card."""
+def _rehearse_on_the_cpu(monkeypatch):
+    """Stub the card-only calls of the phases (synchronize, the
+    profiler, the memory statistics) and count each CPU call of an
+    attention entry point as a launch of its kernel, as the wrapper
+    counts one on the card."""
     import torch
     from superpoint_transformer_torch.nn import attention as block
     from superpoint_transformer_torch.ops import attention, attention_rpe
-    threads = torch.get_num_threads()
-    # one intra-op thread: the suite runs its files in parallel processes
-    torch.set_num_threads(1)
     monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
     monkeypatch.setattr(chip_smoke, 'settle', lambda: None)
     # one repeat for the run-to-run spread: the CPU repeats itself
@@ -143,6 +138,47 @@ def test_fit_phase_rehearsal_on_the_cpu(monkeypatch):
             _kernel.launches += 1
             return _fn(*args)
         monkeypatch.setattr(block, name, counted)
+
+
+def test_ezsp_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
+    """`phase_ezsp` end to end on the CPU after a 1-epoch `phase_fit` on
+    tiny rooms (whose clouds stage 1 reuses): stage 1 for 2 epochs, the
+    embeddings held card (here the CPU) against the CPU, stage-2
+    preprocessing with the stage-1 checkpoint, one stage-2 epoch with
+    its validation and an evaluation, K1 and K2 held on their widest
+    launches, with the card-only calls stubbed."""
+    import tempfile
+    import torch
+    threads = torch.get_num_threads()
+    # one intra-op thread: the suite runs its files in parallel processes
+    torch.set_num_threads(1)
+    _rehearse_on_the_cpu(monkeypatch)
+    dev = torch.device('cpu')
+    rooms = tempfile.TemporaryDirectory(dir=tmp_path)
+    try:
+        chip_smoke.phase_fit(dev, 'cpu', room_points=3_000, epochs=1,
+                             tmp=rooms)
+        out = chip_smoke.phase_ezsp(dev, 'cpu', rooms)
+    finally:
+        torch.set_num_threads(threads)
+        rooms.cleanup()
+    # one stage-2 epoch of 2 steps (7 K1 each); its validation of 2
+    # areas and their evaluation (7 K2 a forward)
+    assert out == {'K1': 7 * 2, 'K2': 7 * (2 + 2)}
+
+
+def test_fit_phase_rehearsal_on_the_cpu(monkeypatch):
+    """`phase_fit` end to end on the CPU at tiny rooms and 1 epoch (+ the
+    resumed one): its datasets, entry points, checks and printing run;
+    the card-only calls are stubbed (synchronize, the profiler, the
+    memory statistics) and each CPU call of an attention entry point
+    counts as a launch of its kernel, as the wrapper counts one on the
+    card."""
+    import torch
+    threads = torch.get_num_threads()
+    # one intra-op thread: the suite runs its files in parallel processes
+    torch.set_num_threads(1)
+    _rehearse_on_the_cpu(monkeypatch)
     try:
         out = chip_smoke.phase_fit(torch.device('cpu'), 'cpu',
                                    room_points=3_000, epochs=1)

@@ -237,7 +237,11 @@ def test_train_panoptic_cli_on_its_partition_cadence(root, tmp_path,
 
 def test_entry_points_need_a_card_or_device_cpu(root, tmp_path):
     """Without a card and without device=cpu both entry points raise, as
-    build_task does; the partition task (EZ-SP) raises as not ported."""
+    build_task does; with device=cpu EZ-SP's two stages train on the
+    tiny S3DIS tree whose classes touch (tests/test_cli.py's EZ-SP
+    recipe: label-crossing edges exist for the contrastive loss): the
+    partition task (stage 1), then SPT on the learned partition of its
+    checkpoint (stage 2)."""
     argv = [a for a in _argv(root, str(tmp_path / 'o'))
             if a != 'device=cpu']
     if not torch.cuda.is_available():
@@ -245,6 +249,21 @@ def test_entry_points_need_a_card_or_device_cpu(root, tmp_path):
             ttrain.main(argv)
         with pytest.raises(RuntimeError, match='no CUDA device'):
             teval.main(argv)
-    with pytest.raises(NotImplementedError, match='EZ-SP'):
-        ttrain.main(_argv(root, str(tmp_path / 'p'),
-                          'partition/s3dis_ezsp'))
+    root = str(tmp_path / 's3dis')
+    make_raw_s3dis(root, z_step=0.1)
+    out1 = str(tmp_path / 'p')
+    assert ttrain.main(_argv(root, out1, 'partition/s3dis_ezsp')) is None
+    head = open(osp.join(out1, 'metrics.csv')).readline().strip()
+    assert head == 'epoch,split,loss,n_inter_edge,time'
+    ckpt = osp.join(out1, 'checkpoints', 'last')
+    state = torch.load(osp.join(ckpt, 'state.pt'), weights_only=True)
+    assert state['step'] == 1 and state['model'][
+        'cnn.block_0.weight'].shape == (32, 27 * 8)
+    out2 = str(tmp_path / 's')
+    best = ttrain.main(_argv(root, out2, 'semantic/s3dis_ezsp') + [
+        f'datamodule.pretrained_cnn_ckpt_path={ckpt}'])
+    assert np.isfinite(best)
+    assert osp.exists(osp.join(out2, 'checkpoints', 'last', 'state.pt'))
+    # the stage-2 clouds went through the greedy partition: a cache of
+    # their own beside stage 1's (cut pursuit)
+    assert len(glob.glob(osp.join(root, 'processed', 'train', '*'))) >= 2

@@ -1,6 +1,7 @@
 """The port's config composition vs the JAX package's: `load_config`
 gives the same plain dict for every experiment file, for `eval.yaml`
-and with CLI overrides; `FLAGSHIP_CFG` and `PANOPTIC_CFG` equal the
+and with CLI overrides; `FLAGSHIP_CFG`, `PANOPTIC_CFG` and EZ-SP's two
+configs (`EZSP_PARTITION_CFG`, `EZSP_CFG`) equal the
 composed YAML on every key they hold. Exact equality (no tolerance: the
 values are parsed, not computed)."""
 import glob
@@ -10,7 +11,9 @@ import pytest
 
 from superpoint_transformer_tpu.config.loader import load_config as jload
 from superpoint_transformer_torch.config import Config, load_config
-from superpoint_transformer_torch.experiment import (FLAGSHIP_CFG,
+from superpoint_transformer_torch.experiment import (EZSP_CFG,
+                                                     EZSP_PARTITION_CFG,
+                                                     FLAGSHIP_CFG,
                                                      PANOPTIC_CFG,
                                                      build_task)
 
@@ -78,12 +81,14 @@ def test_overrides_and_references_as_in_jax():
 
 @pytest.mark.parametrize('name,cfg,experiment', [
     ('flagship', FLAGSHIP_CFG, 'semantic/s3dis'),
-    ('panoptic', PANOPTIC_CFG, 'panoptic/s3dis')], ids=['flagship',
-                                                        'panoptic'])
+    ('panoptic', PANOPTIC_CFG, 'panoptic/s3dis'),
+    ('ezsp_partition', EZSP_PARTITION_CFG, 'partition/s3dis_ezsp'),
+    ('ezsp', EZSP_CFG, 'semantic/s3dis_ezsp')],
+    ids=['flagship', 'panoptic', 'ezsp_partition', 'ezsp'])
 def test_builtin_cfg_equals_the_composed_yaml(name, cfg, experiment):
     """Every key that the build functions, the datasets and the Trainer
-    read from FLAGSHIP_CFG / PANOPTIC_CFG is the port's loader's
-    value."""
+    read from FLAGSHIP_CFG / PANOPTIC_CFG / EZSP_PARTITION_CFG / EZSP_CFG
+    is the port's loader's value."""
     composed = load_config(CONFIGS, 'train', [f'experiment={experiment}'])
     leaves = dict(_leaves(cfg))
     # the datamodule, the trainer and the run keys are held too

@@ -201,10 +201,9 @@ def test_geometric_features_match_jax(rooms, k_step):
         assert_arrays_equal(k, got[k], ref[k], PRE_RTOL)
 
 
-@pytest.mark.parametrize('kw', [dict(partition_mode='contour_prior'),
-                                dict(graph_builder='delaunay'),
+@pytest.mark.parametrize('kw', [dict(graph_builder='delaunay'),
                                 dict(knn_backend='device')],
-                         ids=['contour_prior', 'delaunay', 'device_knn'])
+                         ids=['delaunay', 'device_knn'])
 def test_preprocess_cloud_unported_branches_raise(kw):
     raw = tsyn.synthetic_room_cloud(seed=0, n_points=2_000)
     with pytest.raises(NotImplementedError):

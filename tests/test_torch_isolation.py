@@ -1,13 +1,15 @@
-"""The port needs none of jax, flax, optax, h5py, yaml or the JAX
+"""The port needs none of jax, flax, optax, orbax, h5py, yaml or the JAX
 package: in a fresh interpreter where importing any of them fails, the
 port still imports every module, builds a model and runs a CPU forward,
 builds the semantic task and takes a CPU training step, preprocesses
 a synthetic room and serves it through `prepare_batch` and `infer_nag`,
 runs the panoptic path (instance ids, a panoptic training step and
-`validate_panoptic`), and fits the flagship task for one epoch with the
-`Trainer` on an in-memory dataset (checkpoints and CSV metrics written).
-No module of the port imports the JAX package, jax, flax or optax, even
-inside a function.
+`validate_panoptic`), fits the flagship task for one epoch with the
+`Trainer` on an in-memory dataset (checkpoints and CSV metrics written),
+and runs EZ-SP's two stages (`fit_partition`, then `preprocess_cloud`
+with the frozen CNN of its checkpoint and the greedy contour-prior
+partition). No module of the port imports the JAX package, jax, flax,
+optax or orbax, even inside a function.
 Its native library is its own build of `native/*.cpp`, never the prebuilt
 `native/libspt_native.so`, and a failed build raises."""
 import json
@@ -25,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent('''
     import sys
 
-    BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'yaml',
+    BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'h5py', 'yaml',
                'superpoint_transformer_tpu')
 
     class Block:
@@ -158,6 +160,28 @@ SCRIPT = textwrap.dedent('''
     assert len(open(os.path.join(out_dir, 'metrics.csv')).readlines()) == 3
     print('FIT_OK')
 
+    # EZ-SP: stage 1 (the partition task) on random NAGs, then stage-2
+    # preprocessing with its checkpoint's frozen CNN on the CPU
+    from superpoint_transformer_torch.trainer import fit_partition
+    from superpoint_transformer_torch.utils.synthetic import random_nag
+    from superpoint_transformer_torch.models.partition import (
+        PartitionModel, PartitionTask)
+    nags = [random_nag(seed=s, n_points=400) for s in range(2)]
+    stask = PartitionTask(PartitionModel(8, channels=(8, 8), num_graphs=2),
+                          total_steps=2)
+    ezsp_dir = tempfile.mkdtemp()
+    fit_partition(stask, [nags], BatchConfig(), output_dir=ezsp_dir,
+                  max_epochs=2)
+    assert stask.step == 2
+    ezsp = preprocess_cloud(
+        synthetic_room_cloud(seed=2, n_points=5_000), voxel=0.1, knn=25,
+        knn_r=10.0, knn_min_search=10, partition_mode='contour_prior',
+        pretrained_cnn_ckpt_path=os.path.join(ezsp_dir, 'checkpoints',
+                                              'last'),
+        pretrained_cnn_channels=(8, 8), cnn_device='cpu')
+    assert ezsp[0].num_nodes > ezsp[1].num_nodes > 1
+    print('EZSP_OK')
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
@@ -199,6 +223,13 @@ def test_trainer_fit_runs_without_jax_flax_optax_h5py_yaml(blocked_run):
     assert 'FIT_OK' in blocked_run.stdout
 
 
+def test_ezsp_runs_without_jax_flax_orbax_h5py_yaml(blocked_run):
+    """EZ-SP's stage 1 (`fit_partition`, checkpoints written) and stage-2
+    preprocessing from its checkpoint, with the same imports blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'EZSP_OK' in blocked_run.stdout
+
+
 def _imports(path):
     import ast
     tree = ast.parse(open(path).read(), path)
@@ -218,9 +249,10 @@ PORT_FILES = sorted(
 @pytest.mark.parametrize('path', PORT_FILES)
 def test_no_port_module_imports_the_jax_package(path):
     """Every import statement of every module of the port, those inside
-    functions included: none names jax, flax, optax or the JAX
+    functions included: none names jax, flax, optax, orbax or the JAX
     package."""
-    banned = ('jax', 'jaxlib', 'flax', 'optax', 'superpoint_transformer_tpu')
+    banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
+              'superpoint_transformer_tpu')
     bad = [m for m in _imports(os.path.join(REPO, path))
            if m.split('.')[0] in banned]
     assert not bad, bad

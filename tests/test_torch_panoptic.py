@@ -45,6 +45,7 @@ from superpoint_transformer_torch.metrics import (
     mean_average_precision as tmap)
 from superpoint_transformer_torch.metrics import panoptic as tpq
 from superpoint_transformer_torch.models import panoptic as tpan
+from superpoint_transformer_torch.models.partition import PartitionTask
 from superpoint_transformer_torch.models.spt import SPT as TSPT
 from superpoint_transformer_torch.ops import instance as tops
 from superpoint_transformer_torch.transforms import instance as ttinst
@@ -664,10 +665,17 @@ def test_build_task_panoptic_builds_on_the_card_unless_asked_for_the_cpu():
             build_task(PANOPTIC_CFG, num_graphs=2)
     task = build_task(PANOPTIC_CFG, num_graphs=2, device='cpu')
     assert all(p.device.type == 'cpu' for p in task.model.parameters())
-    with pytest.raises(NotImplementedError, match='partition'):
-        build_task({**PANOPTIC_CFG, 'model': {**PANOPTIC_CFG['model'],
-                                              'task': 'partition'}},
-                   device='cpu')
+    # model.task 'partition' builds EZ-SP's stage-1 task over the point
+    # features, with the partition model's keys
+    part = build_task({**PANOPTIC_CFG, 'model': {
+        **PANOPTIC_CFG['model'], 'task': 'partition', 'cnn_width': 16,
+        'cnn_depth': 1, 'cnn_out': 8,
+        'optimizer': {'lr': '1e-4', 'weight_decay': '1e-4'}}},
+        num_graphs=2, device='cpu')
+    assert isinstance(part, PartitionTask)
+    assert part.model.cnn.channels == [16, 8]
+    assert part.model.cnn.block_0.weight.shape == (16, 27 * 8)
+    assert all(p.device.type == 'cpu' for p in part.model.parameters())
 
 
 def test_random_nag_with_instances_matches_jax():
