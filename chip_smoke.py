@@ -567,8 +567,10 @@ def phase_k3(dev):
     """K3's ten gradients vs autograd of K2's plain version (f32 kernel,
     f64 autograd), and vs K3's plain version (bf16), at the flagship
     training level-1 shape, a ragged shape, a shape off the 16-wide
-    tensor-core tiles and a batch with fully masked rows; the weight
-    gradients are the same in two runs, in both dtypes."""
+    tensor-core tiles, a batch with fully masked rows, the EZ-SP stage-2
+    density (K=64) and a K one past the bf16 kernel's 16-slot tiles
+    (K=17); the weight gradients are the same in two runs, in both
+    dtypes."""
     import torch
     from superpoint_transformer_torch.ops import attention_rpe as k2
 
@@ -578,7 +580,9 @@ def phase_k3(dev):
                              masked_rows=0)),
              ('off_tiles', dict(N=700, K=37, H=2, D=4, C=8, De=8,
                                 masked_rows=9)),
-             ('masked_rows', dict(TRAIN_L1, N=2048, masked_rows=256))]
+             ('masked_rows', dict(TRAIN_L1, N=2048, masked_rows=256)),
+             ('ezsp_k64', dict(TRAIN_L1, N=4096, K=64, masked_rows=0)),
+             ('k17', dict(TRAIN_L1, N=2048, K=17, masked_rows=16))]
     worst = 0.0
     for name, shape in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -620,9 +624,10 @@ def phase_k3(dev):
         lambda: k2.dense_attention_rpe_bwd(*args, out, lse, g),
         lambda: k2.dense_attention_rpe_bwd_reference(*args, out, lse, g), 20,
         graph=True)
-    print(f'K3 flagship training bf16 N={TRAIN_L1["N"]} K=48: kernel '
-          f'{ms:.4f} ms, plain {plain_ms:.4f} ms; rounds {rounds} (CUDA '
-          'graph of 20 calls, CUDA events, the delta pass included)')
+    print(f'K3 flagship training bf16 N={TRAIN_L1["N"]} K=48 on '
+          f'{card_line()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; '
+          f'rounds {rounds} (CUDA graph of 20 calls, CUDA events, the delta '
+          'pass included)')
     # no one PyTorch call computes the RPE attention's gradients
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=None, shape=dict(TRAIN_L1))

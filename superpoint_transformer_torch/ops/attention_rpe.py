@@ -41,7 +41,7 @@ def _launcher():
 def _bwd_launcher():
     lib = library('dense_attention_rpe_bwd')
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dense_attention_rpe_bwd_blocks.argtypes = [i]
+    lib.dense_attention_rpe_bwd_blocks.argtypes = [i] * 7
     lib.dense_attention_rpe_bwd_blocks.restype = i
     fn = lib.dense_attention_rpe_bwd_launch
     fn.argtypes = ([i, p, p, ll, p, ll] + [p] * 18 + [i] * 6 + [p])
@@ -320,12 +320,25 @@ def dense_attention_rpe_bwd(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
     q_node, kg, vg, ef, wk, bk, wq, bq, wv, bv, nbr_mask, scale = args
     DH, W = H * D, 2 * H * D + C
     CH = C // H
-    if CH > 32 or CH & (CH - 1) or -(-(De + 1) // 8) * W > 1024:
+    bf16 = kg.dtype == torch.bfloat16
+    if CH > 32 or CH & (CH - 1):
+        raise ValueError('dense_attention_rpe_bwd: kernel needs C/H a power '
+                         f'of two <= 32 (got C/H={CH})')
+    if not bf16 and -(-(De + 1) // 8) * W > 1024:
         raise ValueError(
-            'dense_attention_rpe_bwd: kernel needs C/H a power of two <= 32 '
-            f'and ceil((De+1)/8) * (2*H*D + C) <= 1024 (got C/H={CH}, '
-            f'De={De}, 2*H*D + C={W})')
+            'dense_attention_rpe_bwd: the float32 kernel needs '
+            f'ceil((De+1)/8) * (2*H*D + C) <= 1024 (got De={De}, '
+            f'2*H*D + C={W})')
+    if bf16 and De > 64:
+        raise ValueError('dense_attention_rpe_bwd: the bfloat16 kernel runs '
+                         'its projections in k-steps of 16 up to De = 64 '
+                         f'(got De={De})')
     blocks_fn, launch = _bwd_launcher()
+    blocks = blocks_fn(int(bf16), N, K, H, D, C, De)
+    if blocks < 0:
+        raise ValueError(
+            'dense_attention_rpe_bwd: the bfloat16 kernel\'s tiles do not '
+            f'fit in shared memory at H={H}, D={D}, C={C}, De={De}')
     # the softmax row correction, outside the kernel as in JAX
     delta = (g * out).sum(-1).t().contiguous()            # [H, N]
     dt = kg.dtype
@@ -336,11 +349,11 @@ def dense_attention_rpe_bwd(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
     # the block partials of the weight gradients: f64 for f32 inputs,
     # whose kernel sums them in f64
     partial = torch.empty(
-        (max(blocks_fn(N), 1), De + 1, W), device=dev,
-        dtype=torch.float64 if dt == torch.float32 else torch.float32)
+        (max(blocks, 1), De + 1, W), device=dev,
+        dtype=torch.float32 if bf16 else torch.float64)
     dw = torch.zeros((De + 1, W), dtype=torch.float32, device=dev)
     rc = launch(
-        int(dt == torch.bfloat16), q_node.data_ptr(), kg.data_ptr(),
+        int(bf16), q_node.data_ptr(), kg.data_ptr(),
         kg.stride(1), vg.data_ptr(), vg.stride(1), ef.data_ptr(),
         wk.data_ptr(), bk.data_ptr(), wq.data_ptr(), bq.data_ptr(),
         wv.data_ptr(), bv.data_ptr(), nbr_mask.data_ptr(), scale.data_ptr(),

@@ -247,13 +247,85 @@ def test_k3_kernel_matches_plain_bf16(cuda_device, shape, seed):
     fully masked."""
     args = _inputs(cuda_device, torch.bfloat16, seed=seed, **shape)
     H, C = shape['H'], shape['C']
-    g = _randn(cuda_device, seed, shape['N'], H, C // H)
-    out, lse = dense_attention_rpe(*args, with_lse=True)
+    _hold_k3_bf16(args, _randn(cuda_device, seed, shape['N'], H, C // H))
+
+
+def _hold_k3_bf16(args, g, forward=dense_attention_rpe):
+    """The bf16 K3's ten gradients against its plain version: per-edge
+    and per-node ones at BF16_TOL, weight and bias gradients at K3's;
+    out and lse from `forward`."""
+    out, lse = forward(*args, with_lse=True)
+    before = dense_attention_rpe_bwd.launches
     grads = dense_attention_rpe_bwd(*args, out, lse, g)
+    assert dense_attention_rpe_bwd.launches == before + 1
     ref = dense_attention_rpe_bwd_reference(*args, out, lse, g)
     for i, (name, a, b) in enumerate(zip(K3_GRADS, grads, ref)):
         assert a.dtype == b.dtype, name
         _assert_grad_close(name, a, b, **(BF16_TOL if i < 4 else K3_TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [1, 15, 16, 17, 33, 64])
+def test_k3_bf16_tile_boundaries(cuda_device, K):
+    """K on both sides of the kernel's 16-slot tiles, at the flagship
+    widths; the last rows are fully masked."""
+    args = _inputs(cuda_device, torch.bfloat16, N=1003, K=K, H=16, D=4,
+                   C=64, De=32, masked_rows=5, seed=K)
+    _hold_k3_bf16(args, _randn(cuda_device, K, 1003, 16, 4))
+
+
+@pytest.mark.cuda
+def test_k3_bf16_nodes_off_the_block_warps(cuda_device):
+    """N not a multiple of the block's warps, and more nodes than the
+    persistent grid's warps: warps of one block end on different rounds."""
+    N = 2 * 8 * 132 + 3
+    args = _inputs(cuda_device, torch.bfloat16, N=N, K=40, H=16, D=4, C=64,
+                   De=32, masked_rows=11, seed=4)
+    _hold_k3_bf16(args, _randn(cuda_device, 4, N, 16, 4))
+
+
+@pytest.mark.cuda
+def test_k3_bf16_reads_column_blocks_of_a_gathered_table(cuda_device):
+    """kg and vg as the column blocks of one gathered [N, K, H*D + C]
+    table (slot strides above their widths) give the same bits as
+    contiguous copies."""
+    args = _inputs(cuda_device, torch.bfloat16, N=777, K=37, H=16, D=4,
+                   C=64, De=32, masked_rows=3, seed=5)
+    g = _randn(cuda_device, 5, 777, 16, 4)
+    out, lse = dense_attention_rpe(*args, with_lse=True)
+    kv = torch.cat([args[1], args[2]], 2)
+    view = list(args)
+    view[1], view[2] = kv[..., :64], kv[..., 64:]
+    assert view[1].stride(1) == view[2].stride(1) == 128
+    for name, a, b in zip(K3_GRADS,
+                          dense_attention_rpe_bwd(*view, out, lse, g),
+                          dense_attention_rpe_bwd(*args, out, lse, g)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_k3_bf16_takes_rows_off_16_bytes(cuda_device):
+    """Rows that are not whole 16-byte chunks (H*D = C = De = 4 in bf16)
+    are staged by plain loads; the gradients still hold. K2 does not
+    take such rows, so out and lse come from its plain version."""
+    args = _inputs(cuda_device, torch.bfloat16, N=300, K=21, H=2, D=2, C=4,
+                   De=4, masked_rows=2, seed=6)
+    _hold_k3_bf16(args, _randn(cuda_device, 6, 300, 2, 2),
+                  forward=dense_attention_rpe_reference)
+
+
+@pytest.mark.cuda
+def test_k3_bf16_rejects_what_it_cannot_take(cuda_device):
+    """The bf16 kernel runs its projections in k-steps of 16 up to
+    De = 64: a wider De raises, and nothing falls back."""
+    args = _inputs(cuda_device, torch.bfloat16, N=64, K=8, H=2, D=4, C=8,
+                   De=80, masked_rows=0)
+    out = torch.zeros(64, 2, 4, device=cuda_device)
+    lse = torch.zeros(2, 64, device=cuda_device)
+    before = dense_attention_rpe_bwd.launches
+    with pytest.raises(ValueError, match='De = 64'):
+        dense_attention_rpe_bwd(*args, out, lse, out)
+    assert dense_attention_rpe_bwd.launches == before
 
 
 @pytest.mark.cuda

@@ -13,12 +13,16 @@ package's nvcc flags (and `-I csrc`, for `node_tiles.cuh`) into
 once. `--patch` adds, for every source in which a named patch applies,
 a copy with each patch and one with all of them:
 
-- `no_def_fma`: without the per-slot FMA loop of the edge-feature
-  gradient (the loop's stores stay, of zeros);
-- `no_wgrad_fma`: without the FMAs of the block's weight gradients;
-- `no_wgrad_mma`: without the tensor-core weight-gradient call.
+- `no_wgrad_fma`: without the FMAs of the block's weight and bias
+  gradients (in the bf16 tile kernel and the f32 kernel, or in an older
+  source's shared kernel);
+- `warps4`: the bf16 tile kernel with at most 4 warps a block, not 8.
 
-A patched copy computes wrong gradients: it is only timed. Every variant
+(Earlier versions had `no_def_fma` and `no_wgrad_mma`: the bf16 kernel's
+edge-feature gradient has been on the tensor cores since d_ef moved there,
+and no source has tensor-core weight gradients.)
+
+A `no_wgrad_fma` copy computes wrong gradients: it is only timed. Every variant
 is timed at the flagship training level-1 shape (N=5120, K=48, H=16,
 D=4, C=64, De=32) in bf16, then in f32, as a CUDA graph of 20 calls, in
 R rounds that go forward and back over the variants; the best round is
@@ -49,14 +53,27 @@ CSRC = os.path.join(ROOT, 'superpoint_transformer_torch', 'csrc')
 OUT = os.path.join(ROOT, 'superpoint_transformer_torch', '_build',
                    'variants')
 PATCHES = {
-    'no_def_fma': ('sum = fma_acc(wrow[jj], grad[jj], sum);', ';'),
-    'no_wgrad_fma': ('acc[it][ee] = fma_acc(er[ee], gr, acc[it][ee]);',
-                     ';'),
-    'no_wgrad_mma': ('        weight_grad_mma(L, smem, tacc, warp, lane);\n',
-                     ''),
+    'no_wgrad_fma': [
+        ('acc[it][ee] = fma_acc(er[ee], gr, acc[it][ee]);', ';'),
+        ('acc[it][ee][cc] = fmaf(efv[ee], gcol[cc],\n'
+         '                                           acc[it][ee][cc]);', ';'),
+        ('acc[it][0][0] += gv4.x;', ';'), ('acc[it][0][1] += gv4.y;', ';'),
+        ('acc[it][0][2] += gv4.z;', ';'), ('acc[it][0][3] += gv4.w;', ';')],
+    'warps4': [('constexpr int MAX_BLOCK_WARPS = 8;',
+                'constexpr int MAX_BLOCK_WARPS = 4;')],
 }
+# the blocks query of sources before the bf16 tile kernel: N alone
+OLD_BLOCKS = 'dense_attention_rpe_bwd_blocks(int N)'
 SHAPE = dict(N=5120, K=48, H=16, D=4, C=64, De=32)
 K3_TOL = dict(rtol=2e-3, atol=2e-4)
+
+
+def patched(text, p):
+    """`text` with every rule of patch `p` that applies, or None."""
+    out = text
+    for old, new in PATCHES[p]:
+        out = out.replace(old, new)
+    return out if out != text else None
 
 
 def sources(named, patches):
@@ -69,20 +86,21 @@ def sources(named, patches):
         out[name] = text
         applied = []
         for p in patches:
-            old, new = PATCHES[p]
-            if old in text:
-                out[f'{name}:{p}'] = text.replace(old, new)
+            copy = patched(text, p)
+            if copy is not None:
+                out[f'{name}:{p}'] = copy
                 applied.append(p)
         if len(applied) > 1:
             both = text
             for p in applied:
-                both = both.replace(*PATCHES[p])
+                both = patched(both, p)
             out[f'{name}:{"+".join(applied)}'] = both
     return out
 
 
 def build(texts):
-    """Compile every source at once; {name: library path}."""
+    """Compile every source at once; {name: (library path, whether its
+    blocks query takes N alone)}."""
     from superpoint_transformer_torch.ops import cuda_build
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
@@ -94,42 +112,46 @@ def build(texts):
         jobs[name] = (subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, '-I', CSRC, '-o',
              lib, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True), lib)
+            text=True), lib, OLD_BLOCKS in text)
     libs = {}
-    for name, (proc, lib) in jobs.items():
+    for name, (proc, lib, old) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed on {name}:\n{err}')
         report(name, err)
-        libs[name] = lib
+        libs[name] = (lib, old)
     return libs
 
 
 def report(name, text):
-    """The registers and spills of the flagship instantiations (bf16 and
-    f32, two column tiles a lane) from nvcc's -Xptxas -v report."""
+    """The registers and spills of the flagship instantiations (the bf16
+    tile kernel <8, 2, 1> or an older source's bf16 kernel, and the f32
+    kernel with two column tiles a lane) from nvcc's -Xptxas -v report."""
     import re
     kernel = None
+    flagship = ('tiles_kernelILi8ELi2ELi1E', 'bwd_kernelIfLi2E',
+                'bwd_kernelILi2E', 'bwd_kernelI13__nv_bfloat16Li2E')
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r'bwd_kernelI(.*?)EEv', m.group(1))
-            kernel = t.group(1) if t else None
-        elif kernel and 'Li2E' in kernel and (
-                'registers' in line or 'spill' in line):
+            kernel = next((f for f in flagship if f in m.group(1)), None)
+        elif kernel and ('registers' in line or 'spill' in line):
             info = re.sub(r'^ptxas info\s*:\s*', '', line.strip())
             print(f'  {name} <{kernel}>: {info}')
 
 
-def bind(path):
+def bind(path, old_blocks):
     lib = ctypes.CDLL(path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dense_attention_rpe_bwd_blocks.argtypes = [i]
-    lib.dense_attention_rpe_bwd_blocks.restype = i
+    blocks = lib.dense_attention_rpe_bwd_blocks
+    blocks.argtypes = [i] if old_blocks else [i] * 7
+    blocks.restype = i
     fn = lib.dense_attention_rpe_bwd_launch
     fn.argtypes = ([i, p, p, ll, p, ll] + [p] * 18 + [i] * 6 + [p])
     fn.restype = i
-    return lib.dense_attention_rpe_bwd_blocks, fn
+    if old_blocks:
+        return (lambda is_bf16, N, *shape: blocks(N)), fn
+    return blocks, fn
 
 
 def use(k3, launcher):
@@ -272,7 +294,7 @@ def main():
     for p in patches:
         if p not in PATCHES:
             raise SystemExit(f'unknown patch {p}')
-    launchers = {n: bind(lib) for n, lib in
+    launchers = {n: bind(*lib) for n, lib in
                  build(sources(named, patches)).items()}
     if opt.rounds:
         for dtype in (torch.bfloat16, torch.float32):
