@@ -23,7 +23,7 @@ from ..ops.graph import edges_to_dense_neighbors, _round_up
 from ..ops.voxel_conv import build_sparse_conv_neighbors
 
 __all__ = ['batch_nags', 'sort_nag_by_super', 'pad_nag', 'bucket',
-           'pad_point_cloud']
+           'pad_point_cloud', 'transpose_neighbors']
 
 
 def bucket(n, mode='pow2_fine', minimum=128):
@@ -154,6 +154,30 @@ def sort_nag_by_super(nag):
     return nag
 
 
+def transpose_neighbors(nbr_idx, nbr_mask, k_in_cap=0):
+    """The transpose of a padded neighbor table [cap, K]: for each node m,
+    the flattened [cap*K] slots (n, k) with nbr_idx[n, k] == m, in slot
+    order, as (in_idx, in_mask) [cap, K_in]; K_in is the largest
+    in-degree rounded up to 16 (at least 16 and `k_in_cap`), padded
+    slots point at slot 0 with the mask False."""
+    cap = nbr_idx.shape[0]
+    tgt = nbr_idx[nbr_mask]
+    slots = np.flatnonzero(nbr_mask.reshape(-1)).astype(np.int64)
+    order = np.argsort(tgt, kind='stable')
+    tgt_s, slots_s = tgt[order], slots[order]
+    deg_in = np.bincount(tgt_s, minlength=cap)
+    k_in = int(max(_round_up(int(deg_in.max(initial=0)), 16), 16,
+                   k_in_cap))
+    in_idx = np.zeros((cap, k_in), dtype=np.int32)
+    in_mask = np.zeros((cap, k_in), dtype=bool)
+    starts = np.zeros(cap + 1, dtype=np.int64)
+    np.cumsum(deg_in, out=starts[1:])
+    rank = np.arange(slots_s.shape[0]) - starts[tgt_s]
+    in_idx[tgt_s, rank] = slots_s
+    in_mask[tgt_s, rank] = True
+    return in_idx, in_mask
+
+
 def pad_nag(nag, num_classes=None, node_caps=None, k_caps=None,
             k_in_caps=None, bucket_mode='pow2', with_edges_from=1,
             with_transpose=True):
@@ -250,27 +274,9 @@ def pad_nag(nag, num_classes=None, node_caps=None, k_caps=None,
             full_mask[:n] = nbr_mask
             kw['nbr_idx'] = full_idx
             kw['nbr_mask'] = full_mask
-            # transpose table: for each node m, the flattened [N*K]
-            # slots (n, k) with nbr_idx[n, k] == m
             if with_transpose:
-                tgt = full_idx[full_mask]
-                slots = np.flatnonzero(full_mask.reshape(-1)).astype(
-                    np.int64)
-                order = np.argsort(tgt, kind='stable')
-                tgt_s, slots_s = tgt[order], slots[order]
-                deg_in = np.bincount(tgt_s, minlength=cap)
-                k_in = int(max(
-                    _round_up(int(deg_in.max(initial=0)), 16),
-                    16, (k_in_caps or {}).get(i, 0)))
-                in_idx = np.zeros((cap, k_in), dtype=np.int32)
-                in_mask = np.zeros((cap, k_in), dtype=bool)
-                starts = np.zeros(cap + 1, dtype=np.int64)
-                np.cumsum(deg_in, out=starts[1:])
-                rank = np.arange(slots_s.shape[0]) - starts[tgt_s]
-                in_idx[tgt_s, rank] = slots_s
-                in_mask[tgt_s, rank] = True
-                kw['nbr_in_idx'] = in_idx
-                kw['nbr_in_mask'] = in_mask
+                kw['nbr_in_idx'], kw['nbr_in_mask'] = transpose_neighbors(
+                    full_idx, full_mask, (k_in_caps or {}).get(i, 0))
             ea = d.get('edge_attr')
             if ea is not None:
                 # invalid slots keep whatever edge 0 carries: finite

@@ -103,11 +103,11 @@ class PaddedPointCloud:
         return self.pos.shape[0]
 
 
-# fields the port never reads on the device: the transpose neighbor
-# tables (the JAX backward's gather_rows_t; the port's gather backward,
-# `ops/segment.py:gather_rows`, sums the same cotangents) and host-side
-# row ids
-_DROPPED = ('nbr_in_idx', 'nbr_in_mask', 'node_id')
+# fields only a training step reads on the device: the label histograms
+# and the transpose neighbor tables (the k/v gathers' backward,
+# `ops/gather.py:gather_rows_t`), dropped from an inference batch as the
+# JAX `strip_for_inference` does
+_TRAIN_ONLY = ('y', 'nbr_in_idx', 'nbr_in_mask')
 # heavy float features cast to the compute dtype
 _FEATURES = ('x', 'edge_feat', 'v_edge_attr')
 
@@ -135,10 +135,11 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
 
     `batch` is any object whose fields are named like the JAX
     `PaddedNAG` (`levels`, `start_i_level`, `num_graphs`) and whose
-    levels are named like `PaddedLevel`. `nbr_in_idx`, `nbr_in_mask` and
-    `node_id` are dropped (level 1's `node_id` is kept on the host as
-    `level1_node_id`); the label histograms `y` are kept when `train` and
-    dropped otherwise, as the JAX `strip_for_inference` does. `x`,
+    levels are named like `PaddedLevel`. `node_id` is dropped (level 1's
+    is kept on the host as `level1_node_id`); the label histograms `y`
+    and the transpose neighbor tables `nbr_in_idx`, `nbr_in_mask` are
+    kept when `train` and dropped otherwise, as the JAX
+    `strip_for_inference` does. `x`,
     `edge_feat` and `v_edge_attr` are cast to bf16 when `compute_dtype` is
     bf16. Index tensors become int64. With `pin_memory` and a CUDA
     `device`, each leaf is copied from pinned host memory without
@@ -160,8 +161,8 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
             v = getattr(lvl, f.name, None)
             if f.name == 'num_nodes':
                 kw[f.name] = int(v)
-            elif v is not None and f.name not in _DROPPED \
-                    and (train or f.name != 'y'):
+            elif v is not None and f.name != 'node_id' \
+                    and (train or f.name not in _TRAIN_ONLY):
                 kw[f.name] = _to_tensor(f.name, v, device, feat_dtype, pin)
         levels.append(PaddedLevel(**kw))
     return PaddedNAG(levels=tuple(levels), start_i_level=start,

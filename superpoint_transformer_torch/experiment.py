@@ -25,7 +25,7 @@ from .models.spt import SPT
 from .transforms.prepare import BatchConfig
 
 __all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'EZSP_PARTITION_CFG',
-           'EZSP_CFG', 'build_model',
+           'EZSP_CFG', 'NANO_CFG', 'PANOPTIC_NANO_CFG', 'build_model',
            'build_task', 'build_batch_config', 'build_datasets',
            'precision_to_dtype']
 
@@ -232,6 +232,32 @@ EZSP_CFG['datamodule'].update({
 })
 
 
+# nano-2 (no level 0: its datasets load the NAGs from level 1, whose
+# features are the stored segment means; the first stage a transformer
+# Stage on level 1) with bf16 compute: configs/train.yaml +
+# experiment=semantic/s3dis_nano (NANO_CFG) and + experiment=panoptic/
+# s3dis_nano (PANOPTIC_NANO_CFG)
+_NANO_DATAMODULE = {
+    'nano': True,
+    'point_hf': [],
+    'segment_mean_hf': ['linearity', 'planarity', 'scattering',
+                        'verticality', 'elevation', 'rgb'],
+}
+_NANO_MODEL = {
+    '_point_mlp': None,
+    '_node_mlp_out': None,
+    '_h_edge_mlp_out': 16,
+    '_down_dim': [32, 32],
+    '_up_dim': [32],
+    'optimizer': {'lr': 0.01, 'weight_decay': '1e-4'},
+}
+NANO_CFG = copy.deepcopy(FLAGSHIP_CFG)
+PANOPTIC_NANO_CFG = copy.deepcopy(PANOPTIC_CFG)
+for _cfg in (NANO_CFG, PANOPTIC_NANO_CFG):
+    _cfg['datamodule'].update(copy.deepcopy(_NANO_DATAMODULE))
+    _cfg['model'].update(copy.deepcopy(_NANO_MODEL))
+    _cfg['model']['net'].update({'nano': True, 'down_num_heads': 8})
+
 def _dims(keys):
     return sum(FEAT_SIZE[k] for k in keys)
 
@@ -260,8 +286,7 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
     if compute_dtype == 'auto':
         compute_dtype = precision_to_dtype(
             cfg.get('trainer', {}).get('precision'))
-    if net['nano']:
-        raise NotImplementedError('nano SPT (no level 0) is not ported')
+    nano = bool(net['nano'])
     use_pos = bool(net['use_pos'])
     use_diam = bool(net['use_diameter'])
     use_diam_p = bool(net['use_diameter_parent'])
@@ -284,10 +309,16 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
 
     depth = int(m.get('_mlp_depth', 2))
     down_dim, up_dim = list(m['_down_dim']), list(m['_up_dim'])
-    point_out = m['_point_mlp'][-1]
-    down_in_mlp = [[node_injection + (point_out if i == 0
-                                      else down_dim[i - 1])] + [d] * depth
-                   for i, d in enumerate(down_dim)]
+    point_mlp = m.get('_point_mlp')
+    if nano:
+        # the first stage reads level 1's own features: the node
+        # injection, plus the raw segment features when they are not
+        # already part of it
+        first_in = node_injection + (0 if use_node_hf else num_hf_segment)
+    else:
+        first_in = node_injection + point_mlp[-1]
+    down_in_mlp = [[first_in if i == 0 else node_injection + down_dim[i - 1]]
+                   + [d] * depth for i, d in enumerate(down_dim)]
     up_in_mlp = []
     for i, d in enumerate(up_dim):
         prev = down_dim[-1] if i == 0 else up_dim[i - 1]
@@ -303,9 +334,9 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
     in_rpe_dim = h_edge_mlp_out if h_edge_mlp else num_hf_edge
 
     return SPT(
-        point_mlp=[num_hf_point + 3 * use_pos + use_diam_p]
-        + list(m['_point_mlp']),
-        down_dim=down_dim, down_in_mlp=down_in_mlp,
+        point_mlp=(None if nano else [num_hf_point + 3 * use_pos
+                                      + use_diam_p] + list(point_mlp)),
+        nano=nano, down_dim=down_dim, down_in_mlp=down_in_mlp,
         down_num_heads=int(net['down_num_heads']),
         down_num_blocks=int(net['down_num_blocks']),
         down_ffn_ratio=float(net['down_ffn_ratio']),

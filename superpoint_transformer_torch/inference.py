@@ -11,13 +11,15 @@ import time
 import numpy as np
 import torch
 
+from .data.nag import NAG
 from .data.pad import pad_nag
 from .data.padded import from_numpy
 from .transforms.prepare import BatchConfig, batch_signature, process_batch
 from .transforms.preprocess import preprocess_cloud
 
 __all__ = ['EVAL_BATCH_OVERRIDES', 'tile_cloud', 'level1_node_id',
-           'to_nag_order', 'infer_batch', 'infer_nag', 'e2e_inference']
+           'to_nag_order', 'infer_batch', 'infer_nag', 'e2e_inference',
+           'without_level0']
 
 # whole-tile evaluation: no cropping/subsampling, no augmentation
 EVAL_BATCH_OVERRIDES = dict(sample_graph_r=-1, sample_segment_ratio=0,
@@ -103,10 +105,15 @@ def _add(timings, key, t0):
         timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
 
 
+def without_level0(nag):
+    """`nag` as a nano model reads it: its levels from 1 up
+    (start_i_level 1), as nano datasets load their clouds (low=1)."""
+    return NAG([nag[i] for i in nag.levels[1:]], start_i_level=1)
+
+
 def _pad_eval(big, cfg):
     """Pad a transform-complete NAG for an inference forward (no
-    transpose neighbor tables: only the JAX training backward reads
-    them)."""
+    transpose neighbor tables: only a training backward reads them)."""
     return pad_nag(big, num_classes=cfg.num_classes,
                    node_caps=cfg.node_caps, k_caps=cfg.k_caps,
                    k_in_caps=cfg.k_in_caps, bucket_mode=cfg.bucket_mode,
@@ -133,7 +140,8 @@ def _forward_level1(model, host, device, compute_dtype, timings=None):
 
 def infer_nag(model, nag, cfg, fetch='argmax', timings=None):
     """Whole-tile forward on a preprocessed NAG: the level-1 prediction
-    as host numpy, aligned with `nag[1]` rows. `fetch='argmax'` returns
+    as host numpy, aligned with `nag[1]` rows. A nano model takes a NAG
+    without level 0 and a `cfg` with `nano` set. `fetch='argmax'` returns
     [N1] int64 classes, `fetch='logits'` the [N1, C] f32 logits. `cfg` (a
     `BatchConfig`) may pin node_caps/k_caps so that repeated tiles share
     one padded shape. The batch goes to the device of the model's
@@ -158,6 +166,10 @@ def e2e_inference(model, data, pre_cfg=None, batch_cfg=None, tiling=None,
                   verbose=False):
     """Raw cloud -> full-resolution semantic predictions, end to end,
     on the device of the model's parameters.
+
+    A nano `batch_cfg` (`nano` set) batches each tile's NAG without
+    level 0 (`without_level0`); level 0 still maps the predictions back
+    to the raw points.
 
     Phases (all timed; `info['timings_sec']` reports each, in seconds):
       tile        xy split of the raw cloud
@@ -197,7 +209,8 @@ def e2e_inference(model, data, pre_cfg=None, batch_cfg=None, tiling=None,
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(batch_cfg, **EVAL_BATCH_OVERRIDES)
-    bigs = [process_batch([nag], cfg, train=False) for nag in nags]
+    bigs = [process_batch([without_level0(nag) if cfg.nano else nag], cfg,
+                          train=False) for nag in nags]
     t['transform'] = time.perf_counter() - t0
 
     # one shared padded signature across all tiles

@@ -26,6 +26,8 @@ def confusion_matrix_from_histogram(pred, y_hist, num_classes,
         pred = pred.argmax(1)
     cm = torch.zeros((num_classes, num_classes), dtype=torch.float32,
                      device=y.device)
+    # float atomics, yet reproducible: every summand is an integer and
+    # every partial sum stays below 2^24, so each addition is exact
     cm.index_add_(1, pred, y.t())
     return cm.round().to(torch.int64)
 

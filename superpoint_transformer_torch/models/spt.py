@@ -5,21 +5,26 @@ them, and the stages raise on any other value): a U-Net over
 the NAG hierarchy. PointStage encodes level-0 points; DownNFuseStages
 pool and self-attend over superpoint levels 1..L; UpNFuseStages decode
 back with skip connections; handcrafted node and horizontal-edge
-features are MLP-encoded per level before use.
+features are MLP-encoded per level before use. A nano SPT (`nano=True`,
+on a NAG without level 0) has no PointStage: its first stage is a
+transformer `Stage` on level 1 with the first down widths, and its
+encoder and decoder start one level higher.
 
 Consumes a `PaddedNAG` of tensors (`data/padded.py`).
 """
 from torch import nn
 
 from ..nn.mlp import MLP
-from ..nn.stage import (DownNFuseStage, UpNFuseStage, PointStage, _cat)
+from ..nn.stage import (DownNFuseStage, UpNFuseStage, PointStage, Stage,
+                        _cat)
 
 __all__ = ['SPT']
 
 
 class SPT(nn.Module):
 
-    def __init__(self, point_mlp, point_drop=None, down_dim=(64, 64),
+    def __init__(self, point_mlp, nano=False, point_drop=None,
+                 down_dim=(64, 64),
                  down_in_mlp=(), down_out_mlp=None, down_mlp_drop=None,
                  down_num_heads=16, down_num_blocks=3, down_ffn_ratio=1,
                  down_residual_drop=None, down_attn_drop=None,
@@ -43,6 +48,7 @@ class SPT(nn.Module):
         if not pre_norm:
             raise NotImplementedError('post-norm blocks are not ported')
         self.down_dim, self.up_dim = tuple(down_dim), tuple(up_dim)
+        self.nano = bool(nano)
         self.use_node_hf = use_node_hf
         self.num_graphs = num_graphs
         self.compute_dtype = compute_dtype
@@ -67,18 +73,23 @@ class SPT(nn.Module):
             use_diameter_parent=use_diameter_parent, num_graphs=num_graphs,
             compute_dtype=compute_dtype, plain_attention=plain_attention,
             device=device)
-        self.first_stage = PointStage(
-            point_mlp[-1], num_blocks=0, in_mlp=tuple(point_mlp),
-            mlp_drop=point_drop, **shared)
-        for i in range(num_down):
+        down = [dict(
+            num_blocks=down_num_blocks, num_heads=down_num_heads,
+            in_mlp=tuple(down_in_mlp[j]),
+            out_mlp=(tuple(down_out_mlp[j]) if down_out_mlp else None),
+            ffn_ratio=down_ffn_ratio, mlp_drop=down_mlp_drop,
+            residual_drop=down_residual_drop, attn_drop=down_attn_drop,
+            drop_path=down_drop_path, **shared) for j in range(num_down)]
+        if self.nano:
+            self.first_stage = Stage(down_dim[0], **down[0])
+        else:
+            self.first_stage = PointStage(
+                point_mlp[-1], num_blocks=0, in_mlp=tuple(point_mlp),
+                mlp_drop=point_drop, **shared)
+        for i in range(self.num_down_stages):
+            j = i + self.nano
             self.add_module(f'down_stage_{i}', DownNFuseStage(
-                down_dim[i], num_blocks=down_num_blocks,
-                num_heads=down_num_heads, in_mlp=tuple(down_in_mlp[i]),
-                out_mlp=(tuple(down_out_mlp[i]) if down_out_mlp else None),
-                ffn_ratio=down_ffn_ratio, mlp_drop=down_mlp_drop,
-                residual_drop=down_residual_drop, attn_drop=down_attn_drop,
-                drop_path=down_drop_path, pool=pool, fusion=fusion,
-                **shared))
+                down_dim[j], pool=pool, fusion=fusion, **down[j]))
         for i in range(len(up_dim)):
             self.add_module(f'up_stage_{i}', UpNFuseStage(
                 up_dim[i], num_blocks=up_num_blocks,
@@ -89,22 +100,29 @@ class SPT(nn.Module):
                 drop_path=up_drop_path, fusion=fusion, **shared))
 
     @property
+    def num_down_stages(self):
+        return len(self.down_dim) - self.nano
+
+    @property
     def out_dim(self):
         """Output width of each returned level, low to high."""
         ups = [getattr(self, f'up_stage_{i}').out_dim
                for i in range(len(self.up_dim))]
         last_down = getattr(
-            self, f'down_stage_{len(self.down_dim) - 1}').out_dim
+            self, f'down_stage_{self.num_down_stages - 1}').out_dim
         return ups[::-1] + [last_down]
 
     def forward(self, nag):
-        if nag.start_i_level != 0:
-            raise NotImplementedError('nano SPT (no level 0) is not ported')
-        num_down = len(self.down_dim)
+        if int(self.nano) != nag.start_i_level:
+            raise ValueError(
+                f'nano={self.nano} must match the NAG\'s start level '
+                f'{nag.start_i_level}')
+        start, nano = nag.start_i_level, int(self.nano)
+        num_down = self.num_down_stages
 
         # ---- per-level handcrafted-feature MLPs ------------------------
         xs, efs = {}, {}
-        for i_stage in range(num_down):
+        for i_stage in range(num_down + nano):
             i_level = i_stage + 1
             lvl = nag[i_level]
             ni = lvl.batch
@@ -125,17 +143,28 @@ class SPT(nn.Module):
             efs[i_level] = ef
 
         # ---- first stage -------------------------------------------------
-        lvl0 = nag[0]
-        x, diameter = self.first_stage(
-            lvl0.x if self.use_node_hf else None, lvl0.batch, pos=lvl0.pos,
-            node_size=lvl0.node_size, super_index=lvl0.super_index,
-            num_super=nag[1].capacity, mask=lvl0.node_mask)
-        diameters = {1: diameter}
+        lvl0 = nag[start]
+        if nano:
+            # level 1 attends with the first down widths (no pooling)
+            x, diameter = self.first_stage(
+                xs[1], lvl0.batch, pos=lvl0.pos, node_size=lvl0.node_size,
+                super_index=lvl0.super_index,
+                num_super=nag[start + 1].capacity, nbr_idx=lvl0.nbr_idx,
+                nbr_mask=lvl0.nbr_mask, edge_feat=efs.get(1),
+                mask=lvl0.node_mask, nbr_in_idx=lvl0.nbr_in_idx,
+                nbr_in_mask=lvl0.nbr_in_mask)
+        else:
+            x, diameter = self.first_stage(
+                lvl0.x if self.use_node_hf else None, lvl0.batch,
+                pos=lvl0.pos, node_size=lvl0.node_size,
+                super_index=lvl0.super_index,
+                num_super=nag[start + 1].capacity, mask=lvl0.node_mask)
+        diameters = {start + 1: diameter}
 
         # ---- encoder -----------------------------------------------------
-        down_outputs = []
+        down_outputs = [x] if nano else []
         for i_stage in range(num_down):
-            i_level = i_stage + 1
+            i_level = i_stage + 1 + nano
             lvl, child = nag[i_level], nag[i_level - 1]
             is_last = i_level == nag.end_i_level
             x, diameter = getattr(self, f'down_stage_{i_stage}')(
@@ -146,7 +175,8 @@ class SPT(nn.Module):
                 super_index=None if is_last else lvl.super_index,
                 num_super=None if is_last else nag[i_level + 1].capacity,
                 nbr_idx=lvl.nbr_idx, nbr_mask=lvl.nbr_mask,
-                edge_feat=efs.get(i_level), mask=lvl.node_mask)
+                edge_feat=efs.get(i_level), mask=lvl.node_mask,
+                nbr_in_idx=lvl.nbr_in_idx, nbr_in_mask=lvl.nbr_in_mask)
             down_outputs.append(x)
             if not is_last:
                 diameters[i_level + 1] = diameter
@@ -154,7 +184,7 @@ class SPT(nn.Module):
         # ---- decoder -----------------------------------------------------
         up_outputs = []
         for i_stage in range(len(self.up_dim)):
-            i_level = num_down - i_stage - 1
+            i_level = num_down - i_stage - 1 + nano
             lvl = nag[i_level]
             x_skip = down_outputs[-(2 + i_stage)]
             x, _ = getattr(self, f'up_stage_{i_stage}')(
@@ -163,7 +193,8 @@ class SPT(nn.Module):
                 super_index=lvl.super_index,
                 num_super=nag[i_level + 1].capacity, nbr_idx=lvl.nbr_idx,
                 nbr_mask=lvl.nbr_mask, edge_feat=efs.get(i_level),
-                mask=lvl.node_mask)
+                mask=lvl.node_mask, nbr_in_idx=lvl.nbr_in_idx,
+                nbr_in_mask=lvl.nbr_in_mask)
             up_outputs.append(x)
 
         # features for levels 1..L (low to high)

@@ -3,8 +3,10 @@
 Counterpart of `superpoint_transformer_tpu/nn/attention.py` for the
 flagship RPE set (independent k/q/v encoders of the edge features): qkv
 projection in the compute dtype, one gather of the neighbors' joint k/v
-rows, attention, `out_proj` in the compute dtype, output in f32. The
-attention takes the JAX package's routes:
+rows (in training, with the transpose neighbor table when the batch
+carries it: `ops/gather.py:gather_rows_t`), attention, `out_proj` in the
+compute dtype, output in f32. The attention takes the JAX package's
+routes:
 
 - evaluation: the streaming RPE attention kernel K2
   (`ops/attention_rpe.py`), which computes the RPE projections itself;
@@ -23,6 +25,7 @@ from ..ops.attention import (dense_attention_reference,
                              dense_attention_trainable)
 from ..ops.attention_rpe import (dense_attention_rpe,
                                  dense_attention_rpe_reference)
+from ..ops.gather import gather_rows_t
 from ..ops.segment import gather_rows
 from .mlp import linear, resolve_dtype
 
@@ -76,12 +79,15 @@ class SelfAttentionBlock(nn.Module):
         self.v_rpe = nn.Linear(in_rpe_dim, C, device=device)
         self.out_proj = nn.Linear(C, C, device=device)
 
-    def forward(self, x, nbr_idx, nbr_mask, edge_feat=None):
+    def forward(self, x, nbr_idx, nbr_mask, edge_feat=None,
+                nbr_in_idx=None, nbr_in_mask=None):
         """
         :param x: [N, C] node features
         :param nbr_idx: [N, K] neighbor node ids (padded slots: 0)
         :param nbr_mask: [N, K] slot validity
         :param edge_feat: [N, K, De] edge features for the RPE
+        :param nbr_in_idx, nbr_in_mask: [N, K_in] transpose neighbor
+            table; in training the k/v gather's backward runs over it
         :return: [N, C] f32
         """
         if edge_feat is None:
@@ -94,9 +100,12 @@ class SelfAttentionBlock(nn.Module):
         DH, dt = H * D, self.dtype
         qkv = linear(self.qkv, x, dt)
         q = qkv[:, :DH].reshape(N, H, D).contiguous()
-        # one gather of the joint k/v rows; its backward sums each row's
-        # cotangents, the math of the JAX package's gather_rows_t
-        kvg = gather_rows(qkv[:, DH:], nbr_idx)            # [N, K, DH+C]
+        # one gather of the joint k/v rows
+        if self.training and nbr_in_idx is not None:
+            kvg = gather_rows_t(qkv[:, DH:], nbr_idx, nbr_in_idx,
+                                nbr_in_mask)               # [N, K, DH+C]
+        else:
+            kvg = gather_rows(qkv[:, DH:], nbr_idx)
         scale = qk_scale_from_degree(self.qk_scale, D, nbr_mask.sum(1))
         edge_feat = edge_feat.to(dt)
         rpe = (self.k_rpe, self.q_rpe, self.v_rpe)

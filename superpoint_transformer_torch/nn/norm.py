@@ -55,12 +55,14 @@ class GraphNorm(nn.Module):
 
 
 def unit_sphere_norm(pos, super_index, num_super, node_size=None,
-                     mask=None):
+                     mask=None, indices_are_sorted=False):
     """Normalize same-segment positions into a sphere of diameter 1.
 
     Returns (normalized pos [N, 3], per-segment diameter
     [num_super, 1]). Padded rows (mask False, or an out-of-range
-    `super_index`) contribute nothing."""
+    `super_index`) contribute nothing. `indices_are_sorted` says that
+    `super_index` is non-decreasing (a level sorted by parent, its
+    padded rows last)."""
     big = torch.finfo(pos.dtype).max
     if mask is not None:
         # exile padded rows so they never win the min or the max
@@ -83,7 +85,8 @@ def unit_sphere_norm(pos, super_index, num_super, node_size=None,
     if mask is not None:
         w = w * mask.to(w.dtype)
     sums = segment_sum(torch.cat([pos * w[:, None], w[:, None]], 1),
-                       super_index, num_super)
+                       super_index, num_super,
+                       indices_are_sorted=indices_are_sorted)
     center = sums[:, :3] / sums[:, 3].clamp(min=1e-12)[:, None]
     si = super_index.long().clamp(0, num_super - 1)
     out = (pos - center[si]) / (diameter[si][:, None] + 1e-2)

@@ -87,7 +87,8 @@ class Stage(nn.Module):
 
     def forward(self, x, norm_index, pos=None, diameter=None,
                 node_size=None, super_index=None, num_super=None,
-                nbr_idx=None, nbr_mask=None, edge_feat=None, mask=None):
+                nbr_idx=None, nbr_mask=None, edge_feat=None, mask=None,
+                nbr_in_idx=None, nbr_in_mask=None):
         """Returns (x [N, out_dim], diameter_parent [num_super, 1])."""
         N = (x if x is not None else pos).shape[0]
         dev = (x if x is not None else pos).device
@@ -98,8 +99,11 @@ class Stage(nn.Module):
                 si, ns = norm_index.clamp(min=0), self.num_graphs
             else:
                 si, ns = super_index, num_super
+            # a level is sorted by parent; graph ids with the padded
+            # rows' -1 clamped to 0 are not
             normalized_pos, diameter_parent = unit_sphere_norm(
-                pos, si, ns, node_size=node_size, mask=mask)
+                pos, si, ns, node_size=node_size, mask=mask,
+                indices_are_sorted=super_index is not None)
             if self.use_pos:
                 x = _cat(normalized_pos, x)
 
@@ -123,7 +127,8 @@ class Stage(nn.Module):
         for b in range(self.num_blocks):
             x = getattr(self, f'block_{b}')(
                 x, norm_index, nbr_idx=nbr_idx, nbr_mask=nbr_mask,
-                edge_feat=edge_feat, mask=mask)
+                edge_feat=edge_feat, mask=mask, nbr_in_idx=nbr_in_idx,
+                nbr_in_mask=nbr_in_mask)
         if hasattr(self, 'out_mlp'):
             x = self.out_mlp(x, batch=norm_index, mask=mask)
         if mask is not None and x is not None:

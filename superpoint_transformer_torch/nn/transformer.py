@@ -49,10 +49,12 @@ class TransformerBlock(nn.Module):
                            device=device)
 
     def forward(self, x, norm_index, nbr_idx=None, nbr_mask=None,
-                edge_feat=None, mask=None):
+                edge_feat=None, mask=None, nbr_in_idx=None,
+                nbr_in_mask=None):
         if hasattr(self, 'sa') and nbr_idx is not None:
             h = self.sa_norm(x, batch=norm_index, mask=mask)
-            x = x + self.sa(h, nbr_idx, nbr_mask, edge_feat)
+            x = x + self.sa(h, nbr_idx, nbr_mask, edge_feat,
+                            nbr_in_idx=nbr_in_idx, nbr_in_mask=nbr_in_mask)
         if hasattr(self, 'ffn'):
             x = x + self.ffn(self.ffn_norm(x, batch=norm_index, mask=mask))
         return x

@@ -4,7 +4,10 @@ The port's submodule names are the flax module names, so a flax path
 `net/down_stage_0/block_2/sa/qkv/kernel` is the `state_dict` key
 `net.down_stage_0.block_2.sa.qkv.weight`. A Dense `kernel` [in, out]
 becomes `Linear.weight` [out, in]; every other leaf (biases, the norms'
-`weight`, `bias`, `mean_scale`) maps straight across.
+`weight`, `bias`, `mean_scale`) maps straight across. Nano models follow
+the same rule: their `first_stage` is a transformer `Stage`
+(`first_stage.block_0.sa...`), and their `node_mlp_*` / `h_edge_mlp_*`
+run over one more level than their down stages.
 """
 from collections.abc import Mapping
 

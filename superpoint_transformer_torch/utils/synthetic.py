@@ -6,8 +6,8 @@ for the preprocessing path).
 `random_padded_nag` builds directly the padded batch that the JAX host
 path (`prepare_batch(..., device=False)`, i.e. `pad_nag` with the S3DIS
 feature layout) would produce for a 3-level NAG, without needing jax,
-flax or h5py. It keeps every invariant of `pad_nag` (with
-`with_transpose=False`):
+flax or h5py. It keeps every invariant of `pad_nag`, the transpose
+neighbor tables of levels 1 and 2 included:
 
 - each level is sorted by `super_index`, and graphs are contiguous;
 - padded rows have `batch == -1`, and padded children have
@@ -25,7 +25,7 @@ import numpy as np
 from ..data.csr import Cluster, InstanceData
 from ..data.data import Data
 from ..data.nag import NAG
-from ..data.pad import bucket
+from ..data.pad import bucket, transpose_neighbors
 from ..data.padded import PaddedLevel, PaddedNAG
 from ..ops.graph import _round_up
 
@@ -141,13 +141,17 @@ def random_padded_nag(seed=0, num_graphs=2, n_points=2048, n_l1=128,
                x=_pad(rng.random((n0, POINT_HF_DIM)).astype(np.float32),
                       cap0),
                super_index=_pad(sup0.astype(np.int32), cap0, cap1))
+    in1, im1 = transpose_neighbors(nbr1, m1)
+    in2, im2 = transpose_neighbors(nbr2, m2)
     l1 = level(pos1, b1, cap1, size1, _histogram(rng, size1, num_classes),
                super_index=_pad(sup1.astype(np.int32), cap1, cap2),
                nbr_idx=nbr1, nbr_mask=m1, edge_feat=ef1,
+               nbr_in_idx=in1, nbr_in_mask=im1,
                node_id=_pad(rng.permutation(n1).astype(np.int32), cap1,
                             -1))
     l2 = level(pos2, b2, cap2, size2, _histogram(rng, size2, num_classes),
-               nbr_idx=nbr2, nbr_mask=m2, edge_feat=ef2)
+               nbr_idx=nbr2, nbr_mask=m2, edge_feat=ef2, nbr_in_idx=in2,
+               nbr_in_mask=im2)
     return PaddedNAG(levels=(l0, l1, l2), start_i_level=0, num_graphs=G)
 
 

@@ -126,8 +126,6 @@ def _rehearse_on_the_cpu(monkeypatch):
     from superpoint_transformer_torch.ops import attention, attention_rpe
     monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
     monkeypatch.setattr(chip_smoke, 'settle', lambda: None)
-    # one repeat for the run-to-run spread: the CPU repeats itself
-    monkeypatch.setattr(chip_smoke, 'SPREAD_RUNS', 1)
     monkeypatch.setattr(chip_smoke, 'profiled_fit',
                         lambda: contextlib.nullcontext({}))
     for name, kernel in (('dense_attention_rpe',
@@ -188,3 +186,47 @@ def test_fit_phase_rehearsal_on_the_cpu(monkeypatch):
     # 2 validations of 2 areas, 2 evaluations of them, 3 TTA passes of
     # the test area (7 K2 each)
     assert out == {'K1': 7 * (4 + 0), 'K2': 7 * (4 + 4 + 3)}
+
+
+def test_nano_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
+    """`phase_nano` end to end on the CPU after a 1-epoch `phase_fit` on
+    tiny rooms (whose raw files the nano datasets read again, from level
+    1 up), with 2 tiny panoptic rooms preprocessed as the panoptic phase
+    preprocesses them (instances, segment means): serving, training
+    steps, the panoptic nano evaluation and step, train and evaluate;
+    the card-only calls and the timings stubbed."""
+    import tempfile
+    import torch
+    from superpoint_transformer_torch.experiment import NANO_CFG
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    _rehearse_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, 'cuda_ms', lambda fn, iters, warmup=3:
+                        (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, 'time_on_path', lambda name, args: (
+        1.0, 1.0, 1.0, 'bytes', {'N': args[0].shape[0]}, {}))
+    pan = []
+    for seed in range(2):
+        raw = synthetic_room_cloud(seed=seed, n_points=3_000)
+        raw['obj'] = chip_smoke.room_instances(raw)
+        pan.append(preprocess_cloud(
+            raw, voxel=0.1, knn=12, knn_r=1.0, with_instances=True,
+            segment_mean_hf=NANO_CFG['datamodule']['segment_mean_hf']))
+    dev = torch.device('cpu')
+    rooms = tempfile.TemporaryDirectory(dir=tmp_path)
+    try:
+        chip_smoke.phase_fit(dev, 'cpu', room_points=3_000, epochs=1,
+                             tmp=rooms)
+        out, timing = chip_smoke.phase_nano(dev, 'cpu', rooms, pan)
+    finally:
+        torch.set_num_threads(threads)
+        rooms.cleanup()
+    # 7 K2 a forward: 3 requests, the panoptic evaluation, the
+    # validation of 2 areas and their evaluation; 7 K1 a step: 2 train
+    # steps, the panoptic step and 2 fit steps
+    assert out == {'K1': 7 * (2 + 1 + 2), 'K2': 7 * (3 + 1 + 2 + 2)}
+    assert set(timing) == {'K1', 'K2'}

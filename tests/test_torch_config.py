@@ -1,7 +1,8 @@
 """The port's config composition vs the JAX package's: `load_config`
 gives the same plain dict for every experiment file, for `eval.yaml`
-and with CLI overrides; `FLAGSHIP_CFG`, `PANOPTIC_CFG` and EZ-SP's two
-configs (`EZSP_PARTITION_CFG`, `EZSP_CFG`) equal the
+and with CLI overrides; `FLAGSHIP_CFG`, `PANOPTIC_CFG`, EZ-SP's two
+configs (`EZSP_PARTITION_CFG`, `EZSP_CFG`) and nano's two (`NANO_CFG`,
+`PANOPTIC_NANO_CFG`) equal the
 composed YAML on every key they hold. Exact equality (no tolerance: the
 values are parsed, not computed)."""
 import glob
@@ -14,7 +15,9 @@ from superpoint_transformer_torch.config import Config, load_config
 from superpoint_transformer_torch.experiment import (EZSP_CFG,
                                                      EZSP_PARTITION_CFG,
                                                      FLAGSHIP_CFG,
+                                                     NANO_CFG,
                                                      PANOPTIC_CFG,
+                                                     PANOPTIC_NANO_CFG,
                                                      build_task)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,12 +86,15 @@ def test_overrides_and_references_as_in_jax():
     ('flagship', FLAGSHIP_CFG, 'semantic/s3dis'),
     ('panoptic', PANOPTIC_CFG, 'panoptic/s3dis'),
     ('ezsp_partition', EZSP_PARTITION_CFG, 'partition/s3dis_ezsp'),
-    ('ezsp', EZSP_CFG, 'semantic/s3dis_ezsp')],
-    ids=['flagship', 'panoptic', 'ezsp_partition', 'ezsp'])
+    ('ezsp', EZSP_CFG, 'semantic/s3dis_ezsp'),
+    ('nano', NANO_CFG, 'semantic/s3dis_nano'),
+    ('panoptic_nano', PANOPTIC_NANO_CFG, 'panoptic/s3dis_nano')],
+    ids=['flagship', 'panoptic', 'ezsp_partition', 'ezsp', 'nano',
+         'panoptic_nano'])
 def test_builtin_cfg_equals_the_composed_yaml(name, cfg, experiment):
     """Every key that the build functions, the datasets and the Trainer
     read from FLAGSHIP_CFG / PANOPTIC_CFG / EZSP_PARTITION_CFG / EZSP_CFG
-    is the port's loader's value."""
+    / NANO_CFG / PANOPTIC_NANO_CFG is the port's loader's value."""
     composed = load_config(CONFIGS, 'train', [f'experiment={experiment}'])
     leaves = dict(_leaves(cfg))
     # the datamodule, the trainer and the run keys are held too

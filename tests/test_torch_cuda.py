@@ -92,8 +92,11 @@ def _inputs(dev, dtype, N, K, H, D, C, De, masked_rows, seed=0):
     dict(N=1000, K=37, H=4, D=4, C=32, De=8, masked_rows=7),
     dict(N=10_240, K=48, H=16, D=4, C=64, De=32, masked_rows=100),
     dict(N=1024, K=160, H=16, D=4, C=64, De=32, masked_rows=50),
-    dict(N=2048, K=50, H=16, D=4, C=64, De=32, masked_rows=50)],
-    ids=['ragged', 'flagship', 'wide_k', 'k50'])
+    dict(N=2048, K=50, H=16, D=4, C=64, De=32, masked_rows=50),
+    # nano-2's widths: H*D = C = 32, De = 16 (one k-step of the RPE
+    # projection, 4 column tiles a lane)
+    dict(N=8192, K=48, H=8, D=4, C=32, De=16, masked_rows=100)],
+    ids=['ragged', 'flagship', 'wide_k', 'k50', 'nano'])
 def test_kernel_matches_plain(cuda_device, dtype, shape):
     args = _inputs(cuda_device, dtype, **shape)
     before = dense_attention_rpe.launches
@@ -152,7 +155,9 @@ def _k1_inputs(dev, dtype, N, K, H, D, CH, q_per_edge, masked_rows, seed=0):
 K1_SHAPES = [dict(N=1000, K=37, H=4, D=4, CH=8, masked_rows=7),
              dict(N=5120, K=48, H=16, D=4, CH=4, masked_rows=100),
              dict(N=1024, K=160, H=16, D=4, CH=4, masked_rows=50),
-             dict(N=2048, K=50, H=16, D=4, CH=4, masked_rows=50)]
+             dict(N=2048, K=50, H=16, D=4, CH=4, masked_rows=50),
+             # nano-2's training attention: 8 heads of 4 channels
+             dict(N=4096, K=48, H=8, D=4, CH=4, masked_rows=100)]
 
 
 @pytest.mark.cuda
@@ -160,7 +165,7 @@ K1_SHAPES = [dict(N=1000, K=37, H=4, D=4, CH=8, masked_rows=7),
 @pytest.mark.parametrize('q_per_edge', [False, True],
                          ids=['q_node', 'q_edge'])
 @pytest.mark.parametrize('shape', K1_SHAPES,
-                         ids=['ragged', 'flagship', 'wide_k', 'k50'])
+                         ids=['ragged', 'flagship', 'wide_k', 'k50', 'nano'])
 def test_k1_kernel_matches_plain(cuda_device, dtype, q_per_edge, shape):
     args = _k1_inputs(cuda_device, dtype, q_per_edge=q_per_edge, **shape)
     before = dense_attention.launches
@@ -408,3 +413,77 @@ def test_kernels_launch_after_a_smaller_shape(cuda_device):
         torch.testing.assert_close(dense_attention_rpe(*args),
                                    dense_attention_rpe_reference(*args),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_flagship_forward_and_step_repeat_bit_for_bit(cuda_device):
+    """The flagship model on the card, run twice on the same batch: the
+    same logits, and a training step's loss and every gradient the same
+    (no float atomics on the forward or the step)."""
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (
+        FLAGSHIP_CFG, build_model, build_task)
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+    host = random_padded_nag(seed=0, num_graphs=2, n_points=20_000,
+                             n_l1=1_200, n_l2=300)
+    model = SemanticSegmentationModel(build_model(
+        FLAGSHIP_CFG, num_graphs=2, device=cuda_device), 13)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.eval()
+    batch = from_numpy(host, cuda_device, model.net.compute_dtype)
+    with torch.inference_mode():
+        a, b = model(batch), model(batch)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    task = build_task(FLAGSHIP_CFG, num_graphs=2, device=cuda_device)
+    init_weights(task.model, torch.Generator().manual_seed(0))
+    tb = from_numpy(host, cuda_device, model.net.compute_dtype, train=True)
+    assert tb[1].nbr_in_idx is not None
+    runs = []
+    for _ in range(2):
+        task.model.train()
+        task.optimizer.zero_grad(set_to_none=True)
+        loss, _ = task.loss(tb)
+        loss.backward()
+        runs.append((loss.detach(), [p.grad.clone() for p in
+                                     task.model.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(x, y) for x, y in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['onehot', 'sorted', 'unsorted',
+                                  'gather'])
+def test_segment_sums_on_the_card_match_the_cpu_and_repeat(cuda_device,
+                                                           case):
+    """The float segment sums and the gathers' backward on the card: the
+    CPU's values within f32 rounding, bit-equal in two runs, with long
+    runs of padded rows on both sides (never read by the sorted
+    reduction)."""
+    from superpoint_transformer_torch.ops.segment import (gather_rows,
+                                                          segment_sum)
+    rng = np.random.default_rng(7)
+    n, g = (300_000, 64) if case == 'onehot' else (200_000, 3_000)
+    idx = np.sort(rng.integers(0, g, n))
+    idx[:1000], idx[n - 150_000:] = -1, g
+    if case in ('unsorted', 'gather'):
+        idx = rng.permutation(np.clip(idx, 0, g - 1) if case == 'gather'
+                              else idx)
+    x = rng.standard_normal((n, 8)).astype(np.float32)
+    runs = []
+    for dev in (torch.device('cpu'), cuda_device, cuda_device):
+        i = torch.from_numpy(idx).to(dev)
+        if case == 'gather':
+            t = torch.from_numpy(x[:g]).to(dev).requires_grad_()
+            gather_rows(t, i).backward(torch.from_numpy(x).to(dev))
+            runs.append(t.grad.cpu())
+        else:
+            runs.append(segment_sum(
+                torch.from_numpy(x).to(dev), i, g,
+                indices_are_sorted=case == 'sorted').cpu())
+    torch.testing.assert_close(runs[1], runs[0], rtol=1e-5, atol=1e-4)
+    assert torch.equal(runs[1], runs[2])

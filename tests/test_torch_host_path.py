@@ -164,6 +164,26 @@ def test_prepare_batch_to_a_device(rooms):
                                   host.levels[1].node_id)
 
 
+def test_prepare_batch_to_a_device_for_training(rooms):
+    """A training batch carries the label histograms and the transpose
+    neighbor tables to the device (the k/v gathers' backward reads
+    them), bit-equal to the host batch's."""
+    cfg = tprep.BatchConfig()
+    host = tprep.prepare_batch([rooms[1]], cfg, train=True,
+                               rng=np.random.default_rng(0))
+    dev = tprep.prepare_batch([rooms[1]], cfg, train=True,
+                              rng=np.random.default_rng(0), device='cpu')
+    for i, (h, d) in enumerate(zip(host.levels, dev.levels)):
+        assert d.y is not None
+        if i == 0:
+            assert d.nbr_in_idx is None
+            continue
+        for name in ('nbr_idx', 'nbr_in_idx', 'nbr_in_mask'):
+            np.testing.assert_array_equal(getattr(d, name).numpy(),
+                                          getattr(h, name))
+        assert d.nbr_in_idx.dtype == torch.int64
+
+
 def test_batch_signature_and_discover_caps_match_jax(rooms):
     def run(mod):
         cfg = dataclasses.replace(mod.BatchConfig(),

@@ -1,7 +1,8 @@
 """`random_padded_nag` (numpy only) vs the batch the JAX host path
-makes: the same fields, dtypes and trailing widths, and the padding
-invariants of `pad_nag`; and `from_numpy` gives both the same
-inference batch layout."""
+makes: the same fields (the transpose neighbor tables included), dtypes
+and trailing widths, and the padding invariants of `pad_nag`; and
+`from_numpy` gives both the same inference and training batch
+layouts."""
 import dataclasses
 
 import numpy as np
@@ -14,10 +15,6 @@ from superpoint_transformer_tpu.utils.synthetic import random_nag
 from superpoint_transformer_torch.data.pad import bucket
 from superpoint_transformer_torch.data.padded import PaddedLevel, from_numpy
 from superpoint_transformer_torch.utils.synthetic import random_padded_nag
-
-# built only for the training backward (with_transpose=True)
-_TRANSPOSE = {'nbr_in_idx', 'nbr_in_mask'}
-
 
 @pytest.fixture(scope='module')
 def host():
@@ -43,12 +40,14 @@ def test_same_fields_dtypes_and_widths(host, synth):
     assert host.start_i_level == synth.start_i_level == 0
     for h, s in zip(host.levels, synth.levels):
         hf, sf = _fields(h), _fields(s)
-        assert set(sf) == set(hf) - _TRANSPOSE
+        assert set(sf) == set(hf)
         for name, a in sf.items():
             b = hf[name]
             assert np.asarray(a).dtype == np.asarray(b).dtype, name
-            # K (axis 1 of the neighbor tables) depends on the graph
-            skip = 2 if name in ('nbr_idx', 'nbr_mask', 'edge_feat') else 1
+            # K and K_in (axis 1 of the neighbor tables) depend on the
+            # graph
+            skip = 2 if name in ('nbr_idx', 'nbr_mask', 'edge_feat',
+                                 'nbr_in_idx', 'nbr_in_mask') else 1
             assert np.shape(a)[skip:] == np.shape(b)[skip:], name
     assert synth.levels[0].x.shape[1] == 8
     assert synth.levels[1].edge_feat.shape[2] == 18
@@ -99,6 +98,15 @@ def _check_invariants(synth):
             assert np.all(lvl.batch[idx[:n]][m[:n]] ==
                           np.repeat(b, m[:n].sum(1)))
             assert np.all(lvl.edge_feat[np.arange(n), 0] == 0)
+            # the transpose table lists each valid slot once, under the
+            # node it points at
+            ii, im = lvl.nbr_in_idx, lvl.nbr_in_mask
+            assert ii.shape[0] == cap and ii.shape[1] % 16 == 0
+            assert np.all(ii[~im] == 0)
+            assert np.array_equal(np.sort(ii[im]),
+                                  np.flatnonzero(m.reshape(-1)))
+            assert np.all(idx.reshape(-1)[ii[im]] ==
+                          np.nonzero(im)[0])
     nid = levels[1].node_id
     n1 = int(levels[1].num_nodes)
     assert np.array_equal(np.sort(nid[:n1]), np.arange(n1))
@@ -120,14 +128,27 @@ def test_serving_size_shape():
 
 @pytest.mark.parametrize('compute_dtype', [None, 'bfloat16'])
 def test_from_numpy_same_layout_for_both(host, synth, compute_dtype):
+    _same_layout(host, synth, compute_dtype, train=False)
+
+
+@pytest.mark.parametrize('compute_dtype', [None, 'bfloat16'])
+def test_from_numpy_same_training_layout_for_both(host, synth,
+                                                  compute_dtype):
+    _same_layout(host, synth, compute_dtype, train=True)
+
+
+def _same_layout(host, synth, compute_dtype, train):
     feat = torch.bfloat16 if compute_dtype else torch.float32
-    a = from_numpy(host, 'cpu', compute_dtype)
-    b = from_numpy(synth, 'cpu', compute_dtype)
+    a = from_numpy(host, 'cpu', compute_dtype, train=train)
+    b = from_numpy(synth, 'cpu', compute_dtype, train=train)
     assert a.level1_node_id is not None and b.level1_node_id is not None
-    for la, lb in zip(a.levels, b.levels):
+    for i, (la, lb) in enumerate(zip(a.levels, b.levels)):
         fa, fb = _fields(la), _fields(lb)
         assert set(fa) == set(fb)
-        assert not {'y', 'node_id', 'nbr_in_idx', 'nbr_in_mask'} & set(fa)
+        assert 'node_id' not in fa
+        train_only = {'y'} | ({'nbr_in_idx', 'nbr_in_mask'} if i else set())
+        assert train_only <= set(fa) if train else \
+            not train_only & set(fa)
         for name, t in fa.items():
             if name == 'num_nodes':
                 assert isinstance(t, int)
