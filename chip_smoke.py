@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths with the flagship SPT-2 semantic model
-(S3DIS, bf16 compute, random weights from a seed), and checks every CUDA
-kernel on them against its plain PyTorch version:
+(S3DIS, bf16 compute, random weights from a seed), then nano-2 and SPT-3
+on the other datasets' readers, and checks every CUDA kernel on them
+against its plain PyTorch version:
 
 1. prints the card, its power limit and the toolchain;
 2. builds the kernels from the sources in this checkout, one nvcc each,
@@ -113,18 +114,36 @@ kernel on them against its plain PyTorch version:
    of their widest launches, and timed there against them (CUDA graph
    of 20 calls) with `kernel_cost`'s bound; the forward, request and
    step times;
-12. prints the kernel table as JSON (per kernel: its launches over every
+12. SPT-3 (3 down stages of 3 blocks, 2 up stages of 1, 64 channels, 16
+   heads, bf16; 11 K1 launches a step, 11 K2 a forward) on the DALES,
+   KITTI-360 and ScanNet readers, over synthetic raw files that the
+   port's writers put in each format, each dataset a path of its own:
+   dales (`experiment=semantic/dales`, MiniDALES's 6 tiles of 200k
+   points): `train(cfg, datasets)` for 2 epochs, `evaluate` from its
+   checkpoint (its mIoU the logged one), a 4-tile batch through
+   `infer_batch` (3 requests) and a raw tile through `e2e_inference`,
+   the forward and a step timed, K1 and K2 held and timed on the
+   arguments of their widest launches; kitti360 (`semantic/kitti360`, a
+   window of 200k points each for train and val): 1 epoch and
+   `evaluate`; scannet (`panoptic/scannet`, a scan of 100k vertices each
+   for train and val, instances from the aggregation files):
+   `validate_panoptic` of the validation scan with its grid search and
+   a `PanopticTask` step. On each path the logits of an evaluation batch
+   and a training step's loss and gradients are held to the plain
+   attention in f32 and bf16 at fixed limits, each run twice bit-equal,
+   and K1's backward on its widest launch (random cotangent);
+13. prints the kernel table as JSON (per kernel: its launches over every
    path and by path, max abs error, ms, plain_ms, library_ms, the bound
    from the bytes and FLOPs of `kernel_cost` and which of the two sets
    it, and the share of the bound reached; for K1 and K2 the same at
-   nano's shapes), the card line, and as the last line
-   `{"ok": true, "device": {...}}`.
+   nano's shapes and at SPT-3's, `spt3`), the card line, and as the last
+   line `{"ok": true, "device": {...}}`.
 
 Every model run on the card repeats itself bit for bit: each phase that
 compares the kernels with the plain attention first checks that the
 kernel model, run twice, gives equal logits, losses, gradients or
 embeddings, then holds the difference to a fixed limit. Each of the
-paths 4-11 runs with the kernel counts set to 0 just before it and read
+paths 4-12 runs with the kernel counts set to 0 just before it and read
 just after it. Any failed phase raises, so the script exits
 non-zero without printing the last line. It needs no network and fails
 without a CUDA device or outside a checkout of the repository.
@@ -185,7 +204,26 @@ TRAIN_TOL = {('flagship', None): (1e-4, 2e-2),
              ('panoptic', None): (1e-4, 7.5e-3),
              ('panoptic', 'bfloat16'): (2e-3, 0.15),
              ('nano', None): (1e-4, 2e-2),
-             ('nano', 'bfloat16'): (2e-3, 0.25)}
+             ('nano', 'bfloat16'): (2e-3, 0.25),
+             # SPT-3 on the dataset paths (the weights of SEED), set from
+             # `tools/spt3_bf16_step_cuda.py` over weight seeds 0-3 (an
+             # H100 80GB HBM3 at 700 W). f32: the kernels' step read
+             # 5.2e-6-7.9e-5 (dales, kitti360) and 1.3e-6-1.39e-3
+             # (scannet) from the plain attention's, where scaling K1's dk
+             # by 1.01 moves it 1.18e-2-2.13e-2 and 3.2e-3-3.9e-3. bf16:
+             # the kernels' step read 0.273-0.453 / 0.087-0.658 /
+             # 0.065-0.091 (loss 5e-5-5.35e-3) from the plain attention's.
+             # That is rounding: with the same forward, K1's closed-form
+             # backward lies 0.007-0.036 from autograd through the plain
+             # version, and moving the plain attention's f32 output by one
+             # unit in the last place moves its bf16 step 0.025-1.04. The
+             # bf16 limits sit above every reading of the kernels.
+             ('dales', None): (1e-4, 5e-3),
+             ('dales', 'bfloat16'): (1e-2, 0.75),
+             ('kitti360', None): (1e-4, 5e-3),
+             ('kitti360', 'bfloat16'): (1e-2, 0.75),
+             ('scannet', None): (1e-4, 2.5e-3),
+             ('scannet', 'bfloat16'): (2e-3, 0.15)}
 # whole model, kernel vs plain attention: in f32 the largest logit
 # difference and the argmax agreement (the parent's floor: the run-twice
 # agreement less 0.001, 0.99829-0.99890 on the flagship levels); in bf16
@@ -249,6 +287,22 @@ EZSP_STAGE1_EPOCHS = 2
 NANO_SERVE_ROOMS = 8
 EZSP_STAGE2_EPOCHS = 1
 EZSP_EMB_TOL = 2.5e-4
+# SPT-3 (experiment=semantic/dales, semantic/kitti360 and panoptic/
+# scannet: 3 down stages of 3 blocks, 2 up stages of 1, 64 channels, 16
+# heads, bf16) on synthetic raw files in each dataset's format. DALES:
+# MiniDALES's 6 tiles (2 train, 2 val, 2 test), each of 200k points over
+# 80 m x 50 m, ~50 points/m2, DALES's density and the aerial generator's
+# own; KITTI-360: a window each for train and val, the same generator at
+# the same size, with colours; ScanNet: a scan each for train and val of
+# 100k vertices, about a real scan's.
+SPT3_LAUNCHES = 11
+DALES_TILE_POINTS = 200_000
+AERIAL_EXTENT = (80.0, 50.0)
+DALES_EPOCHS = 2
+DALES_SERVE_TILES = 4
+KITTI360_WINDOW_POINTS = 200_000
+KITTI360_EPOCHS = 1
+SCANNET_SCAN_POINTS = 100_000
 
 
 def kernel_cost(name, N, K, H, D, C, De=0, elem=2, q_per_edge=True):
@@ -324,18 +378,19 @@ def logit_diff(a, b):
     return d.max().item(), d.mean().item(), agree.item()
 
 
-def hold_logits(label, kern, plain, batch, cd):
+def hold_logits(label, kern, plain, batch, cd, num_classes=13):
     """The logits of the model `kern` (the kernels) on `batch`: finite on
-    the valid rows of each level, equal in two runs, and within the fixed
-    limits of the compute dtype `cd` of the model `plain` (the same
-    weights on the plain attention). Returns the first run's logits."""
+    the valid rows of each level, `num_classes` wide, equal in two runs,
+    and within the fixed limits of the compute dtype `cd` of the model
+    `plain` (the same weights on the plain attention). Returns the first
+    run's logits."""
     import torch
     with torch.inference_mode():
         logits, again, ref = kern(batch), kern(batch), plain(batch)
     for i in range(len(logits)):
         lvl = batch[i + 1]
         lg, lg2, rf = (t[i][lvl.node_mask] for t in (logits, again, ref))
-        check(lg.shape == (lvl.num_nodes, 13)
+        check(lg.shape == (lvl.num_nodes, num_classes)
               and bool(torch.isfinite(lg).all()),
               f'{label}level {i + 1} logits: shape {tuple(lg.shape)} or not '
               'finite')
@@ -529,6 +584,46 @@ def hold_k1(label, args):
     return err
 
 
+def hold_k1_backward(label, args, gen):
+    """dq, dk, dv and dscale of K1's autograd function (kernel forward,
+    closed-form backward) vs autograd through the plain version on
+    `args`, under a random cotangent drawn from `gen`. The closed form
+    differentiates the attention without the forward's rounding of
+    q*scale (as the JAX backward does), so in bf16 it is held to autograd
+    of the plain version on the same values in f32, whose dq, dk, dv are
+    then rounded to bf16 once, as the closed form's are; dscale is f32
+    on both sides and held relative to its largest entry. Returns the
+    largest error of dq, dk, dv in f32 (0 in bf16; the model takes no
+    dscale)."""
+    import torch
+    from superpoint_transformer_torch.ops import attention as k1
+    q0, k0, v0, mask, scale0 = args
+    N, _, H, _ = k0.shape
+    w = torch.randn(N, H, v0.shape[3], generator=gen).to(k0.device)
+    grads = []
+    for fn, cast in ((k1.dense_attention_trainable, k0.dtype),
+                     (k1.dense_attention_reference, torch.float32)):
+        q, k, v = (a.to(cast, copy=True).requires_grad_()
+                   for a in (q0, k0, v0))
+        scale = scale0.clone().requires_grad_()
+        (fn(q, k, v, mask, scale) * w).sum().backward()
+        grads.append([t.grad.to(a.dtype) for t, a in
+                      zip((q, k, v, scale), (q0, k0, v0, scale0))])
+    print(f'K1 backward {label}:')
+    worst = 0.0
+    for gname, a, b in zip(('dq', 'dk', 'dv', 'dscale'), *grads):
+        tol = (BF16_GRAD_RTOL, BF16_GRAD_ATOL) \
+            if a.dtype == torch.bfloat16 else (K1_RTOL, K1_ATOL)
+        if gname == 'dscale':
+            # each row's sum over K*H*D products cancels: held relative
+            # to the largest entry
+            tol = (K1_RTOL, K1_ATOL + K1_RTOL * b.abs().max().item())
+        err = assert_close(gname, a, b, *tol)
+        if k0.dtype == torch.float32 and gname != 'dscale':
+            worst = max(worst, err)
+    return worst
+
+
 def phase_k1(dev):
     """K1 vs its plain version in both query layouts, f32 and bf16, at
     the flagship training level-1 shape, a ragged shape and a batch with
@@ -556,38 +651,14 @@ def phase_k1(dev):
                     f'{name} q_{"edge" if q_per_edge else "node"} {dtype} '
                     f'N={shape["N"]} K={shape["K"]}', args))
 
-    # the backward: dq, dk, dv and dscale of the autograd function vs
-    # autograd through the plain version, under a random cotangent. The
-    # closed form differentiates the attention without the forward's
-    # rounding of q*scale (as the JAX backward does), so in bf16 it is
-    # held to autograd of the plain version on the same values in f32,
-    # whose dq, dk, dv are then rounded to bf16 once, as the closed
-    # form's are.
+    # the backward (`hold_k1_backward`) at the flagship shape
     for dtype in (torch.float32, torch.bfloat16):
         for q_per_edge in (True, False):
             args = k1_inputs(gen, q_per_edge=q_per_edge, dtype=dtype,
                              dev=dev, masked_rows=64, **flagship)
-            w = torch.randn(flagship['N'], flagship['H'], flagship['CH'],
-                            generator=gen).to(dev)
-            grads = []
-            for fn, cast in ((k1.dense_attention_trainable, dtype),
-                             (k1.dense_attention_reference, torch.float32)):
-                q, k, v = (a.to(cast, copy=True).requires_grad_()
-                           for a in args[:3])
-                mask, scale = args[3], args[4].clone().requires_grad_()
-                (fn(q, k, v, mask, scale) * w).sum().backward()
-                grads.append([t.grad.to(a.dtype) for t, a in
-                              zip((q, k, v, scale), args)])
-            print(f'K1 backward q_{"edge" if q_per_edge else "node"} '
-                  f'{dtype} N={flagship["N"]}:')
-            for i, (gname, a, b) in enumerate(zip(('dq', 'dk', 'dv',
-                                                   'dscale'), *grads)):
-                bf16 = a.dtype == torch.bfloat16
-                err = assert_close(gname, a, b, *(
-                    (BF16_GRAD_RTOL, BF16_GRAD_ATOL) if bf16
-                    else (K1_RTOL, K1_ATOL)))
-                if not bf16:
-                    worst = max(worst, err)
+            worst = max(worst, hold_k1_backward(
+                f'q_{"edge" if q_per_edge else "node"} {dtype} '
+                f'N={flagship["N"]}', args, gen))
 
     # time at the flagship training level-1 shape, per-edge q, bf16
     args = k1_inputs(gen, q_per_edge=True, dtype=torch.bfloat16, dev=dev,
@@ -934,13 +1005,12 @@ def loss_grads(task, batch):
          .reshape(-1).float() for p in task.model.parameters()])
 
 
-def hold_train_step(path, kern, plain, batch, cd):
-    """One training step's loss and gradients of the task `kern` (the
-    kernels): the same in two runs, and within TRAIN_TOL[(path, cd)] of
-    `plain` (the same weights on the plain attention) in the compute
-    dtype `cd`."""
+def step_twice(label, kern, plain, batch, cd):
+    """(kernel loss, gradients), (plain loss, gradients) of one training
+    step of the tasks `kern` (the kernels) and `plain` (the same weights
+    on the plain attention) on `batch`; the kernel's the same in two
+    runs."""
     import torch
-    label = '' if path == 'flagship' else f'{path} '
     lk, gk = loss_grads(kern, batch)
     lk2, gk2 = loss_grads(kern, batch)
     lp, gp = loss_grads(plain, batch)
@@ -949,6 +1019,16 @@ def hold_train_step(path, kern, plain, batch, cd):
     check(torch.equal(lk, lk2) and torch.equal(gk, gk2),
           f'{label}{cd or "float32"} train step: the loss or the gradients '
           f'differ between two runs (max {twice:.3e})')
+    return (lk, gk), (lp, gp)
+
+
+def hold_train_step(path, kern, plain, batch, cd):
+    """One training step's loss and gradients of the task `kern` (the
+    kernels): the same in two runs, and within TRAIN_TOL[(path, cd)] of
+    `plain` (the same weights on the plain attention) in the compute
+    dtype `cd`. Returns the kernel's (loss, gradients)."""
+    label = '' if path == 'flagship' else f'{path} '
+    (lk, gk), (lp, gp) = step_twice(label, kern, plain, batch, cd)
     loss_err = (abs(lk - lp) / lp.abs()).item()
     grad_err = rel_l2(gk, gp)
     tol_loss, tol_grad = TRAIN_TOL[(path, cd)]
@@ -960,6 +1040,7 @@ def hold_train_step(path, kern, plain, batch, cd):
     check(loss_err <= tol_loss and grad_err <= tol_grad,
           f'{label}{cd or "float32"} train step: kernel vs plain beyond '
           f'{TRAIN_TOL[(path, cd)]}')
+    return lk, gk
 
 
 def phase_fused_rpe_training(dev):
@@ -1067,16 +1148,21 @@ def widest_call(name):
 def hold_on_path(name, args, path='host path'):
     """Hold kernel `name` ('K1' or 'K2') against its plain version on
     the arguments that the main path `path` gave it (`widest_call`), in
-    their dtype and cast to f32."""
+    their dtype and cast to f32; K1's backward too (`hold_k1_backward`,
+    under a random cotangent)."""
     import torch
     hold = {'K1': hold_k1, 'K2': hold_k2}[name]
     mask = next(a for a in args if a.dtype == torch.bool)
     variants = {args[0].dtype: args, torch.float32: [
         a.float() if a.is_floating_point() else a for a in args]}
-    with torch.inference_mode():
-        for dtype, cast in variants.items():
-            hold(f'{path} {dtype} N={mask.shape[0]} K={mask.shape[1]} '
-                 f'({int(mask.sum())} valid slots)', cast)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    for dtype, cast in variants.items():
+        label = (f'{path} {dtype} N={mask.shape[0]} K={mask.shape[1]} '
+                 f'({int(mask.sum())} valid slots)')
+        with torch.inference_mode():
+            hold(label, cast)
+        if name == 'K1':
+            hold_k1_backward(label, cast, gen)
 
 
 def device_profile(fn, iters=3):
@@ -1334,13 +1420,6 @@ def phase_host_path(dev, card):
     return {'K2': serve_launches, 'K1': train_launches}
 
 
-def room_instances(raw):
-    """Per-point instance ids of a synthetic room: two objects per class,
-    split at every metre of x (the recipe of tests/test_panoptic.py)."""
-    import numpy as np
-    return (raw.y * 2 + (raw.pos[:, 0] % 2 < 1)).astype(np.int64)
-
-
 class OracleTask:
     """A stand-in for a `PanopticTask` in `validate_panoptic`: its
     evaluation outputs are ground truth, not a model's. The level-1
@@ -1412,7 +1491,7 @@ def phase_panoptic(dev, card):
     from superpoint_transformer_torch.transforms.preprocess import (
         preprocess_cloud)
     from superpoint_transformer_torch.utils.synthetic import (
-        synthetic_room_cloud)
+        room_instances, synthetic_room_cloud)
 
     settle()
     dm = PANOPTIC_CFG['datamodule']
@@ -1653,61 +1732,85 @@ def write_s3dis_rooms(root, room_points, seed):
     return n
 
 
-# the partitions' stages of `preprocess_cloud`, timed per cloud
+# the partitions' stages of `preprocess_cloud`, timed per cloud, and the
+# other stages timed on the dataset paths
 PARTITION_STAGES = ('cut_pursuit_partition', 'pretrained_cnn_features',
                     'greedy_contour_prior_partition')
+PREPROCESS_STAGES = PARTITION_STAGES + ('knn_search', 'point_features',
+                                        'segment_features',
+                                        'radius_horizontal_graph')
+# every in-memory dataset's processed NAGs, and seconds per stage, by
+# processed path
+MEMORY_STORE, MEMORY_STAGE_S = {}, {}
 
 
 @functools.lru_cache(maxsize=None)
-def memory_s3dis():
-    """The port's S3DIS, whose processed NAGs stay in a dict (the card
-    machine has no h5py) and whose areas are those of FIT_AREAS:
-    reading the raw files, tiling and preprocessing are the port's own.
-    One class, so that the phases share the dict: a cloud preprocessed
-    under one configuration's hash is preprocessed once. `stage_s` holds
-    the seconds of each partition stage (PARTITION_STAGES) per cloud."""
-    from superpoint_transformer_torch.datasets import S3DIS
+def memory_class(cls):
+    """The port's dataset class `cls`, with its processed NAGs in
+    MEMORY_STORE (the card machine has no h5py): reading the raw files,
+    tiling and preprocessing are the port's own. The classes share the
+    dict, so that a cloud preprocessed under one configuration's hash is
+    preprocessed once; MEMORY_STAGE_S holds the seconds of each stage of
+    PREPROCESS_STAGES that ran, and of the whole ('total'), per cloud.
+    `split_ids` ({split: cloud ids}), where set, stands in for the
+    class's own split lists."""
     from superpoint_transformer_torch.inference import without_level0
     from superpoint_transformer_torch.transforms import preprocess
 
-    class MemoryS3DIS(S3DIS):
-        store = {}
-        stage_s = {}
+    class Memory(cls):
+        split_ids = None
 
         @property
         def all_cloud_ids(self):
-            train = [a for a in FIT_AREAS if a != f'Area_{self.fold}']
-            return {'train': train, 'val': train,
-                    'test': [f'Area_{self.fold}']}
+            return self.split_ids or super().all_cloud_ids
 
         def process(self):
             for c in self.cloud_ids:
                 key = self.processed_path(c)
-                if key not in self.store:
-                    with host_timers(preprocess, PARTITION_STAGES) as spent:
-                        self.store[key] = self.process_cloud(c)
-                    self.stage_s[key] = {k: v[0] for k, v in spent.items()
-                                         if v[1]}
+                if key not in MEMORY_STORE:
+                    t0 = time.perf_counter()
+                    with host_timers(preprocess, PREPROCESS_STAGES) as spent:
+                        MEMORY_STORE[key] = self.process_cloud(c)
+                    MEMORY_STAGE_S[key] = {k: v[0] for k, v in spent.items()
+                                           if v[1]}
+                    MEMORY_STAGE_S[key]['total'] = time.perf_counter() - t0
 
         def load(self, cloud_id):
-            nag = self.store[self.processed_path(cloud_id)]
+            nag = MEMORY_STORE[self.processed_path(cloud_id)]
             # nano datasets read their clouds from level 1 up
             return without_level0(nag) if self.nano else nag
 
-    return MemoryS3DIS
+    Memory.__name__ = f'Memory{cls.__name__}'
+    return Memory
 
 
-def memory_datasets(cfg):
-    """`build_datasets(cfg)` over the dict-backed S3DIS: it stands in for
-    the datasets package's S3DIS while the datasets are built."""
-    import superpoint_transformer_torch.datasets as datasets_pkg
+def memory_datasets(cfg, split_ids=None):
+    """`build_datasets(cfg)`, each dataset then of its class's in-memory
+    subclass (`memory_class`), with `split_ids` as its split lists where
+    given."""
     from superpoint_transformer_torch.experiment import build_datasets
-    port_s3dis = datasets_pkg.S3DIS
-    datasets_pkg.S3DIS = memory_s3dis()
-    try:
-        return build_datasets(cfg)
-    finally:
-        datasets_pkg.S3DIS = port_s3dis
+    datasets = build_datasets(cfg)
+    for ds in datasets.values():
+        ds.__class__ = memory_class(type(ds))
+        ds.split_ids = split_ids
+    return datasets
+
+
+def s3dis_datasets(cfg):
+    """`memory_datasets(cfg)` of an S3DIS configuration over the areas
+    that the fit phase writes (FIT_AREAS): the fold's area for testing,
+    the others for training and validation."""
+    test = f'Area_{int(cfg["datamodule"].get("fold", 5))}'
+    train = [a for a in FIT_AREAS if a != test]
+    return memory_datasets(cfg, {'train': train, 'val': train,
+                                 'test': [test]})
+
+
+def release(datasets):
+    """Drop the processed NAGs of `datasets` from MEMORY_STORE."""
+    for ds in datasets.values():
+        for key in ds.processed_paths:
+            MEMORY_STORE.pop(key, None)
 
 
 @contextlib.contextmanager
@@ -1788,14 +1891,14 @@ def phase_fit(dev, card, room_points=FIT_ROOM_POINTS, epochs=FIT_EPOCHS,
                        ('trainer.max_epochs', epochs),
                        ('trainer.check_val_every_n_epoch', 1)):
         cfg.set_path(key, value)
-    datasets = memory_datasets(cfg)
+    datasets = s3dis_datasets(cfg)
     t0 = time.perf_counter()
     for ds in datasets.values():
         ds.process()
     prep_s = time.perf_counter() - t0
     nodes = [[ds[i][j].num_nodes for j in ds[i].levels]
              for ds in datasets.values() for i in range(len(ds))]
-    cp_s = [round(memory_s3dis().stage_s[ds.processed_path(c)][
+    cp_s = [round(MEMORY_STAGE_S[ds.processed_path(c)][
         'cut_pursuit_partition'], 3) for ds in (datasets['train'],
                                                  datasets['test'])
         for c in ds.cloud_ids]
@@ -2045,9 +2148,8 @@ def phase_ezsp(dev, card, tmp, stage1_epochs=EZSP_STAGE1_EPOCHS):
     out1 = os.path.join(tmp.name, 'ezsp_stage1')
     cfg1 = config(EZSP_PARTITION_CFG, out1,
                   [('trainer.max_epochs', stage1_epochs)])
-    data1 = memory_datasets(cfg1)
-    store = memory_s3dis().store
-    n_stored = len(store)
+    data1 = s3dis_datasets(cfg1)
+    n_stored = len(MEMORY_STORE)
     fits = []
     fit_partition = trainer_mod.fit_partition
 
@@ -2066,8 +2168,8 @@ def phase_ezsp(dev, card, tmp, stage1_epochs=EZSP_STAGE1_EPOCHS):
     launches = counts()
     check(returned is None and len(fits) == 1,
           'ezsp stage 1: train() did not run fit_partition alone')
-    check(len(store) == n_stored, 'ezsp stage 1 preprocessed its clouds '
-          "again: its cache hash is not the fit phase's")
+    check(len(MEMORY_STORE) == n_stored, 'ezsp stage 1 preprocessed its '
+          "clouds again: its cache hash is not the fit phase's")
     check(not any(launches.values()),
           f'ezsp stage 1 launched attention kernels: {launches}')
     tr1 = fits[0]
@@ -2132,12 +2234,12 @@ def phase_ezsp(dev, card, tmp, stage1_epochs=EZSP_STAGE1_EPOCHS):
         ('datamodule.pretrained_cnn_ckpt_path', ckpt),
         ('trainer.max_epochs', EZSP_STAGE2_EPOCHS),
         ('trainer.check_val_every_n_epoch', 1)])
-    data2 = memory_datasets(cfg2)
+    data2 = s3dis_datasets(cfg2)
     t0 = time.perf_counter()
     for ds in data2.values():
         ds.process()
     prep_s = time.perf_counter() - t0
-    stage_s = memory_s3dis().stage_s
+    stage_s = MEMORY_STAGE_S
     n_cls = int(cfg2['datamodule']['num_classes'])
     cms = {'learned': np.zeros((n_cls, n_cls), np.int64),
            'cut pursuit': np.zeros((n_cls, n_cls), np.int64)}
@@ -2302,7 +2404,7 @@ def phase_nano(dev, card, tmp, pan_nags):
                        ('trainer.max_epochs', 1),
                        ('trainer.check_val_every_n_epoch', 1)):
         cfg.set_path(key, value)
-    datasets = memory_datasets(cfg)
+    datasets = s3dis_datasets(cfg)
     t0 = time.perf_counter()
     for ds in datasets.values():
         ds.process()
@@ -2493,6 +2595,445 @@ def phase_nano(dev, card, tmp, pan_nags):
             'K2': serve_launches + launches2['K2']}, timings
 
 
+def write_dataset_roots(root):
+    """Synthetic raw files in the DALES, KITTI-360 and ScanNet layouts
+    under `root`/<dataset>/raw, written with the port's writers; returns
+    {dataset: {cloud: raw points}} and the seconds it took."""
+    from superpoint_transformer_torch.datasets.dales import DALES_TILES
+    from superpoint_transformer_torch.utils import synthetic as syn
+    t0 = time.perf_counter()
+    raw = {'dales': {}, 'kitti360': {}, 'scannet': {}}
+    seed = SEED + 100
+    for split, tiles in DALES_TILES.items():
+        for tile in tiles[:2]:
+            cloud, planted = syn.synthetic_aerial_cloud(
+                seed=seed, n_points=DALES_TILE_POINTS, extent=AERIAL_EXTENT)
+            cloud['planted'] = planted
+            d = os.path.join(root, 'dales', 'raw')
+            os.makedirs(d, exist_ok=True)
+            syn.write_dales_tile(os.path.join(d, f'{tile}.ply'), cloud)
+            raw['dales'][tile] = cloud.num_nodes
+            seed += 1
+    for split, seq in (('train', '2013_05_28_drive_0000_sync'),
+                       ('val', '2013_05_28_drive_0002_sync')):
+        cloud, _ = syn.synthetic_aerial_cloud(
+            seed=seed, n_points=KITTI360_WINDOW_POINTS, extent=AERIAL_EXTENT)
+        d = os.path.join(root, 'kitti360', 'raw', 'data_3d_semantics', split,
+                         seq, 'static')
+        os.makedirs(d)
+        syn.write_kitti360_window(
+            os.path.join(d, '0000000002_0000000385.ply'), cloud)
+        raw['kitti360'][f'{seq}/0000000002_0000000385'] = cloud.num_nodes
+        seed += 1
+    for split, scan in (('train', 'scene0000_00'), ('val', 'scene0001_00')):
+        cloud = syn.synthetic_room_cloud(seed=seed,
+                                         n_points=SCANNET_SCAN_POINTS)
+        d = os.path.join(root, 'scannet', 'raw')
+        syn.write_scannet_scan(os.path.join(d, 'scans', scan), cloud)
+        with open(os.path.join(d, f'scannetv2_{split}.txt'), 'w') as f:
+            f.write(scan + '\n')
+        raw['scannet'][scan] = cloud.num_nodes
+        seed += 1
+    return raw, time.perf_counter() - t0
+
+
+def spt3_cfg(base, dev, data_dir, out, epochs=1, mini=False):
+    """`base` (a builtin SPT-3 config) as a `Config` for this run."""
+    import copy
+    from superpoint_transformer_torch.config.loader import _to_config
+    cfg = _to_config(copy.deepcopy(base))
+    for key, value in (('device', str(dev)), ('output_dir', out),
+                       ('datamodule.data_dir', data_dir),
+                       ('datamodule.mini', mini),
+                       ('trainer.max_epochs', epochs),
+                       ('trainer.check_val_every_n_epoch', 1)):
+        cfg.set_path(key, value)
+    return cfg
+
+
+def process_datasets(name, cfg, raw, card):
+    """Read and preprocess the clouds of `cfg`'s datasets (in memory);
+    prints the seconds per 1M raw points, by stage, and the nodes per
+    level; returns the datasets."""
+    datasets = memory_datasets(cfg)
+    t0 = time.perf_counter()
+    for ds in datasets.values():
+        ds.process()
+    prep_s = time.perf_counter() - t0
+    stages, n_raw, nodes = {}, 0, {}
+    for ds in datasets.values():
+        for i, c in enumerate(ds.cloud_ids):
+            nag = ds[i]
+            check(nag.num_levels == 4 and all(
+                nag[j].num_nodes > 1 for j in nag.levels),
+                f'{name} {c}: not 4 levels of more than one node')
+            nodes[c] = [nag[j].num_nodes for j in nag.levels]
+            if c in raw:
+                n_raw += raw.pop(c)
+                for k, v in MEMORY_STAGE_S[ds.processed_path(c)].items():
+                    stages[k] = stages.get(k, 0.0) + v
+    per = 1e6 / n_raw
+    print(f'{name}: {len(nodes)} clouds, {n_raw} raw points read and '
+          f'preprocessed in {prep_s:.2f} s on the host ({os.cpu_count()} '
+          f'cores; {stages.get("total", 0) * per:.3f} s per 1M raw points: '
+          + ', '.join(f'{k} {v * per:.3f}' for k, v in sorted(
+              stages.items(), key=lambda kv: -kv[1]) if k != 'total')
+          + f'); nodes per level {nodes}')
+    return datasets
+
+
+def fit_and_evaluate(name, cfg, datasets, card):
+    """`train(cfg, datasets)` (K1 a step, K2 a validation forward), then
+    `evaluate` from 'last' on the validation split: its mIoU the logged
+    one. Returns (launches, widest K1 arguments, widest K2 arguments,
+    trainer)."""
+    import copy
+    from superpoint_transformer_torch.eval import evaluate
+    from superpoint_transformer_torch.train import train
+    out = str(cfg['output_dir'])
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_trainable') as k1_args:
+        t0 = time.perf_counter()
+        trainer = train(cfg, datasets)
+        fit_s = time.perf_counter() - t0
+    launches = counts()
+    steps = sum(t['steps'] for t in trainer.epoch_times)
+    n_val = len(datasets['val']) * len(trainer.epoch_times)
+    print_epochs(f'{name} fit', trainer, card)
+    print(f'{name}: train(cfg, datasets) {len(trainer.epoch_times)} epochs '
+          f'in {fit_s:.2f} s; {steps} steps, {n_val} validation forwards; '
+          f'launches {launches}, plain attention calls {plain["plain"]}')
+    check(launches['K1'] == SPT3_LAUNCHES * steps > 0
+          and launches['K2'] == SPT3_LAUNCHES * n_val > 0
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          f'{name} fit: not {SPT3_LAUNCHES} K1 launches a step and '
+          f'{SPT3_LAUNCHES} K2 a validation forward')
+    with open(os.path.join(out, 'metrics.csv')) as f:
+        rows = [line.strip().split(',') for line in f]
+    logged = float([r for r in rows[1:] if r[1] == 'val'][-1][
+        rows[0].index('miou')])
+    ecfg = copy.deepcopy(cfg)
+    ecfg.set_path('ckpt_path', os.path.join(out, 'checkpoints', 'last'))
+    ecfg.set_path('output_dir', out + '_eval')
+    before = counts()
+    with widest_call('dense_attention_rpe') as k2_args:
+        t0 = time.perf_counter()
+        m = evaluate(ecfg, {'test': datasets['val']})
+        eval_s = time.perf_counter() - t0
+    launches = counts()
+    print(f'{name}: evaluate from last on the validation split in '
+          f'{eval_s:.2f} s: mIoU {m["miou"]!r} vs the logged {logged!r}; '
+          f'launches {launches}')
+    check(abs(m['miou'] - logged) <= FIT_MIOU_TOL
+          and launches['K2'] - before['K2']
+          == SPT3_LAUNCHES * len(datasets['val']),
+          f'{name} evaluate: mIoU {m["miou"]} vs the logged {logged} beyond '
+          f'{FIT_MIOU_TOL}, or not {SPT3_LAUNCHES} K2 launches a forward')
+    return launches, k1_args, k2_args, trainer
+
+
+def hold_spt3(name, cfg, eval_nags, train_nags, dev, rng_seed):
+    """The kernel model against the plain attention at SPT-3 width: the
+    logits of an evaluation batch of `eval_nags` in f32 and bf16, and one
+    training step's loss and gradients on a batch of `train_nags` in f32
+    and bf16 (`hold_train_step`, at TRAIN_TOL[(name, dtype)]). Each run
+    twice bit-equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (build_batch_config,
+                                                         build_task)
+    from superpoint_transformer_torch.inference import EVAL_BATCH_OVERRIDES
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.transforms.prepare import (
+        prepare_batch)
+    n_cls = int(cfg['datamodule']['num_classes'])
+    panoptic = str(cfg['model'].get('task', 'semantic')) == 'panoptic'
+    bcfg = build_batch_config(cfg)
+    ev = prepare_batch(eval_nags, dataclasses.replace(
+        bcfg, **EVAL_BATCH_OVERRIDES), train=False)
+    tr = prepare_batch(train_nags, bcfg, train=True,
+                       rng=np.random.default_rng(rng_seed))
+
+    def task(cd, plain=False, graphs=len(train_nags)):
+        t = build_task(cfg, num_graphs=graphs, compute_dtype=cd,
+                       plain_attention=plain, device=dev)
+        init_weights(t.model, torch.Generator().manual_seed(SEED))
+        return t
+
+    def logits(cd, plain=False):
+        model = task(cd, plain, len(eval_nags)).model.eval()
+        # the semantic logits; a panoptic model also gives edge affinities
+        return (lambda b: model(b)[0]) if panoptic else model
+
+    for cd in (None, 'bfloat16'):
+        hold_logits(f'{name} ', logits(cd), logits(cd, True),
+                    from_numpy(ev, dev, cd, train=panoptic), cd, n_cls)
+    for cd in (None, 'bfloat16'):
+        hold_train_step(name, task(cd), task(cd, True),
+                        from_numpy(tr, dev, cd, train=True), cd)
+
+
+def dales_serving(cfg, datasets, raw_dir, dev, card):
+    """A 4-tile batch served through `infer_batch` (3 requests) and one
+    raw tile through `e2e_inference`, by SPT-3 in bf16; the forward and
+    a training step timed. Returns (K2 launches, widest K2 arguments)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.datasets.dales import read_dales_tile
+    from superpoint_transformer_torch.experiment import (
+        _pre_transform_config, build_batch_config, build_model, build_task)
+    from superpoint_transformer_torch.inference import (
+        EVAL_BATCH_OVERRIDES, e2e_inference, infer_batch)
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.transforms.prepare import (
+        prepare_batch)
+    n_cls = int(cfg['datamodule']['num_classes'])
+    tiles = [datasets[s][i] for s in ('train', 'val')
+             for i in range(len(datasets[s]))][:DALES_SERVE_TILES]
+    ecfg = dataclasses.replace(build_batch_config(cfg),
+                               **EVAL_BATCH_OVERRIDES)
+    t0 = time.perf_counter()
+    host = prepare_batch(tiles, ecfg, train=False)
+    prep_s = time.perf_counter() - t0
+    model = SemanticSegmentationModel(build_model(
+        cfg, num_graphs=len(tiles), device=dev), n_cls, device=dev)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    model.eval()
+    cd = model.net.compute_dtype
+    reset_counts()
+    req_ms = []
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_rpe') as k2_args:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = from_numpy(host, dev, cd)
+            pred = infer_batch(model, batch)
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = counts()
+    n, caps, k = level_counts(batch)
+    print(f'dales serving on {card}: {len(tiles)} tiles, nodes {n}, '
+          f'capacities {caps}, K={k}; batch prepared in {prep_s:.2f} s on '
+          f'the host; requests {[round(t, 1) for t in req_ms]} ms (host '
+          f'batch to predictions); launches {launches}')
+    check(launches['K2'] == 3 * SPT3_LAUNCHES and launches['K1'] == 0
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          f'dales serving: not {SPT3_LAUNCHES} K2 launches a forward')
+    check(pred.shape == (n[1],) and pred.min() >= 0 and pred.max() < n_cls,
+          'dales predictions are not a class per level-1 node')
+    served = launches['K2']
+    fwd_ms = cuda_ms(lambda: infer_batch(model, batch), 10)
+    print(f'dales SPT-3 forward on {card}: {fwd_ms:.3f} ms (CUDA events, '
+          f'10 forwards of the {len(tiles)}-tile batch with the level-1 '
+          'argmax, after 3 warm-up)')
+    del batch
+
+    # one raw tile, end to end
+    tile = datasets['test'].cloud_ids[0]
+    raw = read_dales_tile(os.path.join(raw_dir, f'{tile}.ply'))
+    pre = dict(_pre_transform_config(cfg), num_classes=n_cls)
+    reset_counts()
+    with plain_attention_calls() as plain:
+        full, info = e2e_inference(model, raw, pre_cfg=pre, batch_cfg=ecfg,
+                                   tiling=(1, 1))
+    launches = counts()
+    print(f'dales e2e_inference of {tile} on {card}: {info}; launches '
+          f'{launches}')
+    check(full.shape == (raw.num_nodes,) and full.min() >= 0
+          and full.max() < n_cls and launches['K2'] > 0
+          and launches['K2'] % SPT3_LAUNCHES == 0
+          and launches['K1'] == launches['K3'] == plain['plain'] == 0,
+          'dales e2e_inference: a raw point has no label, or not K2 alone')
+    served += launches['K2']
+    del model
+
+    # a training step on the 2 training tiles, timed
+    task = build_task(cfg, num_graphs=len(datasets['train']), device=dev)
+    init_weights(task.model, torch.Generator().manual_seed(SEED))
+    h = prepare_batch([datasets['train'][i]
+                       for i in range(len(datasets['train']))],
+                      build_batch_config(cfg), train=True,
+                      rng=np.random.default_rng(SEED + 40))
+    batch = from_numpy(h, dev, cd, train=True)
+    step_ms = cuda_ms(lambda: task.train_step(batch), 5)
+    n, caps, k = level_counts(batch)
+    print(f'dales SPT-3 train step on {card}: {step_ms:.3f} ms (CUDA '
+          f'events, 5 steps after 3 warm-up) on nodes {n}, capacities '
+          f'{caps}, K={k}')
+    return served, k2_args
+
+
+def phase_datasets(dev, card, tmp):
+    """SPT-3 at full width (64 channels, 16 heads, qk_dim 4, bf16) on the
+    DALES, KITTI-360 and ScanNet readers, with synthetic raw files in
+    each format under `tmp`, each dataset its own path:
+    - dales: `train(cfg, datasets)` with `experiment=semantic/dales` and
+      `datamodule.mini=True` for DALES_EPOCHS epochs, `evaluate` from its
+      checkpoint, a 4-tile batch through `infer_batch` and one raw tile
+      through `e2e_inference`;
+    - kitti360: `train` with `experiment=semantic/kitti360` for
+      KITTI360_EPOCHS epoch and `evaluate`;
+    - scannet: `experiment=panoptic/scannet`: one `validate_panoptic` of
+      the validation split (grid search included) and one
+      `PanopticTask.train_step`.
+    Each holds the logits of an evaluation batch and a training step's
+    loss and gradients against the plain attention in f32 and bf16 (each
+    run twice, bit-equal), at TRAIN_TOL and the logit limits, and K1
+    (forward and backward) and K2 against their plain versions on the
+    arguments of their widest launches; the evaluation's mIoU is the
+    logged one. K1 and K2 are timed on the arguments of their widest
+    launches over the three paths. Returns ({path: launches}, timings)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch import trainer as trainer_mod
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (
+        DALES_CFG, KITTI360_CFG, PANOPTIC_SCANNET_CFG, build_batch_config,
+        build_task)
+    from superpoint_transformer_torch.inference import EVAL_BATCH_OVERRIDES
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.transforms.prepare import (
+        prepare_batch)
+
+    settle()
+    root = os.path.join(tmp.name, 'datasets')
+    raw, write_s = write_dataset_roots(root)
+    print(f'datasets: {sum(len(v) for v in raw.values())} clouds '
+          f'({sum(sum(v.values()) for v in raw.values())} raw points) '
+          f'written in the DALES, KITTI-360 and ScanNet formats in '
+          f'{write_s:.2f} s')
+    paths = {}
+
+    # dales: fit, evaluate, serve, e2e
+    cfg = spt3_cfg(DALES_CFG, dev, os.path.join(root, 'dales'),
+                   os.path.join(tmp.name, 'dales_out'), DALES_EPOCHS,
+                   mini=True)
+    datasets = process_datasets('dales', cfg, raw['dales'], card)
+    launches, k1_args, k2_fit, trainer = fit_and_evaluate(
+        'dales', cfg, datasets, card)
+    served, k2_args = dales_serving(cfg, datasets,
+                                    os.path.join(root, 'dales', 'raw'), dev,
+                                    card)
+    paths['dales'] = {'K1': launches['K1'], 'K2': launches['K2'] + served}
+    del trainer
+    # the arguments of the widest K1 and K2 launches over the three paths
+    widest = {}
+
+    def hold_widest(path, k1_args, *k2_args):
+        hold_on_path('K1', k1_args, f'{path} path')
+        for name, args in [('K1', k1_args)] + [('K2', a) for a in k2_args]:
+            if args[0].shape[0] > widest.get(name, (None, 0))[1]:
+                widest[name] = (path, args[0].shape[0], args)
+        for args in k2_args:
+            hold_on_path('K2', args, f'{path} path')
+
+    hold_widest('dales', k1_args, k2_fit, k2_args)
+    del k1_args, k2_fit, k2_args
+    hold_spt3('dales', cfg, [datasets['val'][i] for i in range(2)],
+              [datasets['train'][i] for i in range(2)], dev, SEED + 41)
+    release(datasets)
+    del datasets
+    settle()
+
+    # kitti360: fit and evaluate
+    cfg = spt3_cfg(KITTI360_CFG, dev, os.path.join(root, 'kitti360'),
+                   os.path.join(tmp.name, 'kitti360_out'), KITTI360_EPOCHS)
+    datasets = process_datasets('kitti360', cfg, raw['kitti360'], card)
+    launches, k1_args, k2_args, _ = fit_and_evaluate(
+        'kitti360', cfg, datasets, card)
+    paths['kitti360'] = {'K1': launches['K1'], 'K2': launches['K2']}
+    hold_widest('kitti360', k1_args, k2_args)
+    del k1_args, k2_args
+    hold_spt3('kitti360', cfg, [datasets['val'][0]], [datasets['train'][0]],
+              dev, SEED + 42)
+    release(datasets)
+    del datasets
+    settle()
+
+    # scannet: panoptic validation and a train step
+    cfg = spt3_cfg(PANOPTIC_SCANNET_CFG, dev, os.path.join(root, 'scannet'),
+                   os.path.join(tmp.name, 'scannet_out'))
+    datasets = process_datasets('scannet', cfg, raw['scannet'], card)
+    nags = [datasets['train'][0], datasets['val'][0]]
+    dm = cfg['datamodule']
+    n_cls = int(dm['num_classes'])
+    ids = nags[0][0].obj.obj
+    check(bool((ids == -1).any()) and bool((ids >= 0).any()),
+          'scannet: no vertex outside the aggregation groups (object -1)')
+    task = build_task(cfg, num_graphs=len(nags), device=dev)
+    init_weights(task.model, torch.Generator().manual_seed(SEED))
+    cd = task.model.net.compute_dtype
+    bcfg = build_batch_config(cfg)
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_rpe') as k2_args:
+        t0 = time.perf_counter()
+        result = trainer_mod.validate_panoptic(
+            task, [[datasets['val'][i] for i in range(len(datasets['val']))]],
+            dataclasses.replace(bcfg, **EVAL_BATCH_OVERRIDES),
+            n_cls, stuff_classes=tuple(dm['stuff_classes']),
+            grid_search=True)
+        val_s = time.perf_counter() - t0
+    val_launches = counts()
+    metrics = {k: result[k] for k in ('pq', 'sq', 'rq', 'map', 'map_50')}
+    print(f'scannet: validate_panoptic of the validation scan in '
+          f'{val_s:.2f} s (grid search included, settings '
+          f'{result["settings"]}): '
+          f'{metrics}; {result["n_pred_instances"]} predicted instances; '
+          f'launches {val_launches}')
+    check(val_launches['K2'] == SPT3_LAUNCHES and val_launches['K1'] == 0
+          and plain['plain'] == 0 and all(
+              0 <= result[k] <= 100 for k in ('pq', 'sq', 'rq')),
+          f'scannet validation: not {SPT3_LAUNCHES} K2 launches, or PQ out '
+          'of [0, 100]')
+    head = [p.detach().clone()
+            for p in task.model.edge_affinity_head.parameters()]
+    h = prepare_batch(nags, bcfg, train=True,
+                      rng=np.random.default_rng(SEED + 43))
+    reset_counts()
+    with widest_call('dense_attention_trainable') as k1_args:
+        loss = task.train_step(from_numpy(h, dev, cd, train=True))['loss']
+    launches = counts()
+    print(f'scannet: PanopticTask train step loss {loss.item():.6f}; '
+          f'launches {launches}')
+    check(bool(torch.isfinite(loss)) and launches['K1'] == SPT3_LAUNCHES
+          and launches['K2'] == 0 and all(
+              not torch.equal(a, p.detach()) for a, p in zip(
+                  head, task.model.edge_affinity_head.parameters())),
+          f'scannet train step: loss not finite, not {SPT3_LAUNCHES} K1 '
+          'launches, or the edge-affinity head did not move')
+    paths['scannet'] = {'K1': launches['K1'], 'K2': val_launches['K2']}
+    del task
+    hold_widest('scannet', k1_args, k2_args)
+    del k1_args, k2_args
+    hold_spt3('scannet', cfg, nags, nags, dev, SEED + 44)
+    release(datasets)
+    del datasets, nags
+    settle()
+    print(f'launches on the dataset paths: {paths}')
+    for path, got in paths.items():
+        check(got['K1'] > 0 and got['K2'] > 0,
+              f'the {path} path did not launch K1 and K2')
+    timings = {}
+    for name, (path, _, args) in sorted(widest.items()):
+        ms_, plain_ms, bound_ms, by, shape, rounds = time_on_path(name, args)
+        print(f'{name} at the widest SPT-3 shape {shape} ({path} path) on '
+              f'{card}: kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms; bound '
+              f'{bound_ms:.4f} ms ({by}), share {bound_ms / ms_:.3f}; rounds '
+              f'{rounds} (CUDA graph of 20 calls, CUDA events)')
+        timings[name] = dict(ms=ms_, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=by, shape=shape, path=path)
+    return paths, timings
+
+
 def main():
     t_start = time.perf_counter()
     check(os.path.isdir(os.path.join(HERE, 'superpoint_transformer_torch')),
@@ -2541,17 +3082,19 @@ def main():
         fit = phase_fit(dev, card, tmp=rooms)
         ezsp = phase_ezsp(dev, card, rooms)
         nano, nano_timing = phase_nano(dev, card, rooms, pan_nags)
+        datasets, spt3_timing = phase_datasets(dev, card, rooms)
     finally:
         rooms.cleanup()
     paths = {'serving/training/fused-RPE': launches, 'host': host_path,
              'panoptic': panoptic, 'fit-and-evaluate': fit, 'ezsp': ezsp,
-             'nano': nano}
+             'nano': nano, **datasets}
     print(f'launches by path: serving/training/fused-RPE {launches}, '
           f'host path {host_path}')
     print(f'launches on the panoptic path: {panoptic}')
     print(f'launches on the fit-and-evaluate path: {fit}')
     print(f'launches on the EZ-SP path: {ezsp}')
     print(f'launches on the nano path: {nano}')
+    print(f'launches on the dales, kitti360 and scannet paths: {datasets}')
     for path, got in paths.items():
         for name, n in got.items():
             check(n > 0, f'the {path} path launched no {name} kernel')
@@ -2571,9 +3114,10 @@ def main():
                                  if name in p},
             **res, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'bound_share': bound_ms / res['ms']})
-        if name in nano_timing:
-            t = nano_timing[name]
-            table[-1]['nano'] = dict(t, bound_share=t['bound_ms'] / t['ms'])
+        for key, timing in (('nano', nano_timing), ('spt3', spt3_timing)):
+            if name in timing:
+                t = timing[name]
+                table[-1][key] = dict(t, bound_share=t['bound_ms'] / t['ms'])
     print(f'all phases passed in {time.perf_counter() - t_start:.1f} s '
           '(builds included)')
     print(json.dumps({'kernels': table}))

@@ -8,8 +8,10 @@ Counterpart of `build_model`, `build_task` (semantic, panoptic, partition),
 `config.Config`. `FLAGSHIP_CFG` holds the values that they and the
 Trainer read from `configs/train.yaml` composed with
 `experiment=semantic/s3dis`, `PANOPTIC_CFG` those of
-`experiment=panoptic/s3dis`, and `EZSP_PARTITION_CFG` / `EZSP_CFG` those
-of EZ-SP's two stages, so no YAML reader is needed; tests pin each to the
+`experiment=panoptic/s3dis`, `EZSP_PARTITION_CFG` / `EZSP_CFG` those
+of EZ-SP's two stages, `NANO_CFG` / `PANOPTIC_NANO_CFG` nano's, and
+`DALES_CFG`, `KITTI360_CFG` and `PANOPTIC_SCANNET_CFG` SPT-3's on the
+other datasets, so no YAML reader is needed; tests pin each to the
 YAML. `build_model` and `build_task` build on the card unless the
 caller passes `device='cpu'`.
 """
@@ -25,7 +27,8 @@ from .models.spt import SPT
 from .transforms.prepare import BatchConfig
 
 __all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'EZSP_PARTITION_CFG',
-           'EZSP_CFG', 'NANO_CFG', 'PANOPTIC_NANO_CFG', 'build_model',
+           'EZSP_CFG', 'NANO_CFG', 'PANOPTIC_NANO_CFG', 'DALES_CFG',
+           'KITTI360_CFG', 'PANOPTIC_SCANNET_CFG', 'build_model',
            'build_task', 'build_batch_config', 'build_datasets',
            'precision_to_dtype']
 
@@ -257,6 +260,42 @@ for _cfg in (NANO_CFG, PANOPTIC_NANO_CFG):
     _cfg['datamodule'].update(copy.deepcopy(_NANO_DATAMODULE))
     _cfg['model'].update(copy.deepcopy(_NANO_MODEL))
     _cfg['model']['net'].update({'nano': True, 'down_num_heads': 8})
+
+# SPT-3 (three down stages, two up stages of 64 channels, bf16) on the
+# aerial and street datasets and, with SuperCluster's head, on ScanNet:
+# configs/train.yaml + experiment=semantic/dales (DALES_CFG),
+# semantic/kitti360 (KITTI360_CFG) and panoptic/scannet
+# (PANOPTIC_SCANNET_CFG)
+_SPT3 = {'_down_dim': [64, 64, 64], '_up_dim': [64, 64],
+         'optimizer': {'lr': 0.01, 'weight_decay': '1e-4'}}
+_GEOMETRY_HF = ['linearity', 'planarity', 'scattering', 'verticality',
+                'elevation']
+_OUTDOOR = {
+    'in_memory': False, 'dataloader': {'batch_size': 4, 'num_workers': 0},
+    'knn': 25, 'knn_r': 10, 'pcp_regularization': [0.1, 0.2, 0.3],
+    'pcp_spatial_weight': [0.1, 0.01, 0.001], 'pcp_cutoff': [10, 30, 100],
+    'graph_gap': [5, 30, 30]}
+DALES_CFG = copy.deepcopy(FLAGSHIP_CFG)
+DALES_CFG['datamodule'].update(copy.deepcopy(_OUTDOOR))
+DALES_CFG['datamodule'].update({
+    'dataset': 'dales', 'num_classes': 8, 'voxel': 0.1,
+    'partition_hf': ['intensity'] + _GEOMETRY_HF,
+    'point_hf': ['intensity'] + _GEOMETRY_HF})
+KITTI360_CFG = copy.deepcopy(FLAGSHIP_CFG)
+KITTI360_CFG['datamodule'].update(copy.deepcopy(_OUTDOOR))
+KITTI360_CFG['datamodule'].update({
+    'dataset': 'kitti360', 'num_classes': 15, 'voxel': 0.05,
+    'point_hf': ['rgb'] + _GEOMETRY_HF})
+PANOPTIC_SCANNET_CFG = copy.deepcopy(PANOPTIC_CFG)
+PANOPTIC_SCANNET_CFG['datamodule'].update({
+    'dataset': 'scannet', 'num_classes': 20, 'stuff_classes': [0, 1],
+    'in_memory': False, 'dataloader': {'batch_size': 4, 'num_workers': 0},
+    'point_hf': ['rgb'] + _GEOMETRY_HF})
+for _cfg, _epochs in ((DALES_CFG, 400), (KITTI360_CFG, 200),
+                      (PANOPTIC_SCANNET_CFG, 100)):
+    _cfg['model'].update(copy.deepcopy(_SPT3))
+    _cfg['trainer']['max_epochs'] = _epochs
+
 
 def _dims(keys):
     return sum(FEAT_SIZE[k] for k in keys)
@@ -536,27 +575,23 @@ def _pre_transform_config(cfg):
     return out
 
 
-# the readers that the port does not have yet, and the ROADMAP Queue 1
-# item that brings them
-_NOT_PORTED = {'dales': 'DALES', 'kitti360': 'KITTI-360',
-               'scannet': 'ScanNet'}
-
-
 def build_datasets(cfg, stages=('train', 'val', 'test')):
-    """{stage: dataset} of `cfg`'s datamodule (`s3dis` or `s3dis_room`,
-    the Mini variants where `mini` is set), as the JAX `build_datasets`.
-    The datasets run EZ-SP's frozen CNN, where their preprocessing needs
-    it, on `cfg.device` (the card where unset)."""
-    from .datasets import S3DIS, MiniS3DIS, S3DISRoom, MiniS3DISRoom
+    """{stage: dataset} of `cfg`'s datamodule (`s3dis`, `s3dis_room`,
+    `dales`, `kitti360` or `scannet`, the Mini variants where `mini` is
+    set), as the JAX `build_datasets`: the same class and keyword
+    arguments, `fold` for the S3DIS datasets only. The datasets run
+    EZ-SP's frozen CNN, where their preprocessing needs it, on
+    `cfg.device` (the card where unset)."""
+    from .datasets import (DALES, KITTI360, S3DIS, MiniDALES, MiniKITTI360,
+                           MiniS3DIS, MiniS3DISRoom, MiniScanNet, S3DISRoom,
+                           ScanNet)
     dm = cfg['datamodule']
     name = str(dm['dataset'])
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f'the {_NOT_PORTED[name]} reader is not ported (ROADMAP Queue '
-            '1, "what items 2 and 3 still leave": the DALES, KITTI-360 and '
-            'ScanNet readers with utils/ply.py)')
     full, mini = {'s3dis': (S3DIS, MiniS3DIS),
-                  's3dis_room': (S3DISRoom, MiniS3DISRoom)}[name]
+                  's3dis_room': (S3DISRoom, MiniS3DISRoom),
+                  'dales': (DALES, MiniDALES),
+                  'kitti360': (KITTI360, MiniKITTI360),
+                  'scannet': (ScanNet, MiniScanNet)}[name]
     cls = mini if bool(dm.get('mini', False)) else full
     kwargs = dict(
         pre_transform_config=_pre_transform_config(cfg),
@@ -572,5 +607,6 @@ def build_datasets(cfg, stages=('train', 'val', 'test')):
         kwargs['xy_tiling'] = tuple(t) if not np.isscalar(t) else int(t)
     if dm.get('pc_tiling'):
         kwargs['pc_tiling'] = int(dm['pc_tiling'])
-    kwargs['fold'] = int(dm.get('fold', 5))
+    if name in ('s3dis', 's3dis_room'):
+        kwargs['fold'] = int(dm.get('fold', 5))
     return {s: cls(dm['data_dir'], stage=s, **kwargs) for s in stages}

@@ -1,7 +1,10 @@
 """Synthetic data, numpy only: padded NAG batches
 (`random_padded_nag`), and copies of the JAX package's `random_nag`
-(a small 3-level NAG) and `synthetic_room_cloud` (a raw indoor cloud
-for the preprocessing path).
+(a small 3-level NAG), `synthetic_room_cloud` (a raw indoor cloud
+for the preprocessing path) and `synthetic_aerial_cloud` (a raw aerial
+tile, the same arrays as JAX's for a seed); and writers of such clouds
+in the raw formats of DALES, KITTI-360 and ScanNet, so that their
+readers and datasets run without downloaded data.
 
 `random_padded_nag` builds directly the padded batch that the JAX host
 path (`prepare_batch(..., device=False)`, i.e. `pad_nag` with the S3DIS
@@ -20,6 +23,10 @@ neighbor tables of levels 1 and 2 included:
 - level-1 `node_id` is a permutation; invalid edge slots hold finite
   values.
 """
+import json
+import os
+import os.path as osp
+
 import numpy as np
 
 from ..data.csr import Cluster, InstanceData
@@ -28,9 +35,12 @@ from ..data.nag import NAG
 from ..data.pad import bucket, transpose_neighbors
 from ..data.padded import PaddedLevel, PaddedNAG
 from ..ops.graph import _round_up
+from .ply import write_ply
 
 __all__ = ['random_padded_nag', 'random_nag', 'synthetic_room_cloud',
-           'POINT_HF_DIM', 'EDGE_HF_DIM']
+           'synthetic_aerial_cloud', 'room_instances', 'write_dales_tile',
+           'write_kitti360_window', 'write_scannet_scan', 'POINT_HF_DIM',
+           'EDGE_HF_DIM']
 
 POINT_HF_DIM = 8    # linearity, planarity, scattering, verticality,
                     # elevation, rgb
@@ -300,3 +310,180 @@ def synthetic_room_cloud(seed=0, n_points=250_000, extent=(10.0, 8.0, 3.0),
     perm = rng.permutation(pos.shape[0])
     return Data(pos=pos[perm].astype(np.float32), rgb=rgb[perm],
                 y=y[perm])
+
+
+def synthetic_aerial_cloud(seed=0, n_points=120_000,
+                           extent=(60.0, 40.0), n_buildings=5,
+                           noise=0.02, num_classes=13):
+    """Outdoor/aerial-survey-like tile: undulating ground, buildings
+    with LONG planar walls and flat roofs, linear power-line spans and
+    scattered vegetation blobs — the DALES-like statistics (large
+    planar surfaces with high aspect ratio) that stress a merge-only
+    partition solver very differently from indoor rooms.
+
+    Returns (Data(pos, rgb, y), planted) where `planted` assigns each
+    point the id of its generating primitive (one id per planar face /
+    line / blob): the planted piecewise-planar partition used as the
+    energy competitor in the solver-parity goldens
+    (tests/test_solver_parity.py)."""
+    rng = np.random.default_rng(seed)
+    ex, ey = extent
+    parts = []  # (pos, label)
+
+    def add(p, label):
+        parts.append((p.astype(np.float32),
+                      np.full(p.shape[0], label, dtype=np.int64)))
+
+    def ground_z(xy):
+        return (0.4 * np.sin(xy[:, 0] * 0.15)
+                + 0.3 * np.cos(xy[:, 1] * 0.21)
+                + 0.01 * xy[:, 0]).astype(np.float32)
+
+    # ground: ~50% of points over the full tile (label 0)
+    n_ground = int(n_points * 0.5)
+    xy = rng.random((n_ground, 2)).astype(np.float32) * [ex, ey]
+    add(np.column_stack([xy, ground_z(xy)]), 0)
+
+    # buildings: long walls (aspect ratio >= 5) + flat roof (label 2)
+    n_bld = int(n_points * 0.35) // max(n_buildings, 1)
+    for i in range(n_buildings):
+        cx = rng.random() * (ex - 20) + 4
+        cy = rng.random() * (ey - 12) + 3
+        L = rng.random() * 10 + 8          # long side
+        W = rng.random() * 4 + 3
+        H = rng.random() * 5 + 4
+        z0 = float(ground_z(np.array([[cx, cy]]))[0])
+        faces = [((cx, cy, z0 + H), (L, 0, 0), (0, W, 0)),   # roof
+                 ((cx, cy, z0), (L, 0, 0), (0, 0, H)),       # walls
+                 ((cx, cy + W, z0), (L, 0, 0), (0, 0, H)),
+                 ((cx, cy, z0), (0, W, 0), (0, 0, H)),
+                 ((cx + L, cy, z0), (0, W, 0), (0, 0, H))]
+        areas = np.array([np.linalg.norm(np.cross(u, v))
+                          for _, u, v in faces])
+        for (o, u, v), w in zip(faces, areas / areas.sum()):
+            m = max(int(n_bld * w), 8)
+            a = rng.random(m).astype(np.float32)[:, None]
+            b = rng.random(m).astype(np.float32)[:, None]
+            p = (np.asarray(o, np.float32)[None]
+                 + a * np.asarray(u, np.float32)[None]
+                 + b * np.asarray(v, np.float32)[None])
+            add(p, 2)
+
+    # power lines: long thin catenary-like spans (label 3)
+    n_line = int(n_points * 0.05) // 3
+    for i in range(3):
+        x0, y0 = rng.random(2) * [ex * 0.2, ey]
+        x1, y1 = ex * 0.8 + rng.random() * ex * 0.2, rng.random() * ey
+        t = rng.random(max(n_line, 16)).astype(np.float32)
+        sag = 1.5 * (t - 0.5) ** 2 * 4 - 1.5
+        p = np.column_stack([x0 + t * (x1 - x0), y0 + t * (y1 - y0),
+                             9.0 + sag + i * 0.4])
+        add(p, 3)
+
+    # vegetation: scattered ellipsoidal blobs (label 1)
+    n_veg_total = n_points - sum(p.shape[0] for p, _ in parts)
+    n_blobs = 8
+    for i in range(n_blobs):
+        m = max(n_veg_total // n_blobs, 16)
+        c = rng.random(2) * [ex, ey]
+        z0 = float(ground_z(c[None])[0])
+        r = rng.random(3) * [1.5, 1.5, 2.0] + [0.8, 0.8, 1.0]
+        p = rng.normal(size=(m, 3)).astype(np.float32) * r * 0.5 \
+            + [c[0], c[1], z0 + r[2] + 0.5]
+        add(p, 1)
+
+    pos = np.concatenate([p for p, _ in parts])
+    y = np.concatenate([l for _, l in parts])
+    planted = np.concatenate([
+        np.full(p.shape[0], i, dtype=np.int64)
+        for i, (p, _) in enumerate(parts)])
+    pos += rng.normal(0, noise, pos.shape).astype(np.float32)
+    base = rng.random((num_classes, 3)).astype(np.float32)
+    rgb = np.clip(base[y] + rng.normal(0, 0.05, pos.shape), 0, 1
+                  ).astype(np.float32)
+    perm = rng.permutation(pos.shape[0])
+    return (Data(pos=pos[perm].astype(np.float32), rgb=rgb[perm],
+                 y=y[perm]), planted[perm])
+
+
+# the synthetic classes in each dataset's raw label ids: the aerial
+# tile's ground, vegetation, buildings and power lines as DALES ids
+# (1 ground, 2 vegetation, 8 buildings, 5 power lines) and KITTI-360 ids
+# (7 road, 21 vegetation, 11 building, 17 pole); the room's floor,
+# ceiling, walls and 10 furniture classes as NYU40 ids (the ceiling, 22,
+# is no ScanNet class)
+AERIAL_TO_DALES = np.asarray([1, 2, 8, 5], np.uint8)
+AERIAL_TO_KITTI360 = np.asarray([7, 21, 11, 17], np.int32)
+ROOM_TO_NYU40 = np.asarray([2, 22, 1, 3, 4, 5, 6, 7, 8, 9, 10, 14, 39],
+                           np.uint16)
+
+
+def _xyz(cloud):
+    return {c: np.ascontiguousarray(cloud.pos[:, i])
+            for i, c in enumerate('xyz')}
+
+
+def _rgb8(cloud):
+    rgb = np.round(np.asarray(cloud.rgb, np.float32) * 255).astype(np.uint8)
+    return {c: np.ascontiguousarray(rgb[:, i])
+            for i, c in enumerate(('red', 'green', 'blue'))}
+
+
+def room_instances(cloud):
+    """Per-point instance ids of a synthetic room: two objects a class,
+    split at every metre of x (the recipe of tests/test_panoptic.py)."""
+    return (cloud.y * 2 + (cloud.pos[:, 0] % 2 < 1)).astype(np.int64)
+
+
+def write_dales_tile(path, cloud):
+    """Write a `synthetic_aerial_cloud` as a DALES tile (`x y z intensity
+    sem_class ins_class`, binary PLY). Intensity follows the colour (a
+    raw reading up to 6e4), instances are the generator's primitives
+    when `cloud` carries `planted`, else 0."""
+    inten = np.asarray(cloud.rgb, np.float32).mean(1) * np.float32(6e4)
+    planted = cloud.get('planted')
+    write_ply(path, {
+        **_xyz(cloud), 'intensity': inten.astype(np.float32),
+        'sem_class': AERIAL_TO_DALES[cloud.y],
+        'ins_class': (np.zeros(cloud.num_nodes, np.int32) if planted is None
+                      else np.asarray(planted, np.int32))})
+
+
+def write_kitti360_window(path, cloud):
+    """Write a `synthetic_aerial_cloud` as a KITTI-360 window (`x y z red
+    green blue semantic instance`, binary PLY; instance = semantic id *
+    1000, one instance a class)."""
+    sem = AERIAL_TO_KITTI360[cloud.y]
+    write_ply(path, {**_xyz(cloud), **_rgb8(cloud), 'semantic': sem,
+                     'instance': sem * 1000})
+
+
+def write_scannet_scan(scan_dir, cloud, cell=0.5):
+    """Write a `synthetic_room_cloud` as a ScanNet scan directory: the
+    mesh vertices, the NYU40 labels, the over-segmentation (each segment
+    the points of one `room_instances` object in one `cell`-sized cube)
+    and the aggregation, whose groups are every object's segments but
+    the ceiling's (void in ScanNet): those vertices belong to no
+    group."""
+    os.makedirs(scan_dir, exist_ok=True)
+    scan = osp.basename(scan_dir.rstrip('/'))
+    base = {**_xyz(cloud), **_rgb8(cloud)}
+    write_ply(osp.join(scan_dir, f'{scan}_vh_clean_2.ply'), base)
+    write_ply(osp.join(scan_dir, f'{scan}_vh_clean_2.labels.ply'),
+              {**base, 'label': ROOM_TO_NYU40[cloud.y]})
+    obj = room_instances(cloud)
+    cube = np.floor(cloud.pos / cell).astype(np.int64)
+    cube -= cube.min(0)
+    key = np.column_stack([obj, cube])
+    _, seg = np.unique(key, axis=0, return_inverse=True)
+    seg = seg.reshape(-1)
+    with open(osp.join(scan_dir, f'{scan}_vh_clean_2.0.010000.segs.json'),
+              'w') as f:
+        json.dump({'sceneId': scan, 'segIndices': seg.tolist()}, f)
+    groups = []
+    for i, o in enumerate(np.unique(obj[cloud.y != 1])):
+        groups.append({'id': i, 'objectId': i,
+                       'segments': np.unique(seg[obj == o]).tolist(),
+                       'label': str(int(ROOM_TO_NYU40[o // 2]))})
+    with open(osp.join(scan_dir, f'{scan}.aggregation.json'), 'w') as f:
+        json.dump({'sceneId': scan, 'segGroups': groups}, f)

@@ -15,6 +15,34 @@ import chip_smoke  # noqa: E402
 FLAGSHIP = dict(H=16, D=4, C=64)
 
 
+@pytest.mark.parametrize('grad', [None, 0, 1, 2, 3],
+                         ids=['exact', 'dq', 'dk', 'dv', 'dscale'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_hold_k1_backward_catches_each_gradient(monkeypatch, dtype, grad):
+    """`hold_k1_backward` on the CPU (the closed form vs autograd of the
+    plain version) passes as it is and raises when one of dq, dk, dv,
+    dscale is 5% off, in both dtypes."""
+    import torch
+    from superpoint_transformer_torch.ops import attention
+    gen = torch.Generator().manual_seed(0)
+    args = chip_smoke.k1_inputs(gen, N=64, K=20, H=4, D=4, CH=4,
+                                q_per_edge=True, masked_rows=4,
+                                dtype=getattr(torch, dtype), dev='cpu')
+    if grad is None:
+        chip_smoke.hold_k1_backward('exact', args, gen)
+        return
+    bwd = attention.dense_attention_bwd
+
+    def off(*a, **kw):
+        out = list(bwd(*a, **kw))
+        out[grad] = (out[grad].float() * 1.05).to(out[grad].dtype)
+        return tuple(out)
+
+    monkeypatch.setattr(attention, 'dense_attention_bwd', off)
+    with pytest.raises(AssertionError):
+        chip_smoke.hold_k1_backward('off', args, gen)
+
+
 @pytest.mark.parametrize('name, shape, mbytes, gflop', [
     # serving level 1: kvg 12 KB, ef 3 KB, q, mask, scale, f32 out a node
     ('K2', dict(N=10_240, K=48, De=32), 162, 6.26),
@@ -201,7 +229,7 @@ def test_nano_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
     from superpoint_transformer_torch.transforms.preprocess import (
         preprocess_cloud)
     from superpoint_transformer_torch.utils.synthetic import (
-        synthetic_room_cloud)
+        room_instances, synthetic_room_cloud)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     _rehearse_on_the_cpu(monkeypatch)
@@ -212,7 +240,7 @@ def test_nano_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
     pan = []
     for seed in range(2):
         raw = synthetic_room_cloud(seed=seed, n_points=3_000)
-        raw['obj'] = chip_smoke.room_instances(raw)
+        raw['obj'] = room_instances(raw)
         pan.append(preprocess_cloud(
             raw, voxel=0.1, knn=12, knn_r=1.0, with_instances=True,
             segment_mean_hf=NANO_CFG['datamodule']['segment_mean_hf']))
@@ -230,3 +258,42 @@ def test_nano_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
     # steps, the panoptic step and 2 fit steps
     assert out == {'K1': 7 * (2 + 1 + 2), 'K2': 7 * (3 + 1 + 2 + 2)}
     assert set(timing) == {'K1', 'K2'}
+
+
+def test_datasets_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
+    """`phase_datasets` end to end on the CPU at 4,000 raw points a
+    DALES tile, KITTI-360 window and ScanNet scan and one DALES epoch
+    (SPT-3 at full width):
+    the raw files in the three formats, the readers and the in-memory
+    datasets, fit and evaluate on DALES and KITTI-360, DALES serving and
+    `e2e_inference`, ScanNet's panoptic validation and step, and every
+    hold against the plain attention; the card-only calls and the
+    timings stubbed."""
+    import tempfile
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    _rehearse_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, 'cuda_ms', lambda fn, iters, warmup=3:
+                        (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, 'time_on_path', lambda name, args: (
+        1.0, 1.0, 1.0, 'bytes', {'N': args[0].shape[0]}, {}))
+    for name in ('DALES_TILE_POINTS', 'KITTI360_WINDOW_POINTS',
+                 'SCANNET_SCAN_POINTS'):
+        monkeypatch.setattr(chip_smoke, name, 4_000)
+    monkeypatch.setattr(chip_smoke, 'DALES_EPOCHS', 1)
+    tmp = tempfile.TemporaryDirectory(dir=tmp_path)
+    try:
+        out, timing = chip_smoke.phase_datasets(torch.device('cpu'), 'cpu',
+                                                tmp)
+    finally:
+        torch.set_num_threads(threads)
+        tmp.cleanup()
+    # 11 K1 a step, 11 K2 a forward. dales: 1 epoch of 1 step, a
+    # validation of 2 tiles, their evaluation, 3 requests and the e2e
+    # tile (warm-up and forward); kitti360: 1 step, 1 validation forward
+    # and its evaluation; scannet: 1 validation forward, 1 step
+    assert out == {'dales': {'K1': 11, 'K2': 11 * (2 + 2 + 3 + 2)},
+                   'kitti360': {'K1': 11, 'K2': 11 * 2},
+                   'scannet': {'K1': 11, 'K2': 11}}
+    assert sorted(timing) == ['K1', 'K2']

@@ -7,8 +7,14 @@ level-1 top-2 logit margin exceeds MARGIN, and off by at most the other
 nodes' label mass; the 11g experiment (gradient accumulation) trains and
 evaluates with TTA; the 6-fold protocol reads its `{fold}` checkpoints;
 the panoptic run validates its partition on its cadence and keeps the
-grid-searched settings."""
+grid-searched settings; DALES, KITTI-360 and ScanNet (tests/test_cli.py's
+trees of 2,500 random points a cloud; KITTI-360's and ScanNet's written
+with the port's `write_ply`, with a labelled test cloud added) train
+SPT-3 at narrow width, evaluate their checkpoint and write their
+submission files."""
 import glob
+import json
+import os
 import os.path as osp
 import shutil
 
@@ -27,10 +33,12 @@ from superpoint_transformer_tpu.transforms import prepare as jprep
 from superpoint_transformer_torch import eval as teval
 from superpoint_transformer_torch import train as ttrain
 from superpoint_transformer_torch import trainer as ttrainer
+from superpoint_transformer_torch.datasets import kitti360 as tds_kitti360
 from superpoint_transformer_torch.metrics.semantic import ConfusionMatrix
 from superpoint_transformer_torch.models.semantic import SemanticTask
 from superpoint_transformer_torch.utils.jax_params import jax_key_for
-from test_cli import _overrides
+from superpoint_transformer_torch.utils.ply import write_ply
+from test_cli import _make_raw_dales, _overrides
 from test_datasets import make_raw_s3dis
 from test_torch_trainer import one_torch_thread  # noqa: F401
 
@@ -107,7 +115,8 @@ def _assert_margin_rule(got, ref, logs, tta_runs):
     by at most the label mass of the other nodes."""
     runs = tta_runs + 1
     assert len(logs['port']) == len(logs['jax'])
-    sure_cm = {s: ConfusionMatrix(13) for s in logs}
+    num_classes = logs['jax'][0][1].shape[1] - 1
+    sure_cm = {s: ConfusionMatrix(num_classes) for s in logs}
     unsure_mass = 0.0
     for b in range(0, len(logs['jax']), runs):
         acc = {s: np.sum([np.asarray(logs[s][b + r][0], np.float64)
@@ -116,7 +125,7 @@ def _assert_margin_rule(got, ref, logs, tta_runs):
         np.testing.assert_array_equal(logs['port'][b][1], y)
         top2 = np.sort(acc['jax'], axis=1)[:, -2:]
         sure = (top2[:, 1] - top2[:, 0] > MARGIN) & mask
-        unsure_mass += y[mask & ~sure][:, :13].sum()
+        unsure_mass += y[mask & ~sure][:, :num_classes].sum()
         for s in logs:
             sure_cm[s].update(acc[s][sure].astype(np.float32), y[sure])
     np.testing.assert_array_equal(sure_cm['port'].confmat,
@@ -267,3 +276,141 @@ def test_entry_points_need_a_card_or_device_cpu(root, tmp_path):
     # the stage-2 clouds went through the greedy partition: a cache of
     # their own beside stage 1's (cut pursuit)
     assert len(glob.glob(osp.join(root, 'processed', 'train', '*'))) >= 2
+
+
+# narrow SPT-3 (H*D = 8, C = 16) in f32, and tests/test_cli.py's 3-level
+# partition of its tiny clouds
+NARROW_SPT3 = ['model._point_mlp=[16,16,16]', 'model._down_dim=[16,16,16]',
+               'model._up_dim=[16,16]', 'model.net.down_num_heads=2',
+               'model.net.up_num_heads=2', 'trainer.precision=32']
+PARTITION_3 = ['datamodule.pcp_regularization=[0.05,0.2,0.4]',
+               'datamodule.pcp_spatial_weight=[2.0,0.5,0.5]',
+               'datamodule.pcp_cutoff=[5,5,5]',
+               'datamodule.graph_gap=[0.5,1.0,2.0]']
+CLI_POINTS = 2500
+
+
+def _raw_kitti360(root, rng):
+    """tests/test_cli.py's KITTI-360 tree (a window for train and val)
+    and a labelled test window for the evaluation."""
+    n = CLI_POINTS
+    for split, seq in (('train', '2013_05_28_drive_0000_sync'),
+                       ('val', '2013_05_28_drive_0002_sync'),
+                       ('test', '2013_05_28_drive_0008_sync')):
+        d = osp.join(root, 'raw', 'data_3d_semantics', split, seq, 'static')
+        os.makedirs(d, exist_ok=True)
+        write_ply(osp.join(d, '0000000002_0000000385.ply'), {
+            'x': rng.uniform(0, 20, n).astype(np.float32),
+            'y': rng.uniform(0, 20, n).astype(np.float32),
+            'z': rng.uniform(0, 4, n).astype(np.float32),
+            'red': rng.integers(0, 255, n).astype(np.uint8),
+            'green': rng.integers(0, 255, n).astype(np.uint8),
+            'blue': rng.integers(0, 255, n).astype(np.uint8),
+            'semantic': rng.integers(7, 23, n).astype(np.int32)})
+
+
+def _raw_scannet(root, rng):
+    """tests/test_cli.py's ScanNet tree (two scans, one a split) and a
+    labelled test scan for the evaluation."""
+    n = CLI_POINTS
+    scans = ['scene0000_00', 'scene0001_00', 'scene0707_00']
+    for scan in scans:
+        d = osp.join(root, 'raw', 'scans_test' if scan == scans[-1]
+                     else 'scans', scan)
+        os.makedirs(d, exist_ok=True)
+        base = {'x': rng.uniform(0, 8, n).astype(np.float32),
+                'y': rng.uniform(0, 8, n).astype(np.float32),
+                'z': rng.uniform(0, 3, n).astype(np.float32),
+                'red': rng.integers(0, 255, n).astype(np.uint8),
+                'green': rng.integers(0, 255, n).astype(np.uint8),
+                'blue': rng.integers(0, 255, n).astype(np.uint8)}
+        write_ply(osp.join(d, f'{scan}_vh_clean_2.ply'), base)
+        write_ply(osp.join(d, f'{scan}_vh_clean_2.labels.ply'),
+                  {**base, 'label': rng.integers(1, 41, n).astype(
+                      np.uint16)})
+        with open(osp.join(
+                d, f'{scan}_vh_clean_2.0.010000.segs.json'), 'w') as f:
+            json.dump({'segIndices': (np.arange(n) // 50).tolist()}, f)
+        with open(osp.join(d, f'{scan}.aggregation.json'), 'w') as f:
+            json.dump({'segGroups': [
+                {'objectId': i, 'segments': list(range(i * 10,
+                                                       i * 10 + 10))}
+                for i in range(5)]}, f)
+    for split, members in (('train', scans[:1]), ('val', scans[1:2]),
+                           ('test', scans[2:])):
+        with open(osp.join(root, 'raw', f'scannetv2_{split}.txt'), 'w') as f:
+            f.write('\n'.join(members) + '\n')
+
+
+# experiment, tree writer, tests/test_cli.py's overrides it keeps
+CLI_DATASETS = {
+    'dales': ('semantic/dales', lambda root, rng: _make_raw_dales(root),
+              PARTITION_3),
+    'kitti360': ('semantic/kitti360', _raw_kitti360, PARTITION_3),
+    'scannet': ('panoptic/scannet', _raw_scannet, PARTITION_3)}
+
+
+@pytest.mark.parametrize('dataset', sorted(CLI_DATASETS))
+def test_train_dataset_cli(tmp_path, dataset):
+    """tests/test_cli.py's `test_train_{dales,kitti360,scannet}_cli` in
+    the port (device=cpu): the reader and the dataset's split lists,
+    SPT-3 (panoptic on ScanNet) trained for an epoch and its checkpoint
+    evaluated on the test clouds (PQ too on ScanNet), with the
+    submission files in each benchmark's format."""
+    experiment, write, keep = CLI_DATASETS[dataset]
+    root = str(tmp_path / dataset)
+    os.makedirs(osp.join(root, 'raw'))
+    write(root, np.random.default_rng(0))
+    out = str(tmp_path / 'out')
+    argv = [o for o in _argv(root, out, experiment)
+            if not o.startswith(('datamodule.pcp_', 'datamodule.graph_gap',
+                                 'datamodule.mini'))
+            and o not in NARROW]
+    argv += keep + NARROW_SPT3 + (
+        ['datamodule.mini=True'] if dataset == 'dales' else [])
+    best = ttrain.main(argv)
+    assert np.isfinite(best)
+    ckpt = osp.join(out, 'checkpoints', 'last')
+    assert osp.exists(osp.join(ckpt, 'state.pt'))
+    sd = torch.load(osp.join(ckpt, 'state.pt'), weights_only=True)['model']
+    # SPT-3: three down stages of 16 channels, two up stages
+    assert sd['net.down_stage_2.in_mlp.linear_0.weight'].shape[0] == 16
+    assert 'net.up_stage_1.in_mlp.linear_0.weight' in sd
+    assert 'net.down_stage_3.in_mlp.linear_0.weight' not in sd
+    got = teval.main(argv + [f'ckpt_path={ckpt}', 'submission=True'])
+    assert got['confmat'].sum() > 0 and np.isfinite(got['miou'])
+    if dataset == 'scannet':
+        assert 0 <= got['pq'] <= 100
+    # the held-out predictions in the benchmark's format, one label a
+    # raw point
+    subs = glob.glob(osp.join(out, 'submission', '*'))
+    assert len(subs) == (2 if dataset == 'dales' else 1)
+    labels = [np.load(p) if p.endswith('.npy') else np.loadtxt(p)
+              for p in subs]
+    assert all(lab.shape == (CLI_POINTS,) for lab in labels)
+    if dataset == 'kitti360':
+        assert osp.basename(subs[0]) == \
+            '0008_0000000002_0000000385.npy'
+        assert labels[0].dtype == np.uint8
+        assert set(np.unique(labels[0])) <= set(
+            tds_kitti360.KITTI360_TRAINID2ID.tolist())
+
+
+def test_kitti360_nano_raises_on_mean_hsv_as_jax(tmp_path):
+    """experiment=semantic/kitti360_nano puts 'hsv' in segment_mean_hf,
+    but no caller of either package computes hsv: preprocessing skips
+    the missing key, and the first batch raises on 'mean_hsv' in both
+    packages alike (mirrored from the JAX package, not repaired)."""
+    root = str(tmp_path / 'kitti360')
+    os.makedirs(osp.join(root, 'raw'))
+    _raw_kitti360(root, np.random.default_rng(0))
+    out = str(tmp_path / 'out')
+    argv = [o for o in _argv(root, out, 'semantic/kitti360_nano')
+            if not o.startswith(('datamodule.pcp_', 'datamodule.graph_gap',
+                                 'datamodule.mini', 'model.'))
+            and o != 'device=cpu'] + PARTITION_3
+    import train as jtrain_cli
+    for main, extra in ((jtrain_cli.main, []),
+                        (ttrain.main, ['device=cpu'])):
+        with pytest.raises(KeyError, match="'mean_hsv' at level 1"):
+            main(argv + extra)

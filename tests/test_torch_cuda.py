@@ -67,7 +67,9 @@ def cuda_device():
     return torch.device('cuda', torch.cuda.current_device())
 
 
-def _inputs(dev, dtype, N, K, H, D, C, De, masked_rows, seed=0):
+def _inputs(dev, dtype, N, K, H, D, C, De, masked_rows, seed=0, fill=0.7):
+    """K2's arguments; a slot is valid with probability `fill` (slot 0
+    always), and the last `masked_rows` rows have none."""
     rng = np.random.default_rng(seed)
 
     def mk(*s, scale=1.0):
@@ -78,7 +80,7 @@ def _inputs(dev, dtype, N, K, H, D, C, De, masked_rows, seed=0):
             mk(De, H * D, scale=0.3), mk(H * D, scale=0.1),
             mk(De, H * D, scale=0.3), mk(H * D, scale=0.1),
             mk(De, C, scale=0.3), mk(C, scale=0.1)]
-    mask = rng.random((N, K)) < 0.7
+    mask = rng.random((N, K)) < fill
     mask[:, 0] = True
     mask[N - masked_rows:] = False
     scale = (rng.random(N) * 0.5 + 0.2).astype(np.float32)
@@ -95,8 +97,14 @@ def _inputs(dev, dtype, N, K, H, D, C, De, masked_rows, seed=0):
     dict(N=2048, K=50, H=16, D=4, C=64, De=32, masked_rows=50),
     # nano-2's widths: H*D = C = 32, De = 16 (one k-step of the RPE
     # projection, 4 column tiles a lane)
-    dict(N=8192, K=48, H=8, D=4, C=32, De=16, masked_rows=100)],
-    ids=['ragged', 'flagship', 'wide_k', 'k50', 'nano'])
+    dict(N=8192, K=48, H=8, D=4, C=32, De=16, masked_rows=100),
+    # SPT-3's level 3 on a tile: fewer nodes than one block's node tile,
+    # off the warp tile; and the aerial graphs (graph_k_max 30, gap 30),
+    # every one of 32 slots valid
+    dict(N=37, K=32, H=16, D=4, C=64, De=32, masked_rows=3),
+    dict(N=3001, K=32, H=16, D=4, C=64, De=32, masked_rows=0, fill=1.0)],
+    ids=['ragged', 'flagship', 'wide_k', 'k50', 'nano', 'small_n',
+         'full_slots'])
 def test_kernel_matches_plain(cuda_device, dtype, shape):
     args = _inputs(cuda_device, dtype, **shape)
     before = dense_attention_rpe.launches
@@ -136,7 +144,8 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         dense_attention_rpe(*args)
 
 
-def _k1_inputs(dev, dtype, N, K, H, D, CH, q_per_edge, masked_rows, seed=0):
+def _k1_inputs(dev, dtype, N, K, H, D, CH, q_per_edge, masked_rows, seed=0,
+               fill=0.7):
     rng = np.random.default_rng(seed)
 
     def mk(*s):
@@ -144,7 +153,7 @@ def _k1_inputs(dev, dtype, N, K, H, D, CH, q_per_edge, masked_rows, seed=0):
             rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
 
     q = mk(N, K, H, D) if q_per_edge else mk(N, H, D)
-    mask = rng.random((N, K)) < 0.7
+    mask = rng.random((N, K)) < fill
     mask[:, 0] = True
     mask[N - masked_rows:] = False
     scale = (rng.random(N) * 0.5 + 0.2).astype(np.float32)
@@ -157,7 +166,11 @@ K1_SHAPES = [dict(N=1000, K=37, H=4, D=4, CH=8, masked_rows=7),
              dict(N=1024, K=160, H=16, D=4, CH=4, masked_rows=50),
              dict(N=2048, K=50, H=16, D=4, CH=4, masked_rows=50),
              # nano-2's training attention: 8 heads of 4 channels
-             dict(N=4096, K=48, H=8, D=4, CH=4, masked_rows=100)]
+             dict(N=4096, K=48, H=8, D=4, CH=4, masked_rows=100),
+             # SPT-3's level 3 (fewer nodes than a node tile) and the
+             # aerial graphs with every slot valid
+             dict(N=37, K=32, H=16, D=4, CH=4, masked_rows=3),
+             dict(N=3001, K=32, H=16, D=4, CH=4, masked_rows=0, fill=1.0)]
 
 
 @pytest.mark.cuda
@@ -165,7 +178,8 @@ K1_SHAPES = [dict(N=1000, K=37, H=4, D=4, CH=8, masked_rows=7),
 @pytest.mark.parametrize('q_per_edge', [False, True],
                          ids=['q_node', 'q_edge'])
 @pytest.mark.parametrize('shape', K1_SHAPES,
-                         ids=['ragged', 'flagship', 'wide_k', 'k50', 'nano'])
+                         ids=['ragged', 'flagship', 'wide_k', 'k50', 'nano',
+                              'small_n', 'full_slots'])
 def test_k1_kernel_matches_plain(cuda_device, dtype, q_per_edge, shape):
     args = _k1_inputs(cuda_device, dtype, q_per_edge=q_per_edge, **shape)
     before = dense_attention.launches

@@ -1,11 +1,14 @@
 """The port's datasets and loaders vs the JAX package's, on a raw S3DIS
 layout of a few thousand points per room (the fixture of
-tests/test_datasets.py): cloud ids, the preprocessing hash and paths per
-stage and fold, the processed HDF5 files field by field, caches read
-across packages, class weights, loader order, the prepared loader's
-workers, tiling, the room-level dataset, the in-memory cache and the
-submission files. Everything here is host numpy and must be equal: no
-tolerance."""
+tests/test_datasets.py) and, in the same raw tree, DALES tiles,
+KITTI-360 windows and ScanNet scans of 4,000 synthetic points each
+(written by the port's `utils/synthetic.py`): cloud ids, the
+preprocessing hash and paths per stage and fold, the processed HDF5 files
+field by field (one 4-level cloud of each new dataset, preprocessed with
+its experiment's own configuration), caches read across packages, class
+weights, loader order, the prepared loader's workers, tiling, the
+room-level dataset, the in-memory cache and the submission files.
+Everything here is host numpy and must be equal: no tolerance."""
 import os
 import os.path as osp
 
@@ -25,9 +28,11 @@ from superpoint_transformer_torch import datasets as tds
 from superpoint_transformer_torch.data.data import Data as TData
 from superpoint_transformer_torch.datasets import base as tbase
 from superpoint_transformer_torch.experiment import (
-    FLAGSHIP_CFG, PANOPTIC_CFG, _pre_transform_config as tpre_cfg)
+    DALES_CFG, FLAGSHIP_CFG, KITTI360_CFG, PANOPTIC_CFG,
+    PANOPTIC_SCANNET_CFG, _pre_transform_config as tpre_cfg)
 from superpoint_transformer_torch.transforms import prepare as tprep
 from superpoint_transformer_torch.transforms import preprocess as tpre
+from superpoint_transformer_torch.utils import synthetic as tsyn
 from test_datasets import PRE_CFG, make_raw_s3dis
 from test_torch_host_path import assert_nags_equal, assert_padded_equal
 from test_torch_trainer import one_torch_thread  # noqa: F401
@@ -37,12 +42,54 @@ N_PER_OBJ = 750      # 4 objects: 3,000 points a room
 # the prepared loader's workers get a deadline of their own, so that a
 # hang fails this test instead of eating the suite's time limit
 WORKER_TIMEOUT_S = 120
+# raw points of each synthetic DALES tile, KITTI-360 window and ScanNet
+# scan: 4 levels under each experiment's own preprocessing
+OTHER_POINTS = 4000
+KITTI360_WINDOWS = {
+    'train': '2013_05_28_drive_0000_sync/0000000002_0000000385',
+    'val': '2013_05_28_drive_0002_sync/0000004391_0000004625',
+    'test': '2013_05_28_drive_0008_sync/0000000002_0000000245'}
+SCANNET_SPLITS = {'train': ['scene0000_00', 'scene0001_00'],
+                  'val': ['scene0002_00'], 'test': ['scene0707_00']}
+
+
+def write_other_raw(root, n_points=OTHER_POINTS):
+    """MiniDALES's 6 tiles, a KITTI-360 window for each split, and 4
+    ScanNet scans (one in `scans_test`) with their split files, under
+    `root`/raw."""
+    raw = osp.join(root, 'raw')
+    os.makedirs(raw, exist_ok=True)
+    seed = 0
+    for split, tiles in tds.dales.DALES_TILES.items():
+        for t in tiles[:2]:
+            cloud, planted = tsyn.synthetic_aerial_cloud(seed=seed,
+                                                         n_points=n_points)
+            cloud['planted'] = planted
+            tsyn.write_dales_tile(osp.join(raw, f'{t}.ply'), cloud)
+            seed += 1
+    for split, window in KITTI360_WINDOWS.items():
+        seq, win = window.split('/')
+        d = osp.join(raw, 'data_3d_semantics', split, seq, 'static')
+        os.makedirs(d)
+        cloud, _ = tsyn.synthetic_aerial_cloud(seed=seed, n_points=n_points)
+        tsyn.write_kitti360_window(osp.join(d, f'{win}.ply'), cloud)
+        seed += 1
+    for split, scans in SCANNET_SPLITS.items():
+        for scan in scans:
+            tsyn.write_scannet_scan(
+                osp.join(raw, 'scans_test' if split == 'test' else 'scans',
+                         scan),
+                tsyn.synthetic_room_cloud(seed=seed, n_points=n_points))
+            seed += 1
+        with open(osp.join(raw, f'scannetv2_{split}.txt'), 'w') as f:
+            f.write('\n'.join(scans) + '\n')
 
 
 @pytest.fixture(scope='module')
 def raw_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp('s3dis_raw'))
     make_raw_s3dis(root, areas=AREAS, rooms=2, n_per_obj=N_PER_OBJ)
+    write_other_raw(root)
     return root
 
 
@@ -70,26 +117,40 @@ def _pair(cls_name, root, **kw):
             getattr(jds, cls_name)(root, **kw))
 
 
-@pytest.mark.parametrize('cls_name', ['S3DIS', 'MiniS3DIS', 'S3DISRoom',
-                                      'MiniS3DISRoom'])
-@pytest.mark.parametrize('stage', ['train', 'val', 'trainval', 'test'])
-@pytest.mark.parametrize('fold', [1, 5])
+STAGES = ('train', 'val', 'trainval', 'test')
+# (fold, stage, class): the S3DIS datasets at folds 1 and 5, the others
+# (no fold) at every stage
+ID_CASES = [pytest.param(fold, stage, cls, id=f'{fold}-{stage}-{cls}')
+            for fold in (1, 5) for stage in STAGES
+            for cls in ('S3DIS', 'MiniS3DIS', 'S3DISRoom', 'MiniS3DISRoom')]
+ID_CASES += [pytest.param(None, stage, cls, id=f'{stage}-{cls}')
+             for stage in STAGES
+             for cls in ('DALES', 'MiniDALES', 'KITTI360', 'MiniKITTI360',
+                         'ScanNet', 'MiniScanNet')]
+
+
+@pytest.mark.parametrize('fold,stage,cls_name', ID_CASES)
 def test_ids_hash_and_paths_equal_jax(raw_root, cls_name, stage, fold):
     cfg = dict(PRE_CFG, with_instances=True) if fold == 1 else PRE_CFG
-    got, ref = _pair(cls_name, raw_root, fold=fold, stage=stage,
-                     pre_transform_config=cfg)
+    kw = {} if fold is None else {'fold': fold}
+    got, ref = _pair(cls_name, raw_root, stage=stage,
+                     pre_transform_config=cfg, **kw)
     assert got.cloud_ids == ref.cloud_ids and got.cloud_ids
     assert got.pre_transform_hash == ref.pre_transform_hash
     assert got.processed_paths == ref.processed_paths
     assert got.all_cloud_ids == ref.all_cloud_ids
 
 
-@pytest.mark.parametrize('cfg', [FLAGSHIP_CFG, PANOPTIC_CFG],
-                         ids=['flagship', 'panoptic'])
+@pytest.mark.parametrize('cfg', [FLAGSHIP_CFG, PANOPTIC_CFG, DALES_CFG,
+                                 KITTI360_CFG, PANOPTIC_SCANNET_CFG],
+                         ids=['flagship', 'panoptic', 'dales', 'kitti360',
+                              'panoptic_scannet'])
 def test_pre_transform_config_and_hash_equal_jax(raw_root, cfg):
     got, ref = tpre_cfg(cfg), jpre_cfg(_to_config(cfg))
     assert repr(sorted(got.items())) == repr(sorted(ref.items()))
-    a, b = _pair('S3DIS', raw_root, pre_transform_config=got)
+    cls_name = {'s3dis': 'S3DIS', 'dales': 'DALES', 'kitti360': 'KITTI360',
+                'scannet': 'ScanNet'}[cfg['datamodule']['dataset']]
+    a, b = _pair(cls_name, raw_root, pre_transform_config=got)
     assert a.pre_transform_hash == b.pre_transform_hash
 
 
@@ -105,16 +166,57 @@ def _h5_fields(path):
     return out
 
 
-def test_processed_files_bit_equal_jax(roots):
-    ds = tds.MiniS3DIS(roots['port'], fold=5, stage='train',
-                       pre_transform_config=PRE_CFG)
-    paths = [p for s in ('train', 'test') for p in tds.MiniS3DIS(
-        roots['port'], fold=5, stage=s,
-        pre_transform_config=PRE_CFG).processed_paths]
-    assert len(paths) == 2 and ds.pre_transform_hash in paths[0]
+# one cloud of each new dataset, preprocessed as its experiment says
+# (ScanNet with the panoptic experiment's instances)
+OTHER_PROCESSED = {'dales': ('MiniDALES', DALES_CFG),
+                   'kitti360': ('MiniKITTI360', KITTI360_CFG),
+                   'scannet': ('MiniScanNet', PANOPTIC_SCANNET_CFG)}
+
+
+def _other_paths(tmp_path_factory, raw_root, name):
+    """{'jax': path, 'port': path} of the first training cloud of `name`
+    processed by each package (in a root of its own), and the NAG."""
+    cls_name, cfg = OTHER_PROCESSED[name]
+    kw = dict(stage='train', pre_transform_config=tpre_cfg(cfg),
+              instances=bool(cfg['datamodule']['instance']))
+    out = {}
+    for pkg, mod in (('jax', jds), ('port', tds)):
+        ds = getattr(mod, cls_name)(
+            _root_with_raw(tmp_path_factory, raw_root, f'{name}_{pkg}'), **kw)
+        cloud = ds.cloud_ids[0]
+        ds._process_single_cloud(cloud)
+        out[pkg] = ds.processed_path(cloud)
+        if pkg == 'port':
+            nag = ds.load(cloud)
+    assert nag.num_levels == 4, name
+    keys = nag[0].keys()
+    assert ('intensity' in keys) == (name == 'dales')
+    assert ('obj' in keys) == (name == 'scannet')
+    if name == 'scannet':
+        # the ceiling's vertices belong to no ScanNet group: object -1
+        ids = nag[0].obj.obj
+        assert (ids == -1).any() and (ids >= 0).any()
+    return out['port'], {out['port']: out['jax']}
+
+
+@pytest.mark.parametrize('dataset', ['s3dis', 'dales', 'kitti360',
+                                     'scannet'])
+def test_processed_files_bit_equal_jax(tmp_path_factory, raw_root, roots,
+                                       dataset):
+    if dataset == 's3dis':
+        ds = tds.MiniS3DIS(roots['port'], fold=5, stage='train',
+                           pre_transform_config=PRE_CFG)
+        paths = [p for s in ('train', 'test') for p in tds.MiniS3DIS(
+            roots['port'], fold=5, stage=s,
+            pre_transform_config=PRE_CFG).processed_paths]
+        assert len(paths) == 2 and ds.pre_transform_hash in paths[0]
+        refs = {p: p.replace(roots['port'], roots['jax']) for p in paths}
+    else:
+        path, refs = _other_paths(tmp_path_factory, raw_root, dataset)
+        paths = [path]
     for path in paths:
         got = _h5_fields(path)
-        ref = _h5_fields(path.replace(roots['port'], roots['jax']))
+        ref = _h5_fields(refs[path])
         assert sorted(got) == sorted(ref)
         for key, value in ref.items():
             if key == 'attrs':
@@ -283,7 +385,10 @@ class _Fake:
     ('labels_txt', np.arange(13) * 3, 'Area_5'),
     ('kitti360_npy', np.arange(13) + 7,
      '2013_05_28_drive_0008_sync/0000000002_0000000385'),
-    ('labels_ply', None, 'Area_5')])
+    ('labels_ply', None, 'Area_5'),
+    ('kitti360_npy', tds.KITTI360.submission_id_map,
+     '2013_05_28_drive_0000_sync/0000000002_0000000385'),
+    ('labels_txt', tds.ScanNet.submission_id_map, 'scene0000_00')])
 def test_make_submission_files_byte_equal_jax(tmp_path, fmt, idmap,
                                               cloud_id):
     pred = np.random.default_rng(0).integers(0, 13, 500)

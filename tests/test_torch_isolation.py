@@ -6,9 +6,10 @@ a synthetic room and serves it through `prepare_batch` and `infer_nag`,
 runs the panoptic path (instance ids, a panoptic training step and
 `validate_panoptic`), fits the flagship task for one epoch with the
 `Trainer` on an in-memory dataset (checkpoints and CSV metrics written),
-and runs EZ-SP's two stages (`fit_partition`, then `preprocess_cloud`
+runs EZ-SP's two stages (`fit_partition`, then `preprocess_cloud`
 with the frozen CNN of its checkpoint and the greedy contour-prior
-partition). No module of the port imports the JAX package, jax, flax,
+partition), and reads DALES, KITTI-360 and ScanNet raw files, serving a
+preprocessed DALES tile with SPT-3. No module of the port imports the JAX package, jax, flax,
 optax or orbax, even inside a function.
 Its native library is its own build of `native/*.cpp`, never the prebuilt
 `native/libspt_native.so`, and a failed build raises."""
@@ -182,6 +183,44 @@ SCRIPT = textwrap.dedent('''
     assert ezsp[0].num_nodes > ezsp[1].num_nodes > 1
     print('EZSP_OK')
 
+    # the DALES, KITTI-360 and ScanNet readers on the port's synthetic
+    # raw files, a DALES tile preprocessed as experiment=semantic/dales
+    # says and served by SPT-3 at full width, and build_datasets for the
+    # three datasets
+    from superpoint_transformer_torch.datasets.dales import read_dales_tile
+    from superpoint_transformer_torch.datasets.kitti360 import (
+        read_kitti360_window)
+    from superpoint_transformer_torch.datasets.scannet import (
+        read_scannet_scan)
+    from superpoint_transformer_torch.experiment import (
+        DALES_CFG, KITTI360_CFG, PANOPTIC_SCANNET_CFG,
+        _pre_transform_config, build_batch_config, build_datasets)
+    from superpoint_transformer_torch.utils import synthetic as syn
+    raw_dir = tempfile.mkdtemp()
+    aerial, _ = syn.synthetic_aerial_cloud(seed=0, n_points=4_000)
+    syn.write_dales_tile(os.path.join(raw_dir, 'tile.ply'), aerial)
+    syn.write_kitti360_window(os.path.join(raw_dir, 'win.ply'), aerial)
+    syn.write_scannet_scan(os.path.join(raw_dir, 'scene0000_00'),
+                           synthetic_room_cloud(seed=0, n_points=4_000))
+    tile = read_dales_tile(os.path.join(raw_dir, 'tile.ply'))
+    assert read_kitti360_window(os.path.join(raw_dir, 'win.ply')
+                                ).rgb.dtype == np.uint8
+    assert (read_scannet_scan(os.path.join(raw_dir, 'scene0000_00'),
+                              instances=True).obj == -1).any()
+    dnag = preprocess_cloud(tile, num_classes=8,
+                            **_pre_transform_config(DALES_CFG))
+    assert dnag.num_levels == 4 and 'intensity' in dnag[0].keys()
+    spt3 = SemanticSegmentationModel(
+        build_model(DALES_CFG, num_graphs=1, device='cpu'), 8)
+    init_weights(spt3, torch.Generator().manual_seed(0)).eval()
+    pred = infer_nag(spt3, dnag, build_batch_config(DALES_CFG))
+    assert pred.shape == (dnag[1].num_nodes,) and pred.max() < 8
+    for c in (DALES_CFG, KITTI360_CFG, PANOPTIC_SCANNET_CFG):
+        c = dict(c, datamodule=dict(c['datamodule'], data_dir=raw_dir),
+                 device='cpu')
+        assert sorted(build_datasets(c)) == ['test', 'train', 'val']
+    print('READERS_OK')
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
@@ -228,6 +267,15 @@ def test_ezsp_runs_without_jax_flax_orbax_h5py_yaml(blocked_run):
     preprocessing from its checkpoint, with the same imports blocked."""
     assert blocked_run.returncode == 0, blocked_run.stderr
     assert 'EZSP_OK' in blocked_run.stdout
+
+
+def test_readers_and_spt3_run_without_jax_flax_h5py_yaml(blocked_run):
+    """The DALES, KITTI-360 and ScanNet readers on the port's synthetic
+    raw files, a DALES tile preprocessed into 4 levels and served by
+    SPT-3 at full width, and `build_datasets` for the three datasets,
+    with the same imports blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'READERS_OK' in blocked_run.stdout
 
 
 def _imports(path):
