@@ -47,7 +47,26 @@ against its plain PyTorch version:
    caps pinned by `discover_caps`, holds K2 and K1 against their plain
    versions on the inputs of their level-1 launches there, and times the
    forward and the step on these batches beside `random_padded_nag` at
-   the same node counts;
+   the same node counts; then whole-cloud serving on these rooms
+   (`phase_whole_cloud`, a path of its own): `voxelize_device` against
+   the host grouping of the same cells, the device KNN against the same
+   function on CPU tensors (ids equal) and against the native host KNN
+   (recall; both timed in s per 1M raw points), `geometric_features` on
+   the card against `geometric_features_np`, `preprocess_cloud` and
+   `e2e_inference` with `knn_backend='device'` (K2 alone, every raw point
+   labelled), `infer_nags_stacked` over the 4 rooms bit-equal to the
+   per-tile `infer_nag` loop and to itself, timed against it in turns,
+   with the device-to-host synchronizations of each counted
+   (`torch.cuda.set_sync_debug_mode`), K2 held against its plain
+   version on the stacked chunk's last tile (views at a non-zero offset
+   into the stacked tensors), a flagship reference-checkpoint round trip
+   (`import_reference_checkpoint`: bit-equal logits), the 4 rooms
+   preprocessed with the device KNN one by one and over 4 spawned
+   workers that see the card (the same nodes), and with the host KNN
+   over 4 workers that see none, each timed, `device_memory_stats`,
+   and `e2e_inference`'s preprocess phase in 5 pairs of fresh processes
+   with the host allocator tuned and with SPT_NO_MALLOC_TUNING=1, in
+   alternating order;
 8. SuperCluster panoptic segmentation (`experiment=panoptic/s3dis`,
    SPT-2 width, random weights): 2 synthetic rooms of 250k raw points
    with instance ids through `preprocess_cloud(with_instances=True)`;
@@ -121,8 +140,10 @@ against its plain PyTorch version:
    dales (`experiment=semantic/dales`, MiniDALES's 6 tiles of 200k
    points): `train(cfg, datasets)` for 2 epochs, `evaluate` from its
    checkpoint (its mIoU the logged one), a 4-tile batch through
-   `infer_batch` (3 requests) and a raw tile through `e2e_inference`,
-   the forward and a step timed, K1 and K2 held and timed on the
+   `infer_batch` (3 requests), a raw tile through `e2e_inference`, the
+   4 tiles through `infer_nags_stacked` (twice) bit-equal to the
+   per-tile `infer_nag` loop, the forward and a step timed, K1 and K2
+   held and timed on the
    arguments of their widest launches; kitti360 (`semantic/kitti360`, a
    window of 200k points each for train and val): 1 epoch and
    `evaluate`; scannet (`panoptic/scannet`, a scan of 100k vertices each
@@ -247,6 +268,21 @@ SDPA_ATOL = 3e-2
 HOST_ROOMS = 4
 HOST_ROOM_POINTS = 250_000
 HOST_PROBES = 2
+# whole-cloud serving on the host path's rooms: the flagship voxel size;
+# voxel means (f32 sums of coordinates up to ~10 m) within 1e-5 m of the
+# host's f64 means; the device KNN's recall of the host (native) KNN at
+# the JAX test's bound, and its distances on the card within 1e-6 of the
+# same function on CPU tensors (the same separately rounded f32 ops);
+# the eigen features on the card within 1e-3 of the native kernel's (a
+# CPU run of the same closed form reads <= 6.2e-5 on a synthetic room),
+# and the normals, where the planarity exceeds 0.05, within |cos| 0.999
+VOXEL = 0.03
+VOXEL_MEAN_ATOL = 1e-5
+KNN_RECALL_MIN = 0.99
+KNN_DIST_RTOL = 1e-6
+GEOF_ATOL = 1e-3
+NORMAL_PLANARITY_MIN = 0.05
+NORMAL_COS_MIN = 0.999
 # SuperCluster (experiment=panoptic/s3dis): 2 synthetic rooms with
 # instance ids, 2 evaluation batches and 3 training batches of 4 graphs
 # (each room twice)
@@ -1124,16 +1160,17 @@ def plain_attention_calls():
 
 
 @contextlib.contextmanager
-def widest_call(name):
+def widest_call(name, rank=lambda args: args[0].shape[0]):
     """While the block runs, keep the arguments (detached, not copied)
-    of the attention block's call of `name` with the most rows."""
+    of the attention block's call of `name` with the most rows (the
+    first of the largest `rank`)."""
     import torch
     from superpoint_transformer_torch.nn import attention as block
     fn = getattr(block, name)
     kept = []
 
     def keeping(*args):
-        if not kept or args[0].shape[0] > kept[0].shape[0]:
+        if not kept or rank(args) > rank(kept):
             kept[:] = [a.detach() if torch.is_tensor(a) else a
                        for a in args]
         return fn(*args)
@@ -1417,7 +1454,432 @@ def phase_host_path(dev, card):
                          train=True)
     compare_real_random('flagship train step', task.train_step,
                         {'prepared': batch, **twins}, card)
-    return {'K2': serve_launches, 'K1': train_launches}
+    return {'K2': serve_launches, 'K1': train_launches}, nags
+
+
+def recall(ref, got):
+    """Share of the valid neighbors of the [N, k] table `ref` (-1 padded)
+    that the table `got` holds in the same row."""
+    import numpy as np
+    n = ref.shape[0]
+    rows = np.arange(n, dtype=np.int64)[:, None] * (n + 1)
+    want = (rows + ref)[ref >= 0]
+    have = (rows + got)[got >= 0]
+    return float(np.isin(want, have).mean())
+
+
+def sync_count(fn):
+    """(fn(), the device-to-host synchronizations that PyTorch's sync
+    debug mode reports during it)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return out, sum('synchroniz' in str(w.message) for w in caught)
+
+
+ALLOCATOR_RUN = """
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import superpoint_transformer_torch
+from superpoint_transformer_torch.inference import tile_cloud
+from superpoint_transformer_torch.transforms.preprocess import (
+    preprocess_cloud)
+from superpoint_transformer_torch.utils import memory
+from superpoint_transformer_torch.utils.synthetic import synthetic_room_cloud
+raw = synthetic_room_cloud(seed=int(sys.argv[2]), n_points=int(sys.argv[1]))
+t0 = time.perf_counter()
+nags = [preprocess_cloud(tile) for tile, _ in tile_cloud(raw, (1, 1))]
+print('ALLOCATOR ' + json.dumps({'tuned': memory._MALLOC_TUNED,
+                                 'preprocess': time.perf_counter() - t0}))
+"""
+# fresh processes a setting of the host allocator, in pairs whose order
+# alternates (tuned first, then untuned first, ...)
+ALLOCATOR_PAIRS = 5
+
+
+def allocator_runs(card):
+    """The preprocess phase of `e2e_inference` (`preprocess_cloud` of
+    each tile of a host-path room, one tile) timed in fresh processes,
+    ALLOCATOR_PAIRS with the allocator tuned at import (the default) and
+    as many with SPT_NO_MALLOC_TUNING=1, in alternating order; prints
+    every reading, the medians and ranges, and whether the ranges are
+    apart. Returns {tuned: [seconds]}."""
+    import numpy as np
+    out = {True: [], False: []}
+    order = [t for i in range(ALLOCATOR_PAIRS)
+             for t in ((True, False) if i % 2 == 0 else (False, True))]
+    for tuned in order:
+        env = {k: v for k, v in os.environ.items()
+               if k != 'SPT_NO_MALLOC_TUNING'}
+        if not tuned:
+            env['SPT_NO_MALLOC_TUNING'] = '1'
+        res = subprocess.run(
+            [sys.executable, '-c', ALLOCATOR_RUN, str(HOST_ROOM_POINTS),
+             str(SEED)], cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=300)
+        check(res.returncode == 0, f'allocator run (tuned={tuned}) failed:\n'
+              f'{res.stderr[-2000:]}')
+        line = next(ln for ln in res.stdout.splitlines()
+                    if ln.startswith('ALLOCATOR '))
+        got = json.loads(line[len('ALLOCATOR '):])
+        check(got['tuned'] is tuned, f'allocator tuned {got["tuned"]}, '
+              f'expected {tuned}')
+        out[tuned].append(got['preprocess'])
+    on, off = out[True], out[False]
+    apart = max(on) < min(off) or max(off) < min(on)
+    print(f'e2e_inference\'s preprocess phase of a room of '
+          f'{HOST_ROOM_POINTS} raw points on {card}\'s host, each in a fresh '
+          f'process, {ALLOCATOR_PAIRS} pairs in alternating order (s): '
+          f'allocator tuned (default) {on}, median {np.median(on)}, range '
+          f'{min(on)}-{max(on)}; untuned (SPT_NO_MALLOC_TUNING=1) {off}, '
+          f'median {np.median(off)}, range {min(off)}-{max(off)}; ranges '
+          f'{"apart" if apart else "overlap: no effect resolved"}')
+    return out
+
+
+def preprocess_room(args):
+    """(seconds, nodes per level) of `preprocess_cloud` with the KNN
+    `backend` on `device` of the synthetic room `seed` of `n_points` raw
+    points; a dataset worker's task (`map_in_workers`)."""
+    seed, n_points, backend, device = args
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+    raw = synthetic_room_cloud(seed=seed, n_points=n_points)
+    t0 = time.perf_counter()
+    nag = preprocess_cloud(raw, knn_backend=backend, device=device)
+    return time.perf_counter() - t0, [nag[i].num_nodes for i in nag.levels]
+
+
+def dataset_pool_runs(card, dev, rooms):
+    """Dataset preprocessing of `rooms` host-path rooms, timed three
+    ways: with the device KNN one by one in this process; with it over
+    as many spawned workers that see the card (`map_in_workers`, as
+    `BaseDataset.process` runs them), which must give the same nodes per
+    level; with the host KNN over as many workers that see no card."""
+    from superpoint_transformer_torch.datasets import base
+
+    def tasks(backend, device):
+        return [(SEED + i, HOST_ROOM_POINTS, backend, device)
+                for i in range(rooms)]
+
+    t0 = time.perf_counter()
+    alone = [preprocess_room(t) for t in tasks('device', str(dev))]
+    alone_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pooled = base.map_in_workers(preprocess_room, tasks('device', str(dev)),
+                                 rooms, card=True)
+    pool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = base.map_in_workers(preprocess_room, tasks('host', 'cpu'), rooms)
+    host_s = time.perf_counter() - t0
+    rounded = lambda runs: [round(r[0], 2) for r in runs]
+    print(f'dataset preprocessing of {rooms} rooms of {HOST_ROOM_POINTS} '
+          f'raw points on {card} ({os.cpu_count()} host cores), wall s with '
+          f'the workers\' start, then s a room: device KNN in this process '
+          f'one by one {alone_s:.2f} {rounded(alone)}; device KNN over '
+          f'{rooms} spawned workers that see the card {pool_s:.2f} '
+          f'{rounded(pooled)}; host KNN over {rooms} workers that see no '
+          f'card {host_s:.2f} {rounded(host)}')
+    check([a[1] for a in alone] == [p[1] for p in pooled],
+          'the dataset workers\' device preprocessing differs from this '
+          'process\'s')
+    check(all(len(h[1]) == 4 for h in host),
+          'the host-KNN workers did not preprocess 4 levels')
+
+
+def reference_state_dict(module):
+    """The reference-format state_dict of a port module (the inverse of
+    `import_reference_checkpoint` for Linear and norm parameters): each
+    parameter under its reference key, Linear weights [out, in] as
+    they are."""
+    from superpoint_transformer_torch.utils.import_ckpt import (
+        flax_path, reference_key_for)
+    state = {}
+    for name, p in module.named_parameters():
+        key = reference_key_for(flax_path(name, p))
+        check(key is not None, f'no reference key for {name}')
+        state[key] = p.detach().cpu().clone()
+    return state
+
+
+def phase_whole_cloud(dev, card, nags):
+    """Whole-cloud serving on the host path's rooms `nags`: the device
+    preprocessing (grid KNN, voxelization, eigen features) on the card,
+    held against the same functions on CPU tensors and against the host
+    versions, and timed against the host KNN; `preprocess_cloud` and
+    `e2e_inference` with `knn_backend='device'`; `infer_nags_stacked`
+    over the rooms, bit-equal to the per-tile `infer_nag` loop and to
+    itself, timed against the loop with its synchronizations counted,
+    and K2 held on a stacked tile's inputs; a reference-format
+    checkpoint round trip of the flagship (bit-equal logits); dataset
+    preprocessing with the device KNN in this process and over workers
+    that see the card; the device memory statistics and the host
+    allocator's effect on `e2e_inference`'s preprocessing. Returns the K2
+    launches of its serving runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (FLAGSHIP_CFG,
+                                                         build_model)
+    from superpoint_transformer_torch.inference import (
+        EVAL_BATCH_OVERRIDES, e2e_inference, infer_nag, infer_nags_stacked,
+        pin_signature)
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.ops.device_preprocess import (
+        grid_knn_device, voxelize_device)
+    from superpoint_transformer_torch.ops.geometry import (
+        geometric_features, geometric_features_np)
+    from superpoint_transformer_torch.transforms.prepare import (
+        BatchConfig, prepare_batch, process_batch)
+    from superpoint_transformer_torch.transforms.preprocess import (
+        _device_knn_grid, grid_sampling, knn_search, preprocess_cloud)
+    from superpoint_transformer_torch.utils.import_ckpt import (
+        import_reference_checkpoint)
+    from superpoint_transformer_torch.utils.memory import (
+        device_memory_stats)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+
+    settle()
+    raw = synthetic_room_cloud(seed=SEED, n_points=HOST_ROOM_POINTS)
+    n_raw = raw.num_nodes
+    per_m = 1e6 / n_raw
+
+    # voxelization on the card vs the host grouping of the same cells
+    pos_raw = np.asarray(raw.pos, np.float32)
+    vox_cap = 1 << int(np.ceil(np.log2(n_raw)))
+    t0 = time.perf_counter()
+    out = voxelize_device(torch.from_numpy(pos_raw).to(dev),
+                          torch.zeros((n_raw, 0), device=dev),
+                          torch.ones(n_raw, dtype=torch.bool, device=dev),
+                          VOXEL, vox_cap)
+    nv = int(out['num_voxels'])
+    vox_s = time.perf_counter() - t0
+    cells = np.floor(pos_raw / np.float32(VOXEL)).astype(np.int64)
+    _, inv, cnt = np.unique(cells, axis=0, return_inverse=True,
+                            return_counts=True)
+    sums = np.zeros((len(cnt), 3))
+    np.add.at(sums, inv.ravel(), pos_raw.astype(np.float64))
+    sup = out['super_index'].cpu().numpy()
+    mean_err = np.abs(out['pos_mean'][:nv].cpu().numpy()
+                      - sums / cnt[:, None]).max()
+    vox = grid_sampling(raw.clone(), VOXEL, hist_key='y', hist_size=14)
+    print(f'voxelize_device on {card}: {n_raw} raw points -> {nv} voxels '
+          f'(floor cells; grid_sampling\'s rounded cells give '
+          f'{vox.num_nodes}) in {vox_s * 1e3:.1f} ms with the first call; '
+          f'ids and counts equal to the host grouping: '
+          f'{np.array_equal(sup, inv.ravel())}, '
+          f'{np.array_equal(out["counts"][:nv].cpu().numpy(), cnt)}; '
+          f'mean positions max abs err {mean_err:.3e}')
+    check(nv == len(cnt) and np.array_equal(sup, inv.ravel())
+          and np.array_equal(out['counts'][:nv].cpu().numpy(), cnt)
+          and mean_err <= VOXEL_MEAN_ATOL,
+          'voxelize_device disagrees with the host grouping')
+
+    # the KNN of the flagship preprocessing on the room's voxels: host
+    # (native) vs device (torch ops on the card), each timed
+    def knn(backend):
+        d = grid_sampling(raw.clone(), VOXEL, hist_key='y', hist_size=14)
+        t0 = time.perf_counter()
+        d = knn_search(d, k=45, r_max=2.0, backend=backend, device=dev)
+        return d, time.perf_counter() - t0
+
+    knn('device')                                   # warm-up
+    host_d, host_s = knn('host')
+    dev_d, dev_s = knn('device')
+    rec = recall(host_d.neighbor_index.astype(np.int64),
+                 dev_d.neighbor_index)
+    pos = np.asarray(dev_d.pos, np.float32)
+    h, cell_cap, r = _device_knn_grid(pos, 2.0)
+    print(f'knn_search (k=45, r_max=2) of {len(pos)} voxels on {card}: '
+          f'host (native) {host_s:.3f} s = {host_s * per_m:.3f} s per 1M '
+          f'raw points; device (torch) {dev_s:.3f} s = '
+          f'{dev_s * per_m:.3f} s per 1M raw points (grid h={h}, '
+          f'cell_cap={cell_cap}, r={r}, reach 3); device recall of the '
+          f'host neighbors {rec:.5f}')
+    check(rec >= KNN_RECALL_MIN, f'device KNN recall {rec} below '
+          f'{KNN_RECALL_MIN}')
+
+    # the device KNN on the card vs the same function on CPU tensors, on
+    # a quarter of the room (x and y below their medians)
+    q = (pos[:, 0] < np.median(pos[:, 0])) & (pos[:, 1] < np.median(pos[:, 1]))
+    kw = dict(r=r, k=45, cell_cap=cell_cap, reach=3, cell_size=h,
+              chunk=2048)
+    sub = torch.from_numpy(pos[q])
+    ones = torch.ones(len(sub), dtype=torch.bool)
+    t0 = time.perf_counter()
+    cpu_nbr, cpu_dist = grid_knn_device(sub, ones, **kw)
+    cpu_s = time.perf_counter() - t0
+    gpu_nbr, gpu_dist = grid_knn_device(sub.to(dev), ones.to(dev), **kw)
+    gpu_nbr, gpu_dist = gpu_nbr.cpu(), gpu_dist.cpu()
+    fin = torch.isfinite(cpu_dist)
+    dist_err = ((gpu_dist[fin] - cpu_dist[fin]).abs()
+                / cpu_dist[fin].clamp(min=1e-30)).max().item()
+    print(f'grid_knn_device on {card} vs on CPU tensors ({len(sub)} voxels, '
+          f'{os.cpu_count()} host cores, {cpu_s:.2f} s there): ids equal '
+          f'{torch.equal(gpu_nbr, cpu_nbr)}, distances max rel err '
+          f'{dist_err:.3e}')
+    check(torch.equal(gpu_nbr, cpu_nbr)
+          and torch.equal(torch.isfinite(gpu_dist), fin)
+          and dist_err <= KNN_DIST_RTOL,
+          'grid_knn_device on the card disagrees with the CPU')
+
+    # eigen features on the card vs the host's native kernel
+    nbr = dev_d.neighbor_index
+    t0 = time.perf_counter()
+    feats = geometric_features(torch.from_numpy(pos).to(dev),
+                               torch.from_numpy(nbr).to(dev),
+                               torch.from_numpy(nbr >= 0).to(dev), k_min=1)
+    feats = {k: v.cpu().numpy() for k, v in feats.items()}
+    geo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = geometric_features_np(pos, nbr, nbr >= 0, k_min=1,
+                                raw_invalid=True)
+    geo_np_s = time.perf_counter() - t0
+    errs = {k: float(np.abs(feats[k] - ref[k]).max()) for k in ref
+            if k != 'normal'}
+    defined = ref['planarity'][:, 0] > NORMAL_PLANARITY_MIN
+    dots = np.abs((feats['normal'] * ref['normal']).sum(1))[defined]
+    print(f'geometric_features on {card} ({geo_s:.3f} s with the copies) '
+          f'vs geometric_features_np (native, {geo_np_s:.3f} s): max abs '
+          f'err {errs}; normals where planarity > {NORMAL_PLANARITY_MIN} '
+          f'({defined.mean():.4f} of the voxels): min |cos| '
+          f'{dots.min():.6f}')
+    check(max(errs.values()) <= GEOF_ATOL and dots.min() >= NORMAL_COS_MIN,
+          'geometric_features on the card disagrees with the host')
+
+    # a room preprocessed with the device KNN, then e2e_inference with it
+    t0 = time.perf_counter()
+    dnag = preprocess_cloud(raw.clone(), knn_backend='device',
+                            device=dev)
+    pre_s = time.perf_counter() - t0
+    check(dnag.num_levels == 4 and all(dnag[i].num_nodes > 0
+                                       for i in dnag.levels),
+          'preprocess_cloud(knn_backend="device"): a level is empty')
+    print(f'preprocess_cloud(knn_backend="device") of room 0 on {card}: '
+          f'{pre_s:.2f} s ({pre_s * per_m:.2f} s per 1M raw points), nodes '
+          f'per level {[dnag[i].num_nodes for i in dnag.levels]}')
+    model = SemanticSegmentationModel(build_model(
+        FLAGSHIP_CFG, num_graphs=1, device=dev), 13, device=dev)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    model.eval()
+    reset_counts()
+    with plain_attention_calls() as plain:
+        full, info = e2e_inference(model, raw.clone(), pre_cfg=dict(
+            knn_backend='device', device=dev))
+    launches = counts()
+    print(f'e2e_inference with the device KNN on {card}: {info}; launches '
+          f'{launches}')
+    check(full.shape == (n_raw,) and full.min() >= 0 and full.max() < 13
+          and launches['K2'] == 2 * K2_LAUNCHES_PER_FORWARD
+          and launches['K1'] == launches['K3'] == plain['plain'] == 0,
+          'e2e_inference with the device KNN: a raw point has no label, or '
+          'not K2 alone (a warm-up and a forward)')
+    served = launches['K2']
+
+    # stacked serving of the 4 host-path rooms vs the per-tile loop
+    cfg = dataclasses.replace(BatchConfig(), **EVAL_BATCH_OVERRIDES)
+    cfg = pin_signature([process_batch([n], cfg, train=False)
+                         for n in nags], cfg)
+    reset_counts()
+    times = {'loop': [], 'stacked': []}
+    preds = {'loop': [], 'stacked': []}
+    # K2 is held on the stacked run's last tile: its inputs are views at
+    # a non-zero offset into the chunk's stacked tensors (the mask, the
+    # 11th argument, is the batch's own)
+    with widest_call('dense_attention_rpe', rank=lambda args: (
+            args[0].shape[0], args[10].storage_offset())) as k2_args:
+        for name in ('loop', 'stacked', 'stacked', 'loop'):
+            t = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == 'loop':
+                p = [infer_nag(model, n, cfg, timings=t) for n in nags]
+            else:
+                p = infer_nags_stacked(model, nags, cfg, timings=t)
+            t['wall'] = time.perf_counter() - t0
+            times[name].append(t)
+            preds[name].append(p)
+    launches = counts()
+    check(launches['K2'] == 4 * len(nags) * K2_LAUNCHES_PER_FORWARD
+          and launches['K1'] == launches['K3'] == 0,
+          'stacked and loop serving: not 7 K2 launches a room')
+    served += launches['K2']
+    loop_p, st_p = preds['loop'], preds['stacked']
+    check(all(np.array_equal(a, b) for run in loop_p + st_p[1:]
+              for a, b in zip(st_p[0], run)),
+          'stacked predictions differ from the per-tile loop or between '
+          'two stacked runs')
+    _, st_syncs = sync_count(lambda: infer_nags_stacked(model, nags, cfg))
+    _, loop_syncs = sync_count(lambda: [infer_nag(model, n, cfg)
+                                        for n in nags])
+    fmt = lambda ts: [{k: round(v * 1e3, 2) for k, v in t.items()}
+                      for t in ts]
+    print(f'serving the {len(nags)} host-path rooms on {card} (ms, rounds '
+          f'loop, stacked, stacked, loop): per-tile infer_nag loop '
+          f'{fmt(times["loop"])}; infer_nags_stacked (one chunk of '
+          f'{len(nags)}) {fmt(times["stacked"])}; predictions bit-equal '
+          f'(loop = stacked, stacked twice); device-to-host '
+          f'synchronizations flagged by torch.cuda.set_sync_debug_mode: '
+          f'stacked {st_syncs} for the chunk, loop {loop_syncs} for '
+          f'{len(nags)} tiles')
+    served += counts()['K2'] - launches['K2']
+    offset = k2_args[10].storage_offset()
+    print(f'K2 held on the stacked chunk\'s tile {len(nags) - 1}: its mask '
+          f'sits at element {offset} of its stacked tensor '
+          f'({k2_args[10].untyped_storage().nbytes()} bytes)')
+    check(offset > 0, 'the K2 call kept is not a stacked tile\'s')
+    hold_on_path('K2', k2_args, 'whole-cloud path')
+
+    # a reference-format checkpoint of the flagship, imported into a
+    # model of other weights: the same parameters and logits, bit for bit
+    twin = SemanticSegmentationModel(build_model(
+        FLAGSHIP_CFG, num_graphs=1, device=dev), 13, device=dev)
+    init_weights(twin, torch.Generator().manual_seed(SEED + 30))
+    twin.eval()
+    state = reference_state_dict(model)
+    report = import_reference_checkpoint(state, twin)
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 twin.parameters()))
+    batch = from_numpy(prepare_batch([nags[0]], cfg, train=False), dev,
+                       model.net.compute_dtype)
+    reset_counts()
+    with torch.inference_mode():
+        a, b = model(batch), twin(batch)
+    served += counts()['K2']
+    print(f'reference checkpoint round trip on {card}: '
+          f'{len(report["mapped"])} tensors mapped, missing '
+          f'{report["missing"]}, unused {report["unused_reference_keys"]}; '
+          f'parameters equal {same}; logits bit-equal '
+          f'{all(torch.equal(x, y) for x, y in zip(a, b))}')
+    check(same and not report['missing']
+          and not report['unused_reference_keys']
+          and all(torch.equal(x, y) for x, y in zip(a, b)),
+          'reference checkpoint round trip: parameters or logits differ')
+    del a, b, batch, twin, model
+
+    stats = device_memory_stats()['cuda:0']
+    print('device_memory_stats cuda:0 on ' + card + ': ' + json.dumps(
+        {k: stats[k] for k in ('allocated_bytes.all.peak',
+                               'reserved_bytes.all.peak',
+                               'allocated_bytes.all.current',
+                               'num_alloc_retries', 'num_ooms')}))
+    settle()
+    dataset_pool_runs(card, dev, len(nags))
+    settle()
+    allocator_runs(card)
+    return served
 
 
 class OracleTask:
@@ -2777,9 +3239,11 @@ def hold_spt3(name, cfg, eval_nags, train_nags, dev, rng_seed):
 
 
 def dales_serving(cfg, datasets, raw_dir, dev, card):
-    """A 4-tile batch served through `infer_batch` (3 requests) and one
-    raw tile through `e2e_inference`, by SPT-3 in bf16; the forward and
-    a training step timed. Returns (K2 launches, widest K2 arguments)."""
+    """A 4-tile batch served through `infer_batch` (3 requests), one raw
+    tile through `e2e_inference`, and the 4 tiles through
+    `infer_nags_stacked` (twice, bit-equal to the per-tile `infer_nag`
+    loop), by SPT-3 in bf16; the forward and a training step timed.
+    Returns (K2 launches, widest K2 arguments)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2788,12 +3252,13 @@ def dales_serving(cfg, datasets, raw_dir, dev, card):
     from superpoint_transformer_torch.experiment import (
         _pre_transform_config, build_batch_config, build_model, build_task)
     from superpoint_transformer_torch.inference import (
-        EVAL_BATCH_OVERRIDES, e2e_inference, infer_batch)
+        EVAL_BATCH_OVERRIDES, e2e_inference, infer_batch, infer_nag,
+        infer_nags_stacked, pin_signature)
     from superpoint_transformer_torch.models.semantic import (
         SemanticSegmentationModel)
     from superpoint_transformer_torch.nn.mlp import init_weights
     from superpoint_transformer_torch.transforms.prepare import (
-        prepare_batch)
+        prepare_batch, process_batch)
     n_cls = int(cfg['datamodule']['num_classes'])
     tiles = [datasets[s][i] for s in ('train', 'val')
              for i in range(len(datasets[s]))][:DALES_SERVE_TILES]
@@ -2851,6 +3316,26 @@ def dales_serving(cfg, datasets, raw_dir, dev, card):
           and launches['K2'] % SPT3_LAUNCHES == 0
           and launches['K1'] == launches['K3'] == plain['plain'] == 0,
           'dales e2e_inference: a raw point has no label, or not K2 alone')
+    served += launches['K2']
+
+    # the served tiles through infer_nags_stacked (twice) vs the per-tile
+    # infer_nag loop, at their shared signature
+    pcfg = pin_signature([process_batch([t], ecfg, train=False)
+                          for t in tiles], ecfg)
+    reset_counts()
+    tl, ts = {}, {}
+    loop = [infer_nag(model, t, pcfg, timings=tl) for t in tiles]
+    stacked = [infer_nags_stacked(model, tiles, pcfg, timings=ts)
+               for _ in range(2)]
+    launches = counts()
+    print(f'dales stacked serving of {len(tiles)} tiles on {card}: '
+          f'per-tile loop {tl}, stacked (2 runs) {ts} (s); launches '
+          f'{launches}')
+    check(all(np.array_equal(a, b) for run in stacked
+              for a, b in zip(run, loop))
+          and launches['K2'] == 3 * len(tiles) * SPT3_LAUNCHES,
+          'dales: stacked predictions differ from the per-tile loop or '
+          'between two stacked runs')
     served += launches['K2']
     del model
 
@@ -3074,7 +3559,9 @@ def main():
     launches = {'K2': phase_serving(dev, card),
                 'K1': phase_training(dev, card),
                 'K3': phase_fused_rpe_training(dev)}
-    host_path = phase_host_path(dev, card)
+    host_path, host_nags = phase_host_path(dev, card)
+    whole_cloud = {'K2': phase_whole_cloud(dev, card, host_nags)}
+    del host_nags
     panoptic, pan_nags = phase_panoptic(dev, card)
     # the fit phase's rooms serve the EZ-SP and nano phases too
     rooms = tempfile.TemporaryDirectory()
@@ -3086,10 +3573,10 @@ def main():
     finally:
         rooms.cleanup()
     paths = {'serving/training/fused-RPE': launches, 'host': host_path,
-             'panoptic': panoptic, 'fit-and-evaluate': fit, 'ezsp': ezsp,
+             'whole-cloud': whole_cloud, 'panoptic': panoptic, 'fit-and-evaluate': fit, 'ezsp': ezsp,
              'nano': nano, **datasets}
     print(f'launches by path: serving/training/fused-RPE {launches}, '
-          f'host path {host_path}')
+          f'host path {host_path}, whole-cloud serving {whole_cloud}')
     print(f'launches on the panoptic path: {panoptic}')
     print(f'launches on the fit-and-evaluate path: {fit}')
     print(f'launches on the EZ-SP path: {ezsp}')

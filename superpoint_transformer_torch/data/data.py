@@ -16,6 +16,7 @@ h5py is imported only there.
 """
 import numpy as np
 
+from ..debug import is_debug_enabled, validate_data
 from .csr import CSRData, Cluster, InstanceData
 from .io import (
     save_array, load_array, save_dense_to_csr, load_csr_to_dense)
@@ -33,6 +34,8 @@ class Data:
         for k, v in kwargs.items():
             if v is not None:
                 self[k] = v
+        if is_debug_enabled():
+            validate_data(self)
 
     # -- dict-like interface ------------------------------------------
     def __getattr__(self, key):

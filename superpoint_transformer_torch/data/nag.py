@@ -7,6 +7,7 @@ imported only by `save` and `load`.
 """
 import numpy as np
 
+from ..debug import is_debug_enabled, validate_nag
 from .csr import Cluster
 from .data import Data
 
@@ -20,6 +21,8 @@ class NAG:
     def __init__(self, data_list, start_i_level=0):
         self._list = list(data_list)
         self.start_i_level = int(start_i_level)
+        if is_debug_enabled():
+            validate_nag(self)
 
     # -- level access: ABSOLUTE level indexing -------------------------
     def __getitem__(self, i):

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ['PaddedLevel', 'PaddedNAG', 'PaddedPointCloud', 'from_numpy',
-           'point_cloud_from_numpy']
+           'point_cloud_from_numpy', 'strip_for_inference']
 
 
 @dataclass
@@ -34,7 +34,9 @@ class PaddedLevel:
     pos: torch.Tensor                          # [N, 3] f32
     node_mask: torch.Tensor                    # [N] bool
     batch: torch.Tensor                        # [N] int64 graph id, -1 pad
-    num_nodes: int                             # valid rows (host int)
+    num_nodes: int                             # valid rows (host int; a
+                                               # tuple, one a tile, in a
+                                               # stacked batch)
     x: Optional[torch.Tensor] = None           # [N, Dx] features
     node_size: Optional[torch.Tensor] = None   # [N] f32
     super_index: Optional[torch.Tensor] = None  # [N] int64 parent slot
@@ -105,11 +107,30 @@ class PaddedPointCloud:
 
 # fields only a training step reads on the device: the label histograms
 # and the transpose neighbor tables (the k/v gathers' backward,
-# `ops/gather.py:gather_rows_t`), dropped from an inference batch as the
-# JAX `strip_for_inference` does
+# `ops/gather.py:gather_rows_t`); and `node_id`, host metadata (batch row
+# -> NAG row) that callers read before the batch goes to the device
 _TRAIN_ONLY = ('y', 'nbr_in_idx', 'nbr_in_mask')
+_HOST_ONLY = ('node_id',)
 # heavy float features cast to the compute dtype
 _FEATURES = ('x', 'edge_feat', 'v_edge_attr')
+
+
+def strip_for_inference(batch):
+    """The host half of an inference batch's transfer (the JAX
+    `strip_for_inference`): `batch` (named like `PaddedNAG`, any leaves)
+    as a `PaddedNAG` without the fields an inference forward never reads,
+    `y`, `nbr_in_idx`, `nbr_in_mask` and `node_id`. Read level 1's node
+    ids (`inference.level1_node_id`) before stripping. The cast of the
+    features to the compute dtype happens in `from_numpy`."""
+    drop = _TRAIN_ONLY + _HOST_ONLY
+    levels = tuple(
+        PaddedLevel(**{f.name: None if f.name in drop
+                       else getattr(lvl, f.name, None)
+                       for f in dataclasses.fields(PaddedLevel)})
+        for lvl in batch.levels)
+    return PaddedNAG(levels=levels, start_i_level=int(batch.start_i_level),
+                     num_graphs=int(batch.num_graphs),
+                     level1_node_id=getattr(batch, 'level1_node_id', None))
 
 
 def _to_tensor(name, a, device, feat_dtype, pin):
@@ -138,12 +159,13 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
     levels are named like `PaddedLevel`. `node_id` is dropped (level 1's
     is kept on the host as `level1_node_id`); the label histograms `y`
     and the transpose neighbor tables `nbr_in_idx`, `nbr_in_mask` are
-    kept when `train` and dropped otherwise, as the JAX
-    `strip_for_inference` does. `x`,
-    `edge_feat` and `v_edge_attr` are cast to bf16 when `compute_dtype` is
-    bf16. Index tensors become int64. With `pin_memory` and a CUDA
-    `device`, each leaf is copied from pinned host memory without
-    blocking the host."""
+    kept when `train` and dropped otherwise (`strip_for_inference`).
+    `x`, `edge_feat` and `v_edge_attr` are cast to bf16 when
+    `compute_dtype` is bf16. Index tensors become int64. With
+    `pin_memory` and a CUDA `device`, each leaf is copied from pinned
+    host memory without blocking the host. A stacked batch
+    (`inference.stack_batches`: a leading tile axis on every leaf, a
+    tuple of node counts a level) converts the same way."""
     device = torch.device(device)
     pin = pin_memory and device.type == 'cuda'
     feat_dtype = torch.bfloat16 if compute_dtype in ('bf16', 'bfloat16') \
@@ -154,15 +176,17 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
         lvl1 = batch.levels[1 - start]
         if getattr(lvl1, 'node_id', None) is not None:
             nid = np.asarray(lvl1.node_id).astype(np.int64)
+    if not train:
+        batch = strip_for_inference(batch)
     levels = []
     for lvl in batch.levels:
         kw = {}
         for f in dataclasses.fields(PaddedLevel):
             v = getattr(lvl, f.name, None)
             if f.name == 'num_nodes':
-                kw[f.name] = int(v)
-            elif v is not None and f.name != 'node_id' \
-                    and (train or f.name not in _TRAIN_ONLY):
+                kw[f.name] = tuple(int(x) for x in v) \
+                    if isinstance(v, (tuple, list)) else int(v)
+            elif v is not None and f.name not in _HOST_ONLY:
                 kw[f.name] = _to_tensor(f.name, v, device, feat_dtype, pin)
         levels.append(PaddedLevel(**kw))
     return PaddedNAG(levels=tuple(levels), start_i_level=start,

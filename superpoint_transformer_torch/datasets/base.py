@@ -28,12 +28,24 @@ __all__ = ['BaseDataset', 'DataLoader', 'PreparedDataLoader',
            'make_submission']
 
 
-def _worker_init():
+def _worker_init(card=False):
     """Preprocessing and batch-preparation workers run numpy and the
-    native library on the host only, one OpenMP thread each (the fan-out
-    over workers is the parallelism)."""
-    os.environ['CUDA_VISIBLE_DEVICES'] = ''
+    native library, one OpenMP thread each (the fan-out over workers is
+    the parallelism). They see no card, unless `card` (preprocessing that
+    runs its KNN or CNN there: each worker then opens its own context)."""
+    if not card:
+        os.environ['CUDA_VISIBLE_DEVICES'] = ''
     os.environ.setdefault('OMP_NUM_THREADS', '1')
+
+
+def map_in_workers(fn, items, n_workers, card=False):
+    """`[fn(x) for x in items]` over `n_workers` spawned processes
+    (`_worker_init(card)`), one item at a time."""
+    import multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    with ctx.Pool(n_workers, initializer=_worker_init,
+                  initargs=(card,)) as pool:
+        return pool.map(fn, items, chunksize=1)
 
 
 class BaseDataset:
@@ -80,8 +92,8 @@ class BaseDataset:
         if pc_tiling is not None:
             self.pc_tiling = pc_tiling
         self.verbose = verbose
-        # where EZ-SP's frozen stage-1 CNN runs in preprocessing (None:
-        # the card); not part of the cache's hash
+        # where preprocessing runs EZ-SP's frozen stage-1 CNN and the
+        # device KNN (None: the card); not part of the cache's hash
         self.device = device
         self._cache = {}
 
@@ -171,7 +183,8 @@ class BaseDataset:
     def process(self):
         """Preprocess every cloud whose file is missing (resumable). This
         host takes its share of the clouds; `num_workers > 1` spreads them
-        over spawned worker processes."""
+        over spawned worker processes, which see the card where the
+        preprocessing runs there (`_needs_card`)."""
         todo = [c for c in self.cloud_ids
                 if not osp.exists(self.processed_path(c))]
         todo = todo[self.host_id::self.num_hosts]
@@ -182,26 +195,22 @@ class BaseDataset:
         if not osp.exists(first_raw) and not osp.exists(self.raw_dir):
             self.download()
         n_workers = min(self.num_workers, len(todo))
-        if self._cnn_on_card:
-            # the workers see no card: the clouds whose partition needs
-            # the frozen CNN there are preprocessed here, one by one
-            n_workers = 1
         if n_workers > 1:
-            import multiprocessing as mp
-            ctx = mp.get_context('spawn')
-            with ctx.Pool(n_workers, initializer=_worker_init) as pool:
-                pool.map(self._process_single_cloud, todo, chunksize=1)
+            map_in_workers(self._process_single_cloud, todo, n_workers,
+                           card=self._needs_card)
         else:
             for cloud_id in todo:
                 self._process_single_cloud(cloud_id)
 
     @property
-    def _cnn_on_card(self):
-        """Whether preprocessing runs EZ-SP's frozen CNN on a card."""
+    def _needs_card(self):
+        """Whether preprocessing runs on a card: EZ-SP's frozen CNN, or
+        the device KNN."""
         cfg = self.pre_transform_config
-        return (cfg.get('partition_mode') == 'contour_prior'
-                and bool(cfg.get('pretrained_cnn_ckpt_path'))
-                and str(self.device or 'cuda').startswith('cuda'))
+        on_device = ((cfg.get('partition_mode') == 'contour_prior'
+                      and bool(cfg.get('pretrained_cnn_ckpt_path')))
+                     or cfg.get('knn_backend') == 'device')
+        return on_device and str(self.device or 'cuda').startswith('cuda')
 
     def process_cloud(self, cloud_id):
         """The preprocessed NAG of `cloud_id` (a tile id reads its cloud
@@ -219,7 +228,7 @@ class BaseDataset:
         if self.verbose:
             print(f'preprocessing {cloud_id}: {data.num_nodes} points')
         return preprocess_cloud(data, num_classes=self.num_classes,
-                                cnn_device=self.device or 'cuda',
+                                device=self.device or 'cuda',
                                 **self.pre_transform_config)
 
     def _process_single_cloud(self, cloud_id):

@@ -1,9 +1,10 @@
 """Inference: from a raw cloud or a preprocessed NAG to predictions.
-Counterparts of `tile_cloud`, `infer_nag`, `e2e_inference`,
-`level1_node_id` and `to_nag_order` in
-`superpoint_transformer_tpu/inference.py`, plus `infer_batch` for a batch
-that is already padded. The batch goes to the device of the model's
-parameters, and the forward runs there.
+Counterparts of `tile_cloud`, `infer_nag`, `strip_for_inference`,
+`stack_batches`, `infer_nags_stacked`, `e2e_inference`, `level1_node_id`
+and `to_nag_order` in `superpoint_transformer_tpu/inference.py`, plus
+`infer_batch` for a batch that is already padded and `pin_signature`
+(`e2e_inference`'s shared padded signature of its tiles). The batch goes to the
+device of the model's parameters, and the forward runs there.
 """
 import dataclasses
 import time
@@ -13,13 +14,14 @@ import torch
 
 from .data.nag import NAG
 from .data.pad import pad_nag
-from .data.padded import from_numpy
+from .data.padded import PaddedNAG, from_numpy, strip_for_inference
 from .transforms.prepare import BatchConfig, batch_signature, process_batch
 from .transforms.preprocess import preprocess_cloud
 
 __all__ = ['EVAL_BATCH_OVERRIDES', 'tile_cloud', 'level1_node_id',
            'to_nag_order', 'infer_batch', 'infer_nag', 'e2e_inference',
-           'without_level0']
+           'without_level0', 'strip_for_inference', 'pin_signature',
+           'stack_batches', 'infer_nags_stacked']
 
 # whole-tile evaluation: no cropping/subsampling, no augmentation
 EVAL_BATCH_OVERRIDES = dict(sample_graph_r=-1, sample_segment_ratio=0,
@@ -161,6 +163,149 @@ def infer_nag(model, nag, cfg, fetch='argmax', timings=None):
     return to_nag_order(out.cpu().numpy(), nid)
 
 
+def pin_signature(bigs, cfg):
+    """`cfg` with node_caps / k_caps / k_in_caps pinned to one padded
+    signature shared by the transform-complete NAGs `bigs` (from
+    `process_batch`): the largest of their signatures
+    (`batch_signature`) level by level, so that every tile pads to one
+    shape."""
+    node_caps, k_caps, k_in_caps = {}, {}, {}
+    for big in bigs:
+        for pinned, sig in zip((node_caps, k_caps, k_in_caps),
+                               batch_signature(big, cfg)):
+            for li, v in sig.items():
+                pinned[li] = max(pinned.get(li, 0), v)
+    return dataclasses.replace(cfg, node_caps=node_caps,
+                               k_caps=k_caps or None,
+                               k_in_caps=k_in_caps or None)
+
+
+def stack_batches(batches):
+    """Stack same-signature host batches (numpy leaves, e.g. from
+    `strip_for_inference`) along a new leading tile axis, leaf by leaf
+    with `np.stack`: a `PaddedNAG` whose levels hold [T, ...] arrays and
+    a tuple of the T tiles' node counts. Raises ValueError when the
+    tiles' fields or shapes differ (pin node_caps / k_caps first)."""
+    first = batches[0]
+    levels = []
+    for li, lvl in enumerate(first.levels):
+        kw = {}
+        for f in dataclasses.fields(lvl):
+            vals = [getattr(b.levels[li], f.name) for b in batches]
+            if f.name == 'num_nodes':
+                kw[f.name] = tuple(int(v) for v in vals)
+            elif any((v is None) != (vals[0] is None) for v in vals):
+                raise ValueError(f'stack_batches: level {li} {f.name} is '
+                                 'set in some tiles only')
+            elif vals[0] is not None:
+                shapes = {np.shape(v) for v in vals}
+                if len(shapes) > 1:
+                    raise ValueError(f'stack_batches: level {li} {f.name} '
+                                     f'shapes differ: {sorted(shapes)}')
+                kw[f.name] = np.stack([np.asarray(v) for v in vals])
+        levels.append(dataclasses.replace(lvl, **kw))
+    return PaddedNAG(levels=tuple(levels), start_i_level=first.start_i_level,
+                     num_graphs=first.num_graphs)
+
+
+def _tile(stacked, i):
+    """Tile `i` of a stacked device batch: each leaf's `t[i]` (a
+    contiguous view of a contiguous [T, ...] tensor) and the tile's node
+    counts."""
+    levels = tuple(dataclasses.replace(lvl, **{
+        f.name: (lvl.num_nodes[i] if f.name == 'num_nodes'
+                 else getattr(lvl, f.name)[i])
+        for f in dataclasses.fields(lvl)
+        if f.name == 'num_nodes' or getattr(lvl, f.name) is not None})
+        for lvl in stacked.levels)
+    return PaddedNAG(levels=levels, start_i_level=stacked.start_i_level,
+                     num_graphs=stacked.num_graphs)
+
+
+def _forward_stack(model, stacked, preds):
+    """Forward each tile of a stacked device batch and write its level-1
+    argmax into `preds[i]` ([T, cap1] int32 on the device): no host
+    synchronize between the tiles."""
+    with torch.inference_mode():
+        for i in range(preds.shape[0]):
+            preds[i] = model(_tile(stacked, i))[0].argmax(1)
+
+
+def infer_nags_stacked(model, nags, cfg, timings=None, warmup=False,
+                       processed=None, max_tiles_per_program=8):
+    """Whole-cloud forward over preprocessed tiles, a chunk of tiles at
+    a time: pad each tile to the shared signature on the host, stack,
+    one pinned host-to-device copy of each stacked leaf, the forwards
+    over the tile axis with no host synchronize between them, each tile's
+    level-1 argmax into one device [chunk, cap1] int32 tensor, then one
+    synchronize and one device-to-host copy.
+
+    `cfg` (a `BatchConfig`) should pin node_caps / k_caps / k_in_caps so
+    that every tile pads to one signature (`e2e_inference` does).
+    `processed` optionally carries the tiles' transform-complete NAGs
+    (from `process_batch`), which are then only padded here. A nano
+    model takes NAGs without level 0 and a `cfg` with `nano` set.
+
+    Clouds of more than `max_tiles_per_program` tiles run in chunks of
+    that many tiles; the last chunk repeats its final tile to fill, so
+    that every chunk has one shape. With `warmup`, the first chunk runs
+    once outside the clock first ('warmup_compile': kernel load,
+    allocator warm-up); its predictions are not used.
+
+    Returns a list of per-tile [N1] int32 host predictions, each in its
+    NAG's level-1 row order. When `timings` is a dict, accumulates 'pad',
+    'transfer', 'forward', 'fetch' (and 'warmup_compile') seconds; the
+    transfer and the forward each end with a synchronize of the model's
+    device."""
+    device, compute_dtype = _model_device(model)
+    t0 = time.perf_counter()
+    batches, nids, n1s = [], [], []
+    for ti, nag in enumerate(nags):
+        big = processed[ti] if processed is not None \
+            else process_batch([nag], cfg, train=False)
+        b = _pad_eval(big, cfg)
+        n1 = int(nag[1].num_nodes)
+        # batch-row -> NAG-row map, read BEFORE strip (strip drops it)
+        nids.append(level1_node_id(b, n1))
+        n1s.append(n1)
+        batches.append(strip_for_inference(b))
+    T = len(batches)
+    chunk = max(1, min(max_tiles_per_program, T))
+    groups = []
+    for c0 in range(0, T, chunk):
+        g = batches[c0:c0 + chunk]
+        g = g + [g[-1]] * (chunk - len(g))  # fill: one signature
+        groups.append(stack_batches(g))
+    del batches
+    _add(timings, 'pad', t0)
+
+    out_chunks = []
+    for gi, host in enumerate(groups):
+        t0 = time.perf_counter()
+        stacked = from_numpy(host, device, compute_dtype, pin_memory=True)
+        _sync(device)
+        _add(timings, 'transfer', t0)
+        cap1 = stacked[1].pos.shape[1]
+        preds = torch.empty((chunk, cap1), dtype=torch.int32,
+                            device=device)
+        if warmup and gi == 0:
+            t0 = time.perf_counter()
+            _forward_stack(model, stacked, preds)
+            _sync(device)
+            _add(timings, 'warmup_compile', t0)
+        t0 = time.perf_counter()
+        _forward_stack(model, stacked, preds)
+        _sync(device)
+        _add(timings, 'forward', t0)
+        t0 = time.perf_counter()
+        out_chunks.append(preds.cpu().numpy())
+        _add(timings, 'fetch', t0)
+        del stacked
+
+    fetched = np.concatenate(out_chunks)[:T]  # [T, cap1] int32
+    return [to_nag_order(fetched[i, :n1s[i]], nids[i]) for i in range(T)]
+
+
 def e2e_inference(model, data, pre_cfg=None, batch_cfg=None, tiling=None,
                   target_tile_points=1_500_000, warmup=True,
                   verbose=False):
@@ -176,17 +321,17 @@ def e2e_inference(model, data, pre_cfg=None, batch_cfg=None, tiling=None,
       preprocess  per-tile `preprocess_cloud` (voxelize .. graph)
       transform   per-tile `process_batch` (features, graph)
       pin         one shared padded signature across tiles
-      pad         per tile: pad to the shared signature
-      transfer    per tile: host to device, ended by a synchronize
-      forward     per tile: the forward, ended by a synchronize
-      fetch       per tile: level-1 argmax to the host
+      pad         per tile: pad to the shared signature, then stack
+      transfer    per chunk of tiles: one host-to-device copy, ended by
+                  a synchronize
+      forward     per chunk: the forwards, ended by a synchronize
+      fetch       per chunk: the level-1 argmax to the host
       recover     level-1 pred -> voxel -> raw points
-    The tiles run as a loop of forwards over the pinned signature. With
-    `warmup`, one forward of the first tile runs first, outside the
-    clock ('warmup_compile': kernel build and load, allocator warm-up).
+    The tiles run through `infer_nags_stacked` over the pinned signature.
+    With `warmup`, its first chunk runs once first, outside the clock
+    ('warmup_compile': kernel build and load, allocator warm-up).
 
     Returns (full_res_pred [n_raw] int32, info dict)."""
-    device, compute_dtype = _model_device(model)
     pre_cfg = dict(pre_cfg or {})
     batch_cfg = batch_cfg or BatchConfig()
     n_raw = int(data.num_nodes)
@@ -209,42 +354,16 @@ def e2e_inference(model, data, pre_cfg=None, batch_cfg=None, tiling=None,
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(batch_cfg, **EVAL_BATCH_OVERRIDES)
-    bigs = [process_batch([without_level0(nag) if cfg.nano else nag], cfg,
-                          train=False) for nag in nags]
+    inputs = [without_level0(nag) if cfg.nano else nag for nag in nags]
+    bigs = [process_batch([nag], cfg, train=False) for nag in inputs]
     t['transform'] = time.perf_counter() - t0
 
-    # one shared padded signature across all tiles
     t0 = time.perf_counter()
-    node_caps, k_caps, k_in_caps = {}, {}, {}
-    for big in bigs:
-        nc, kc, kic = batch_signature(big, cfg)
-        for li, v in nc.items():
-            node_caps[li] = max(node_caps.get(li, 0), v)
-        for li, v in kc.items():
-            k_caps[li] = max(k_caps.get(li, 0), v)
-        for li, v in kic.items():
-            k_in_caps[li] = max(k_in_caps.get(li, 0), v)
-    cfg = dataclasses.replace(cfg, node_caps=node_caps,
-                              k_caps=k_caps or None,
-                              k_in_caps=k_in_caps or None)
+    cfg = pin_signature(bigs, cfg)
     t['pin'] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    hosts = [_pad_eval(big, cfg) for big in bigs]
-    t['pad'] = time.perf_counter() - t0
-    if warmup:
-        t0 = time.perf_counter()
-        _forward_level1(model, hosts[0], device, compute_dtype)
-        t['warmup_compile'] = time.perf_counter() - t0
-
-    preds1 = []
-    for host in hosts:
-        logits, nid = _forward_level1(model, host, device, compute_dtype,
-                                      t)
-        t0 = time.perf_counter()
-        pred = logits.argmax(1).to(torch.int32).cpu().numpy()
-        t['fetch'] = t.get('fetch', 0.0) + time.perf_counter() - t0
-        preds1.append(to_nag_order(pred, nid))
+    preds1 = infer_nags_stacked(model, inputs, cfg, timings=t,
+                                warmup=warmup, processed=bigs)
 
     t0 = time.perf_counter()
     out = np.empty(n_raw, dtype=np.int32)

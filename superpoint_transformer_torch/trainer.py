@@ -198,7 +198,7 @@ class Trainer:
         if self.devices > 1:
             raise NotImplementedError(
                 'trainer.devices > 1: data parallelism is not ported '
-                '(ROADMAP Queue 1 item 7)')
+                '(ROADMAP Queue 1 item 5)')
         if self.eval_batch_cfg is None:
             self.eval_batch_cfg = self.batch_cfg
         os.makedirs(self.output_dir, exist_ok=True)

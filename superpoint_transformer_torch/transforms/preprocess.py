@@ -11,13 +11,10 @@ run in the native library (`ops/native.py`); the orchestration is numpy.
 EZ-SP's stage 2 swaps cut pursuit for the greedy contour-prior partition
 (`partition_mode='contour_prior'`), over the embeddings of the frozen
 stage-1 sparse CNN where a checkpoint is given (`pretrained_cnn_features`,
-the one step here that runs on a torch device). The Delaunay graph and
-device KNN raise NotImplementedError.
+on a torch device). `knn_backend='device'` runs the KNN as torch ops on a
+device (`ops/device_preprocess.py`). The Delaunay graph raises
+NotImplementedError.
 """
-import contextlib
-import time
-from collections import defaultdict
-
 import os.path as osp
 
 import numpy as np
@@ -32,12 +29,13 @@ from ..ops.native import greedy_cut, radius_knn
 from ..ops.subedges import (_segment_csr, cluster_radius_nn_graph_np,
                             minimalistic_edge_features_np, subedges_np)
 from ..utils.histogram import atomic_to_histogram
+from ..utils.profiling import Timings
 
 __all__ = [
     'save_node_index', 'grid_sampling', 'knn_search', 'point_features',
     'ground_elevation', 'adjacency_graph', 'connect_isolated',
     'add_keys_to', 'cut_pursuit_partition', 'segment_features',
-    'radius_horizontal_graph', 'preprocess_cloud', 'Timings',
+    'radius_horizontal_graph', 'preprocess_cloud',
     'sample_xy_tiling', 'sample_recursive_main_xy_axis_tiling',
     'quantize_coordinates', 'greedy_contour_prior_partition',
     'pretrained_cnn_features',
@@ -48,29 +46,6 @@ _INSTANCE_KEYS = ('obj', 'obj_pred')
 _CLUSTER_KEYS = ('sub',)
 _LAST_KEYS = ('batch', 'node_id')
 _NORMAL_KEYS = ('normal',)
-
-
-class Timings:
-    """Accumulating named wall-clock timers (seconds per stage)."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def track(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self):
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        return '\n'.join(
-            f'{k:<40s} {v:8.3f}s  (x{self.counts[k]})'
-            for k, v in rows)
 
 
 def save_node_index(data, key='sub'):
@@ -163,16 +138,60 @@ def _instance_from_dense(cluster, obj, y, n_vox):
     return InstanceData(ptr, o_u, counts, y_u)
 
 
-def knn_search(data, k=45, r_max=2.0, backend='host'):
+def _device_knn_grid(pos, r_max, reach=3):
+    """The grid of the device KNN (the JAX `knn_search` device branch):
+    a cell size `h` from the density (~4 points a cell over the bounding
+    box), snapped to a power of two; `cell_cap` from the densest cell,
+    snapped up to a power of two (a density-averaged cap would truncate
+    the neighborhoods of clustered scans); the radius
+    `min(r_max, h * reach)`. Returns (h, cell_cap, r)."""
+    n = pos.shape[0]
+    extent = np.maximum(pos.max(0) - pos.min(0), 1e-3)
+    vol = float(np.prod(extent))
+    h = (vol / max(n, 1) * 4.0) ** (1.0 / 3.0)
+    h = float(2.0 ** np.round(np.log2(max(h, 1e-4))))
+    cell = np.floor(pos / h).astype(np.int64)
+    cell -= cell.min(0)
+    dims = cell.max(0) + 1
+    cid = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+    occ = np.bincount(np.unique(cid, return_inverse=True)[1])
+    cell_cap = int(2 ** np.ceil(np.log2(max(int(occ.max()), 8))))
+    return h, cell_cap, float(min(r_max, h * reach))
+
+
+def knn_search(data, k=45, r_max=2.0, backend='host', device='cuda'):
     """Fixed-radius KNN on the voxel centers (reference KNN transform,
     src/transforms/neighbors.py:11 over FRNN). Adds `neighbor_index`
     (-1 padded) and `neighbor_distance`.
 
-    Only the host backend (the native grid KNN) is ported; the device
-    backend is listed in ROADMAP.md."""
+    `backend='host'` is the native grid KNN (int32 `neighbor_index`).
+    `backend='device'` is the grid-hash KNN of
+    `ops/device_preprocess.py:grid_knn_device` on `device` (the card
+    unless the caller asks for the CPU; without a card it raises), with
+    the JAX package's grid (`_device_knn_grid`, a scan window of reach
+    3) and an int64 `neighbor_index`."""
+    if backend == 'device':
+        import torch
+        from ..ops.device_preprocess import grid_knn_device
+        device = torch.device(device)
+        if device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError('knn_search: no CUDA device; pass '
+                               'device="cpu" to run the device KNN on the '
+                               'CPU')
+        pos = np.asarray(data.pos, np.float32)
+        reach = 3
+        h, cell_cap, r = _device_knn_grid(pos, r_max, reach)
+        nbr, dist = grid_knn_device(
+            torch.from_numpy(pos).to(device),
+            torch.ones(pos.shape[0], dtype=torch.bool, device=device),
+            r, int(k), cell_cap=cell_cap, reach=reach, cell_size=h,
+            chunk=2048)
+        data['neighbor_index'] = nbr.cpu().numpy().astype(np.int64)
+        data['neighbor_distance'] = dist.cpu().numpy()
+        return data
     if backend != 'host':
-        raise NotImplementedError(
-            f'knn_search: backend={backend!r} is not ported (host only)')
+        raise ValueError(f"knn_search: backend={backend!r} ('host' or "
+                         "'device')")
     nbr, dist = radius_knn(data.pos, r=r_max, k=k, exclude_self=True)
     # keep the kernel's int32: numpy fancy indexing takes it, and
     # nothing downstream needs int64
@@ -631,7 +650,7 @@ def preprocess_cloud(
         contour_prior_min_size=(5, 30, 90),
         contour_prior_edge_weight_mode='exp_neg_latent_distance',
         contour_prior_k_isolated=5, with_instances=False,
-        graph_builder='radius', cnn_device='cuda', verbose=False):
+        graph_builder='radius', device='cuda', verbose=False):
     """Full raw-cloud -> NAG preprocessing (the reference `pre_transform`
     chain) with the JAX `preprocess_cloud`'s defaults: cut-pursuit
     partition, radius horizontal graph, host KNN. `verbose=True` prints
@@ -642,19 +661,17 @@ def preprocess_cloud(
     `partition_mode='contour_prior'` is EZ-SP's stage 2: the greedy
     contour-prior partition on the partition features, or, given
     `pretrained_cnn_ckpt_path` (a stage-1 checkpoint of this package),
-    on the embeddings of its frozen sparse CNN, which runs on
-    `cnn_device` (the card unless the caller asks for the CPU; the one
-    argument the JAX function lacks, and no part of a cache's hash). The
-    Delaunay graph and the device KNN raise NotImplementedError."""
+    on the embeddings of its frozen sparse CNN. The CNN and
+    `knn_backend='device'`'s KNN run on `device`, the card unless the
+    caller asks for the CPU: the one argument the JAX function lacks, and
+    no part of a cache's hash. The Delaunay graph raises
+    NotImplementedError."""
     if partition_mode not in ('cut_pursuit', 'contour_prior'):
         raise ValueError(f'unknown partition_mode {partition_mode!r}')
     if graph_builder != 'radius':
         raise NotImplementedError(
             f'preprocess_cloud: graph_builder={graph_builder!r} is not '
             'ported')
-    if knn_backend != 'host':
-        raise NotImplementedError(
-            f'preprocess_cloud: knn_backend={knn_backend!r} is not ported')
     t = Timings()
     rng = rng or np.random.default_rng(0)
     with t.track('save_node_index'):
@@ -663,7 +680,8 @@ def preprocess_cloud(
         data = grid_sampling(data, voxel, hist_key='y',
                              hist_size=num_classes + 1)
     with t.track('knn_search'):
-        data = knn_search(data, k=knn, r_max=knn_r)
+        data = knn_search(data, k=knn, r_max=knn_r, backend=knn_backend,
+                          device=device)
     with t.track('point_features'):
         data = point_features(data, keys=point_hf_preprocess,
                               k_step=knn_step,
@@ -684,7 +702,7 @@ def preprocess_cloud(
                 data = pretrained_cnn_features(
                     data, ckpt_path=pretrained_cnn_ckpt_path,
                     channels=pretrained_cnn_channels, voxel=voxel,
-                    key='x', out_key='x', device=cnn_device)
+                    key='x', out_key='x', device=device)
         with t.track('greedy_contour_prior_partition'):
             nag = greedy_contour_prior_partition(
                 data, reg=contour_prior_reg,

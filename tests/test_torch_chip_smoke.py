@@ -6,6 +6,7 @@ import contextlib
 import os
 import sys
 
+import numpy as np
 import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -166,6 +167,104 @@ def _rehearse_on_the_cpu(monkeypatch):
         monkeypatch.setattr(block, name, counted)
 
 
+def test_whole_cloud_phase_rehearsal_on_the_cpu(monkeypatch):
+    """`phase_whole_cloud` end to end on the CPU at rooms of 6,000 raw
+    points: the device preprocessing held to its CPU and host
+    counterparts, `preprocess_cloud` and `e2e_inference` with the device
+    KNN, stacked vs loop serving of 3 rooms (bit-equal), the checkpoint
+    round trip, K2 held on a stacked tile's inputs, the dataset
+    preprocessing one by one and through the workers' task; the card-only
+    calls (synchronize, the sync debug mode, the memory statistics, the
+    allocator subprocesses) stubbed, and the workers run in this
+    process."""
+    import torch
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    _rehearse_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, 'HOST_ROOM_POINTS', 6_000)
+    monkeypatch.setattr(chip_smoke, 'sync_count', lambda fn: (fn(), 0))
+    monkeypatch.setattr(chip_smoke, 'allocator_runs', lambda card: {})
+    from superpoint_transformer_torch.datasets import base
+    pools = []
+
+    def in_process(fn, items, n_workers, card=False):
+        pools.append((len(items), n_workers, card))
+        return [fn(x) for x in items]
+
+    monkeypatch.setattr(base, 'map_in_workers', in_process)
+    held, hold = [], chip_smoke.hold_on_path
+
+    def holding(name, args, path):
+        held.append((name, args[10].storage_offset(), path))
+        hold(name, args, path)
+
+    monkeypatch.setattr(chip_smoke, 'hold_on_path', holding)
+    from superpoint_transformer_torch.utils import memory
+    monkeypatch.setattr(memory, 'device_memory_stats', lambda: {
+        'cuda:0': dict.fromkeys(('allocated_bytes.all.peak',
+                                 'reserved_bytes.all.peak',
+                                 'allocated_bytes.all.current',
+                                 'num_alloc_retries', 'num_ooms'), 0)})
+    nags = [preprocess_cloud(synthetic_room_cloud(seed=s, n_points=6_000))
+            for s in range(3)]
+    try:
+        served = chip_smoke.phase_whole_cloud(torch.device('cpu'), 'cpu',
+                                              nags)
+    finally:
+        torch.set_num_threads(threads)
+    # 7 K2 a forward: e2e (warm-up and forward), 3 rooms x (loop, stacked,
+    # stacked, loop), the two sync-counted runs, the round trip's 2
+    assert served == 7 * (2 + 3 * 4 + 3 * 2 + 2)
+    assert pools == [(3, 3, True), (3, 3, False)]
+    # held once, on the third tile of the stacked chunk
+    (name, offset, path), = held
+    assert name == 'K2' and path == 'whole-cloud path' and offset > 0
+
+
+def test_allocator_runs_time_fresh_processes_of_each_setting(monkeypatch,
+                                                             capsys):
+    """`allocator_runs` starts fresh processes with the allocator tuned
+    and with SPT_NO_MALLOC_TUNING=1, which each report their setting and
+    the preprocess phase's seconds."""
+    monkeypatch.setattr(chip_smoke, 'HOST_ROOM_POINTS', 3_000)
+    monkeypatch.setattr(chip_smoke, 'ALLOCATOR_PAIRS', 1)
+    out = chip_smoke.allocator_runs('cpu')
+    assert sorted(out) == [False, True]
+    assert all(len(v) == 1 and v[0] > 0 for v in out.values())
+    assert '1 pairs in alternating order' in capsys.readouterr().out
+
+
+def test_recall_counts_shared_neighbors():
+    ref = np.array([[1, 2, -1], [0, 2, 3], [-1, -1, -1]])
+    got = np.array([[2, 3, 1], [0, -1, -1], [1, -1, -1]])
+    assert chip_smoke.recall(ref, got) == 3 / 5
+
+
+def test_reference_state_dict_round_trips_the_flagship():
+    import torch
+    from superpoint_transformer_torch.experiment import (FLAGSHIP_CFG,
+                                                         build_model)
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.utils.import_ckpt import (
+        import_reference_checkpoint)
+    a, b = (init_weights(SemanticSegmentationModel(
+        build_model(FLAGSHIP_CFG, num_graphs=1, device='cpu'), 13),
+        torch.Generator().manual_seed(s)) for s in (0, 1))
+    state = chip_smoke.reference_state_dict(a)
+    assert 'net.down_stages.0.transformer_blocks.0.sa.qkv.weight' in state
+    report = import_reference_checkpoint(state, b)
+    assert not report['missing'] and not report['unused_reference_keys']
+    for (na, pa), (nb, pb) in zip(a.named_parameters(),
+                                  b.named_parameters()):
+        assert na == nb and torch.equal(pa, pb)
+
+
 def test_ezsp_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
     """`phase_ezsp` end to end on the CPU after a 1-epoch `phase_fit` on
     tiny rooms (whose clouds stage 1 reuses): stage 1 for 2 epochs, the
@@ -290,10 +389,11 @@ def test_datasets_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
         torch.set_num_threads(threads)
         tmp.cleanup()
     # 11 K1 a step, 11 K2 a forward. dales: 1 epoch of 1 step, a
-    # validation of 2 tiles, their evaluation, 3 requests and the e2e
-    # tile (warm-up and forward); kitti360: 1 step, 1 validation forward
-    # and its evaluation; scannet: 1 validation forward, 1 step
-    assert out == {'dales': {'K1': 11, 'K2': 11 * (2 + 2 + 3 + 2)},
+    # validation of 2 tiles, their evaluation, 3 requests, the e2e tile
+    # (warm-up and forward), and the 4 served tiles through the per-tile
+    # loop and twice stacked; kitti360: 1 step, 1 validation forward and
+    # its evaluation; scannet: 1 validation forward, 1 step
+    assert out == {'dales': {'K1': 11, 'K2': 11 * (2 + 2 + 3 + 2 + 12)},
                    'kitti360': {'K1': 11, 'K2': 11 * 2},
                    'scannet': {'K1': 11, 'K2': 11}}
     assert sorted(timing) == ['K1', 'K2']

@@ -618,7 +618,7 @@ def test_preprocess_with_stage1_checkpoint_matches_jax(rooms, fits,
     ref = jpre.preprocess_cloud(jsyn.synthetic_room_cloud(
         seed=0, n_points=ROOM_POINTS), pretrained_cnn_ckpt_path=jckpt, **kw)
     tpre.preprocess_cloud(rooms[2].clone(), pretrained_cnn_ckpt_path=str(
-        tckpt), cnn_device='cpu', **kw)
+        tckpt), device='cpu', **kw)
     assert len(jx) == len(tx) == 1
     assert tx[0].shape == (rooms[1][0].num_nodes, CHANNELS[-1])
     np.testing.assert_allclose(tx[0], jx[0], rtol=CNN_TOL, atol=CNN_TOL)
@@ -635,7 +635,7 @@ def test_preprocess_with_stage1_checkpoint_matches_jax(rooms, fits,
     monkeypatch.setattr(tpre, 'pretrained_cnn_features', jax_embeddings)
     got = tpre.preprocess_cloud(rooms[2].clone(),
                                 pretrained_cnn_ckpt_path=str(tckpt),
-                                cnn_device='cpu', **kw)
+                                device='cpu', **kw)
     assert_nags_equal(got, ref, 0)
     # and the same state_dict given directly
     data = _level0(rooms[1], TData)

@@ -221,9 +221,8 @@ def test_geometric_features_match_jax(rooms, k_step):
         assert_arrays_equal(k, got[k], ref[k], PRE_RTOL)
 
 
-@pytest.mark.parametrize('kw', [dict(graph_builder='delaunay'),
-                                dict(knn_backend='device')],
-                         ids=['delaunay', 'device_knn'])
+@pytest.mark.parametrize('kw', [dict(graph_builder='delaunay')],
+                         ids=['delaunay'])
 def test_preprocess_cloud_unported_branches_raise(kw):
     raw = tsyn.synthetic_room_cloud(seed=0, n_points=2_000)
     with pytest.raises(NotImplementedError):

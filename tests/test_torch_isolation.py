@@ -8,8 +8,10 @@ runs the panoptic path (instance ids, a panoptic training step and
 `Trainer` on an in-memory dataset (checkpoints and CSV metrics written),
 runs EZ-SP's two stages (`fit_partition`, then `preprocess_cloud`
 with the frozen CNN of its checkpoint and the greedy contour-prior
-partition), and reads DALES, KITTI-360 and ScanNet raw files, serving a
-preprocessed DALES tile with SPT-3. No module of the port imports the JAX package, jax, flax,
+partition), reads DALES, KITTI-360 and ScanNet raw files, serving a
+preprocessed DALES tile with SPT-3, and serves whole clouds (the device
+KNN on the CPU, the stacked forward, a reference checkpoint imported).
+No module of the port imports the JAX package, jax, flax,
 optax or orbax, even inside a function.
 Its native library is its own build of `native/*.cpp`, never the prebuilt
 `native/libspt_native.so`, and a failed build raises."""
@@ -179,7 +181,7 @@ SCRIPT = textwrap.dedent('''
         knn_r=10.0, knn_min_search=10, partition_mode='contour_prior',
         pretrained_cnn_ckpt_path=os.path.join(ezsp_dir, 'checkpoints',
                                               'last'),
-        pretrained_cnn_channels=(8, 8), cnn_device='cpu')
+        pretrained_cnn_channels=(8, 8), device='cpu')
     assert ezsp[0].num_nodes > ezsp[1].num_nodes > 1
     print('EZSP_OK')
 
@@ -220,6 +222,54 @@ SCRIPT = textwrap.dedent('''
                  device='cpu')
         assert sorted(build_datasets(c)) == ['test', 'train', 'val']
     print('READERS_OK')
+
+    # whole-cloud serving: the device KNN (on the CPU here), the stacked
+    # forward, the eigen features on tensors, a reference-format
+    # checkpoint imported, the run utilities
+    from superpoint_transformer_torch.inference import (
+        e2e_inference, infer_nags_stacked)
+    from superpoint_transformer_torch.ops.geometry import geometric_features
+    from superpoint_transformer_torch.utils.import_ckpt import (
+        flax_path, import_reference_checkpoint, reference_key_for)
+    from superpoint_transformer_torch.utils.memory import (
+        device_memory_stats, is_oom_error)
+    from superpoint_transformer_torch.utils.profiling import Timings
+    import superpoint_transformer_torch.utils.memory as memory
+    assert memory._MALLOC_TUNED and not port.is_debug_enabled()
+    dknn = preprocess_cloud(synthetic_room_cloud(seed=3, n_points=5_000),
+                            voxel=0.1, knn=25, knn_r=10.0,
+                            knn_min_search=10, knn_backend='device',
+                            device='cpu')
+    assert dknn.num_levels == 4
+    preds = infer_nags_stacked(model, [dknn] * 3, cfg,
+                               max_tiles_per_program=2, warmup=True)
+    one = infer_nag(model, dknn, cfg)
+    assert len(preds) == 3 and all((p == one).all() for p in preds)
+    raw = synthetic_room_cloud(seed=4, n_points=5_000)
+    full, info = e2e_inference(model, raw,
+                               pre_cfg=dict(voxel=0.1, knn=25, knn_r=10.0,
+                                            knn_min_search=10,
+                                            knn_backend='device',
+                                            device='cpu'))
+    assert full.shape == (raw.num_nodes,) and full.min() >= 0
+    from superpoint_transformer_torch.ops.device_preprocess import (
+        grid_knn_device)
+    pos = torch.from_numpy(dknn[0].pos)
+    nb, _ = grid_knn_device(pos, torch.ones(pos.shape[0], dtype=torch.bool),
+                            0.5, 8, cell_cap=64)
+    feats = geometric_features(pos, nb.long(), nb >= 0)
+    assert feats['normal'].shape == (pos.shape[0], 3)
+    state = {reference_key_for(flax_path(name, p)): p.detach().clone()
+             for name, p in model.named_parameters()}
+    twin = SemanticSegmentationModel(
+        build_model(FLAGSHIP_CFG, num_graphs=2, device='cpu'), 13)
+    report = import_reference_checkpoint(state, twin)
+    assert not report['missing'] and not report['unused_reference_keys']
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 twin.parameters()))
+    assert is_oom_error(MemoryError()) and device_memory_stats() == {}
+    assert Timings().summary() == ''
+    print('SERVING_OK')
 
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
@@ -304,6 +354,16 @@ def test_no_port_module_imports_the_jax_package(path):
     bad = [m for m in _imports(os.path.join(REPO, path))
            if m.split('.')[0] in banned]
     assert not bad, bad
+
+
+def test_whole_cloud_serving_runs_without_jax_flax_h5py_yaml(blocked_run):
+    """`preprocess_cloud(knn_backend='device')` on CPU tensors,
+    `infer_nags_stacked` with a filled chunk and its warm-up,
+    `e2e_inference` with the device KNN, the eigen features on tensors,
+    a reference-format checkpoint imported into the flagship, and the
+    allocator tuned at package import, with the same imports blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'SERVING_OK' in blocked_run.stdout
 
 
 def test_native_library_is_the_ports_own_build(blocked_run):
