@@ -64,9 +64,21 @@ against its plain PyTorch version:
    preprocessed with the device KNN one by one and over 4 spawned
    workers that see the card (the same nodes), and with the host KNN
    over 4 workers that see none, each timed, `device_memory_stats`,
-   and `e2e_inference`'s preprocess phase in 5 pairs of fresh processes
+   and `e2e_inference`'s preprocess phase in 3 pairs of fresh processes
    with the host allocator tuned and with SPT_NO_MALLOC_TUNING=1, in
-   alternating order;
+   alternating order; then the multi-process paths of `parallel/`
+   (`phase_parallel`), two spawned ranks that share the card over gloo
+   (a correctness run: NCCL refuses two ranks on one device), the
+   kernels built before they start: data-parallel, one flagship step on
+   the training phase's first two batches, bit-equal to the
+   single-process step that sums and halves their gradients and to its
+   rerun (7 K1 launches a rank, K1 held on its widest launch there);
+   graph-sharded, room 0 split over the ranks by `shard_padded_nag`, the
+   sharded forward in f32 and bf16 against the unsharded forward (7 K2
+   launches a rank, K2 held on its widest launch there) and a sharded
+   train step in each against the unsharded step (loss, gradients,
+   confusion matrix, update); the DP step, the sharded forward and a
+   level-1 block's `all_gather_rows` timed a rank;
 8. SuperCluster panoptic segmentation (`experiment=panoptic/s3dis`,
    SPT-2 width, random weights): 2 synthetic rooms of 250k raw points
    with instance ids through `preprocess_cloud(with_instances=True)`;
@@ -92,7 +104,8 @@ against its plain PyTorch version:
    twice (the same mIoU both times, within FIT_MIOU_TOL of the logged
    one) and on the test area with 2 TTA runs, and 2 micro-batches of
    `accumulate_grad_batches=2` held against one averaged AdamW step in
-   f32; holds K1 and K2 against their plain versions on the arguments of
+   f32, and `tune.main` (`phase_tune`: 2 trials of one epoch, each
+   scored); holds K1 and K2 against their plain versions on the arguments of
    their widest launches on this path (the fit's training steps, the
    evaluations of the validation split); prints per epoch the host batch
    preparation, the steps (CUDA events), the validation and the wall
@@ -254,6 +267,27 @@ F32_LOGIT_MAX_ABS = 5e-2
 F32_ARGMAX_AGREEMENT = 0.999
 BF16_LOGIT_MEAN_MAX = 5e-2
 BF16_ARGMAX_AGREEMENT = 0.95
+# the graph-sharded path (room 0 over two ranks) against the unsharded
+# forward and train step of the same NAG, set from its readings on an
+# H100 80GB HBM3 at 700 W with room on both sides: f32 level-1 logits
+# 2.365e-4 max abs; bf16 logits 1.642e-2 mean, argmax agreement 0.99317;
+# the bf16 step's confusion matrix off by 0.94% of the label mass. The
+# sharded run sums the norm statistics and pools in another order, which
+# moves the f32 logits by the reading above and flips bf16 roundings, so
+# bf16 cannot hold the run-twice agreement (1.0, bit-equal); the serving
+# phase's bf16 kernel-vs-plain agreement on the same model reads
+# 0.98943-0.99223.
+SHARDED_F32_LOGIT_MAX_ABS = 2e-3
+SHARDED_BF16_LOGIT_MEAN_MAX = 3e-2
+SHARDED_BF16_ARGMAX_AGREEMENT = 0.98
+SHARDED_BF16_CONFMAT_OFF = 2e-2
+# the multi-process phase: two ranks that share the card over gloo, each
+# rank's result within PARALLEL_TIMEOUT s; steps and forwards timed over
+# PARALLEL_ROUNDS calls; the search's trials
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT = 300
+PARALLEL_ROUNDS = 3
+TUNE_TRIALS = 2
 # the H100 SXM's published peaks (data sheet, dense): device memory, bf16
 # on the tensor cores, f32 outside them. Every bound below is against
 # them, beside the power limit that the card line prints.
@@ -1499,8 +1533,10 @@ print('ALLOCATOR ' + json.dumps({'tuned': memory._MALLOC_TUNED,
                                  'preprocess': time.perf_counter() - t0}))
 """
 # fresh processes a setting of the host allocator, in pairs whose order
-# alternates (tuned first, then untuned first, ...)
-ALLOCATOR_PAIRS = 5
+# alternates (tuned first, then untuned first, ...); 5 pairs resolved no
+# effect on an H100 host (PERF.md), and 3 keep the run inside its time
+# limit beside the multi-process phase
+ALLOCATOR_PAIRS = 3
 
 
 def allocator_runs(card):
@@ -1880,6 +1916,397 @@ def phase_whole_cloud(dev, card, nags):
     settle()
     allocator_runs(card)
     return served
+
+
+# ---- multi-process training and serving (parallel/), two ranks on one card
+# over gloo: a correctness run, not a scaling one (NCCL refuses two ranks
+# on one device)
+def parallel_task(dev, shard_group=None, compute_dtype='auto'):
+    """The flagship semantic task at TRAIN_GRAPHS graphs, weights from
+    SEED: the same in every process."""
+    import torch
+    from superpoint_transformer_torch.experiment import (FLAGSHIP_CFG,
+                                                         build_task)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    task = build_task(FLAGSHIP_CFG, num_graphs=TRAIN_GRAPHS,
+                      compute_dtype=compute_dtype, device=dev,
+                      shard_group=shard_group)
+    init_weights(task.model, torch.Generator().manual_seed(SEED))
+    return task
+
+
+def flat_params(module):
+    import torch
+    return torch.cat([p.detach().reshape(-1).float()
+                      for p in module.parameters()]).cpu()
+
+
+def flat_grads(module):
+    import torch
+    return torch.cat([(p.grad if p.grad is not None else
+                       torch.zeros_like(p)).reshape(-1).float()
+                      for p in module.parameters()]).cpu()
+
+
+def launch_ranks(fn, args):
+    """`fn(rank, world_size, init_method, *args)` in PARALLEL_RANKS
+    spawned processes (`parallel.multihost.run_ranks`); their results in
+    rank order. A rank that fails, or ranks not done in PARALLEL_TIMEOUT
+    s, raise."""
+    from superpoint_transformer_torch.parallel import run_ranks
+    return run_ranks(fn, PARALLEL_RANKS, args=args, timeout=PARALLEL_TIMEOUT)
+
+
+def rank_mesh(make, rank, world_size, init_method, dev):
+    import torch
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    return make(device=dev, backend='gloo', init_method=init_method,
+                rank=rank, world_size=world_size)
+
+
+def rank_ms(fn, rounds):
+    """Mean wall ms of `fn()` over `rounds` calls after one, the card
+    synchronized around them (a call holds host collectives)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / rounds * 1e3
+
+
+def dp_rank(rank, world_size, init_method, dev, hosts):
+    """Rank `rank` of the data-parallel phase: the flagship bf16 task on
+    batch `hosts[rank]`, one DP step counted, then the same step from
+    fresh weights (the rerun), K1 held on rank 0's widest launch, and the
+    step timed."""
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.parallel import (make_data_mesh,
+                                                       make_dp_train_step)
+    mesh = rank_mesh(make_data_mesh, rank, world_size, init_method, dev)
+    runs = []
+    for run in range(2):
+        task = parallel_task(dev)
+        step = make_dp_train_step(task, mesh)
+        batch = from_numpy(hosts[rank], dev, task.model.net.compute_dtype,
+                           train=True)
+        reset_counts()
+        with widest_call('dense_attention_trainable') as k1_args:
+            m = step(batch)
+        torch.cuda.synchronize()
+        runs.append(dict(launches=counts(), loss=m['loss'].cpu(),
+                         confmat=m['confmat'].cpu(),
+                         params=flat_params(task.model)))
+    if rank == 0:
+        hold_on_path('K1', k1_args, 'data-parallel path')
+    del k1_args
+    return dict(runs=runs, step_ms=rank_ms(lambda: step(batch),
+                                           PARALLEL_ROUNDS))
+
+
+def sharded_rank(rank, world_size, init_method, dev, shards):
+    """Rank `rank` of the graph-sharded phase on its shard of one room:
+    the sharded forward in f32 and bf16 (K2 counted, held on rank 0's
+    widest launch), then one sharded train step in each (K1 counted); the
+    forward and the k/v all-gather of a level-1 block timed."""
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.parallel import (
+        all_gather_rows, make_shard_mesh, make_sharded_forward,
+        make_sharded_train_step)
+    mesh = rank_mesh(make_shard_mesh, rank, world_size, init_method, dev)
+    out = {}
+    for cd in (None, 'bfloat16'):
+        task = parallel_task(dev, mesh.group, cd)
+        fwd = make_sharded_forward(task.model, mesh)
+        batch = from_numpy(shards[rank], dev, cd)
+        reset_counts()
+        with widest_call('dense_attention_rpe') as k2_args:
+            logits = fwd(batch)
+        torch.cuda.synchronize()
+        out[f'forward {cd or "float32"}'] = dict(
+            launches=counts(), logits=[x.float().cpu() for x in logits])
+    if rank == 0:
+        hold_on_path('K2', k2_args, 'graph-sharded path')
+    del k2_args
+    out['forward_ms'] = rank_ms(lambda: fwd(batch), PARALLEL_ROUNDS)
+    # the joint k/v rows of a level-1 block, as its attention gathers them
+    sa = task.model.net.down_stage_0.block_0.sa
+    kv = torch.randn(shards[rank].levels[1].pos.shape[0],
+                     sa.num_heads * sa.qk_dim + sa.dim,
+                     device=dev).bfloat16()
+    out['all_gather_ms'] = rank_ms(lambda: all_gather_rows(kv, mesh.group),
+                                   4 * PARALLEL_ROUNDS)
+    out['all_gather_rows'] = tuple(kv.shape)
+    for cd in (None, 'bfloat16'):
+        task = parallel_task(dev, mesh.group, cd)
+        batch = from_numpy(shards[rank], dev, cd, train=True)
+        reset_counts()
+        m = make_sharded_train_step(task, mesh)(batch)
+        torch.cuda.synchronize()
+        out[f'train {cd or "float32"}'] = dict(
+            launches=counts(), loss=m['loss'].cpu(),
+            confmat=m['confmat'].cpu(), grads=flat_grads(task.model),
+            params=flat_params(task.model))
+    return out
+
+
+def phase_parallel(dev, card, nags):
+    """Data-parallel and graph-partition-parallel runs of the flagship
+    over `parallel/`, two spawned ranks that share the card over gloo
+    (a file store in a temporary directory): (a) one DP step of two
+    4-crop random batches (the training phase's first two) against the
+    single-process step on the same weights (the two gradients summed
+    and halved, one AdamW update): loss, confusion matrix and parameters
+    bit-equal, and a rerun bit-equal; (b) the host path's room 0 sharded
+    over the two ranks (`shard_padded_nag`): the sharded forward in f32
+    and bf16 against the unsharded forward of the same NAG, one sharded
+    train step in each against the unsharded step (the limits:
+    SHARDED_*, TRAIN_TOL). The kernels are built
+    before the ranks start; the ranks only load them. Returns the
+    launches of each path, summed over the ranks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch.data.pad import (pad_nag,
+                                                       sort_nag_by_super)
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.inference import EVAL_BATCH_OVERRIDES
+    from superpoint_transformer_torch.optim.lr_scheduler import set_lr
+    from superpoint_transformer_torch.parallel import shard_padded_nag
+    from superpoint_transformer_torch.parallel.shard_nag import (
+        shard_assignment)
+    from superpoint_transformer_torch.transforms.prepare import (
+        BatchConfig, process_batch)
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+
+    settle()
+    R = PARALLEL_RANKS
+    paths = {}
+    # (a) data parallelism
+    hosts = [random_padded_nag(seed=SEED + 10 + r, num_graphs=TRAIN_GRAPHS,
+                               **CROP) for r in range(R)]
+    t0 = time.perf_counter()
+    ranks = launch_ranks(dp_rank, (dev, hosts))
+    wall = time.perf_counter() - t0
+    task = parallel_task(dev)
+    cd = task.model.net.compute_dtype
+    task.model.train()
+    grads, losses, cm = [], [], 0
+    for host in hosts:
+        batch = from_numpy(host, dev, cd, train=True)
+        task.optimizer.zero_grad(set_to_none=True)
+        loss, logits = task.loss(batch)
+        loss.backward()
+        grads.append([p.grad for p in task.model.parameters()])
+        losses.append(loss.detach())
+        cm = cm + task._confmat(logits, batch)
+    for p, *g in zip(task.model.parameters(), *grads):
+        p.grad = None if g[0] is None else sum(g) / R
+    set_lr(task.optimizer, task.schedules, 0, 1.0)
+    task.optimizer.step()
+    ref = dict(loss=(sum(losses) / R).cpu(), confmat=cm.cpu(),
+               params=flat_params(task.model))
+    del task, grads, batch
+    for r, got in enumerate(ranks):
+        first, rerun = got['runs']
+        same = {k: torch.equal(first[k], ref[k]) for k in ref}
+        again = all(torch.equal(first[k], rerun[k]) for k in ref)
+        diff = (first['params'] - ref['params']).abs().max().item()
+        print(f'data-parallel rank {r} of {R} (two ranks on one card, gloo; '
+              f'correctness only): loss {first["loss"].item():.6f} vs the '
+              f'single-process step {ref["loss"].item():.6f}; bit-equal '
+              f'{same} (parameters max abs {diff:.3e}); rerun bit-equal '
+              f'{again}; launches {first["launches"]}; DP step '
+              f'{got["step_ms"]:.2f} ms on {card} (wall, {PARALLEL_ROUNDS} '
+              'steps)')
+        check(all(same.values()) and again,
+              f'data-parallel rank {r}: not bit-equal to the single-process '
+              'step or to its rerun')
+        check(first['launches']['K1'] == K1_LAUNCHES_PER_STEP
+              and first['launches']['K2'] == first['launches']['K3'] == 0,
+              f'data-parallel rank {r}: not {K1_LAUNCHES_PER_STEP} K1 '
+              'launches alone')
+    paths['data-parallel'] = {'K1': sum(g['runs'][0]['launches']['K1']
+                                        for g in ranks)}
+    print(f'data-parallel phase: {R} ranks in {wall:.1f} s (spawn, build, '
+          'steps)')
+
+    # (b) graph-partition sharding of room 0
+    settle()
+    cfg = dataclasses.replace(BatchConfig(), **EVAL_BATCH_OVERRIDES)
+    big = sort_nag_by_super(process_batch([nags[0]], cfg, train=False))
+    shards = shard_padded_nag(big.clone(), R, num_classes=13)
+    assign = shard_assignment(big, R)[1]
+    host = pad_nag(big, num_classes=13, bucket_mode=cfg.bucket_mode)
+    n1 = int(host.levels[1].num_nodes)
+    caps = [[int(s.levels[i].pos.shape[0]) for i in range(len(s.levels))]
+            for s in shards]
+    t0 = time.perf_counter()
+    ranks = launch_ranks(sharded_rank, (dev, shards))
+    wall = time.perf_counter() - t0
+    print(f'graph-sharded room 0: {[lvl.num_nodes for lvl in host.levels]} '
+          f'nodes per level over {R} ranks, shard capacities {caps}; '
+          f'{wall:.1f} s (spawn, build, runs)')
+    for cd in (None, 'bfloat16'):
+        task = parallel_task(dev, compute_dtype=cd)
+        task.model.eval()
+        with torch.inference_mode():
+            want = task.model(from_numpy(host, dev, cd))[0][:n1].float()
+        got = [o[f'forward {cd or "float32"}'] for o in ranks]
+        for r, g in enumerate(got):
+            lg = g['logits'][0]
+            cap = lg.shape[0] // R
+            lg = lg[torch.from_numpy(assign[0].astype(np.int64) * cap
+                                     + assign[1])].to(want.device)
+            err, mean, agree = logit_diff(lg, want)
+            print(f'graph-sharded forward, rank {r}, {cd or "float32"} '
+                  f'level-1 logits vs the unsharded forward: max_abs_err='
+                  f'{err:.3e} mean={mean:.3e} argmax agreement {agree:.5f}; '
+                  f'launches {g["launches"]}')
+            if cd is None:
+                check(err <= SHARDED_F32_LOGIT_MAX_ABS
+                      and agree >= F32_ARGMAX_AGREEMENT,
+                      f'graph-sharded f32 logits beyond '
+                      f'{SHARDED_F32_LOGIT_MAX_ABS} or agreement '
+                      f'{agree:.5f} below {F32_ARGMAX_AGREEMENT}')
+            else:
+                check(mean <= SHARDED_BF16_LOGIT_MEAN_MAX
+                      and agree >= SHARDED_BF16_ARGMAX_AGREEMENT,
+                      f'graph-sharded bf16 logits: mean {mean:.3e} beyond '
+                      f'{SHARDED_BF16_LOGIT_MEAN_MAX} or agreement '
+                      f'{agree:.5f} below {SHARDED_BF16_ARGMAX_AGREEMENT}')
+            check(g['launches']['K2'] == K2_LAUNCHES_PER_FORWARD
+                  and g['launches']['K1'] == g['launches']['K3'] == 0,
+                  f'graph-sharded forward rank {r}: not '
+                  f'{K2_LAUNCHES_PER_FORWARD} K2 launches alone')
+    for cd in (None, 'bfloat16'):
+        task = parallel_task(dev, compute_dtype=cd)
+        p0 = flat_params(task.model)
+        m = task.train_step(from_numpy(host, dev, cd, train=True))
+        want = dict(loss=m['loss'].cpu(), confmat=m['confmat'].cpu(),
+                    grads=flat_grads(task.model),
+                    params=flat_params(task.model))
+        hold_sharded_step(ranks, cd, want, p0)
+    for r, o in enumerate(ranks):
+        print(f'graph-sharded timing, rank {r} on {card} (two ranks on one '
+              f'card, gloo; correctness only): forward '
+              f'{o["forward_ms"]:.2f} ms, all_gather_rows of a level-1 '
+              f'block {o["all_gather_rows"]} bf16 {o["all_gather_ms"]:.3f} ms '
+              f'(wall, through the host)')
+    paths['graph-sharded'] = {
+        name: sum(o[f'{kind} {cd}']['launches'][name] for o in ranks
+                  for cd in ('float32', 'bfloat16'))
+        for name, kind in (('K1', 'train'), ('K2', 'forward'))}
+    del task
+    settle()
+    return paths
+
+
+def hold_sharded_step(ranks, cd, want, p0):
+    """Each rank's sharded train step in the compute dtype `cd` against
+    the unsharded one (`want`: loss, confusion matrix, gradients and
+    parameters after the step, from the parameters `p0`): the loss and
+    the gradients within TRAIN_TOL, and so the update where the gradient
+    is above 1e-3 of its largest (AdamW's first step is lr * g / (|g| +
+    eps): an entry whose gradient is rounding noise steps with an
+    arbitrary sign); in f32 the confusion matrix equal; in bf16, whose
+    logits round differently, the confusion matrix off by at most
+    SHARDED_BF16_CONFMAT_OFF of the label mass."""
+    import torch
+    label = cd or 'float32'
+    tol_loss, tol_grad = TRAIN_TOL[('flagship', cd)]
+    big_g = want['grads'].abs() > 1e-3 * want['grads'].abs().max()
+    for r, o in enumerate(ranks):
+        t = o[f'train {label}']
+        loss_err = (abs(t['loss'] - want['loss']) / want['loss'].abs()).item()
+        grad_err = rel_l2(t['grads'], want['grads'])
+        upd_err = rel_l2((t['params'] - p0)[big_g],
+                         (want['params'] - p0)[big_g])
+        cm_off = (t['confmat'] - want['confmat']).abs().sum().item()
+        mass = want['confmat'].sum().item()
+        print(f'graph-sharded {label} train step, rank {r}: loss '
+              f'{t["loss"].item():.6f} vs unsharded {want["loss"].item():.6f} '
+              f'(rel {loss_err:.3e}, limit {tol_loss}); gradients rel L2 '
+              f'{grad_err:.3e} (limit {tol_grad}); update rel L2 '
+              f'{upd_err:.3e} over {int(big_g.sum())} of {big_g.numel()} '
+              f'entries; confusion matrix off by {cm_off} of {mass}; '
+              f'launches {t["launches"]}')
+        check(loss_err <= tol_loss and grad_err <= tol_grad
+              and upd_err <= tol_grad,
+              f'graph-sharded {label} train step rank {r}: the loss, the '
+              'gradients or the update beyond TRAIN_TOL')
+        if cd is None:
+            check(cm_off == 0, f'graph-sharded f32 train step rank {r}: '
+                  'another confusion matrix')
+        else:
+            check(cm_off <= SHARDED_BF16_CONFMAT_OFF * mass,
+                  f'graph-sharded bf16 train step rank {r}: confusion '
+                  f'matrix off by more than {SHARDED_BF16_CONFMAT_OFF} of '
+                  'the label mass')
+        check(t['launches']['K1'] == K1_LAUNCHES_PER_STEP
+              and t['launches']['K2'] == t['launches']['K3'] == 0,
+              f'graph-sharded train step rank {r}: not '
+              f'{K1_LAUNCHES_PER_STEP} K1 launches alone')
+
+
+def phase_tune(dev, card, tmp):
+    """`tune.main` over the fit phase's rooms: TUNE_TRIALS trials of one
+    epoch each through `train(cfg, datasets)` (the clouds are the fit
+    phase's, preprocessed once), LRs drawn from seed 0; every trial must
+    have a score."""
+    import copy
+    from superpoint_transformer_torch.config.loader import _to_config
+    from superpoint_transformer_torch.experiment import FLAGSHIP_CFG
+    from superpoint_transformer_torch.train import train
+    from superpoint_transformer_torch.tune import main as tune_main
+
+    settle()
+    base = _to_config(copy.deepcopy(FLAGSHIP_CFG))
+    for key, value in (('device', str(dev)),
+                       ('datamodule.data_dir', os.path.join(tmp.name,
+                                                            's3dis')),
+                       ('trainer.max_epochs', 1),
+                       ('trainer.check_val_every_n_epoch', 1)):
+        base.set_path(key, value)
+
+    def trial(overrides):
+        cfg = copy.deepcopy(base)
+        for o in overrides:
+            key, _, value = o.partition('=')
+            try:
+                value = float(value)
+            except ValueError:
+                pass
+            cfg.set_path(key, value)
+        return train(cfg, s3dis_datasets(cfg)).best_miou
+
+    out = os.path.join(tmp.name, 'tune')
+    reset_counts()
+    t0 = time.perf_counter()
+    with plain_attention_calls() as plain:
+        best = tune_main([f'n_trials={TUNE_TRIALS}', f'tune_dir={out}',
+                          'space.model.optimizer.lr=loguniform(1e-3,1e-1)'],
+                         train_main=trial)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    with open(os.path.join(out, 'tune_results.json')) as f:
+        results = json.load(f)
+    print(f'tune on {card}: {len(results)} trials of one epoch in '
+          f'{wall:.1f} s: {results}; best {best}; launches {launches}, '
+          f'plain attention calls {plain["plain"]}')
+    check(len(results) == TUNE_TRIALS and all(
+        r['score'] is not None for r in results) and best is not None,
+          'tune: a trial failed')
+    check(launches['K1'] > 0 and launches['K2'] > 0
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          'tune: not K1 and K2 alone')
+    return {'K1': launches['K1'], 'K2': launches['K2']}
 
 
 class OracleTask:
@@ -3561,24 +3988,30 @@ def main():
                 'K3': phase_fused_rpe_training(dev)}
     host_path, host_nags = phase_host_path(dev, card)
     whole_cloud = {'K2': phase_whole_cloud(dev, card, host_nags)}
+    parallel = phase_parallel(dev, card, host_nags)
     del host_nags
     panoptic, pan_nags = phase_panoptic(dev, card)
     # the fit phase's rooms serve the EZ-SP and nano phases too
     rooms = tempfile.TemporaryDirectory()
     try:
         fit = phase_fit(dev, card, tmp=rooms)
+        tune = phase_tune(dev, card, rooms)
         ezsp = phase_ezsp(dev, card, rooms)
         nano, nano_timing = phase_nano(dev, card, rooms, pan_nags)
         datasets, spt3_timing = phase_datasets(dev, card, rooms)
     finally:
         rooms.cleanup()
     paths = {'serving/training/fused-RPE': launches, 'host': host_path,
-             'whole-cloud': whole_cloud, 'panoptic': panoptic, 'fit-and-evaluate': fit, 'ezsp': ezsp,
+             'whole-cloud': whole_cloud, **parallel, 'panoptic': panoptic,
+             'fit-and-evaluate': fit, 'tune': tune, 'ezsp': ezsp,
              'nano': nano, **datasets}
     print(f'launches by path: serving/training/fused-RPE {launches}, '
           f'host path {host_path}, whole-cloud serving {whole_cloud}')
     print(f'launches on the panoptic path: {panoptic}')
+    print(f'launches on the data-parallel and graph-sharded paths (both '
+          f'ranks): {parallel}')
     print(f'launches on the fit-and-evaluate path: {fit}')
+    print(f'launches on the tune path: {tune}')
     print(f'launches on the EZ-SP path: {ezsp}')
     print(f'launches on the nano path: {nano}')
     print(f'launches on the dales, kitti360 and scannet paths: {datasets}')

@@ -279,7 +279,8 @@ class BaseDataset:
 class DataLoader:
     """Yields lists of NAGs (batching happens in `prepare_batch`).
     `prefetch > 0` loads upcoming batches on a background thread, so file
-    reads overlap the step (h5py releases the GIL)."""
+    reads overlap the step (h5py releases the GIL). After `shard(rank,
+    world_size)` it yields the batches of one data-parallel rank only."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, seed=0,
                  drop_last=False, prefetch=2):
@@ -290,6 +291,15 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.epoch = 0
+        self.rank, self.world_size = 0, 1
+
+    def shard(self, rank, world_size):
+        """From now on yield rank `rank`'s batches of each epoch: global
+        step s takes batch `s * world_size + rank` of the epoch's order,
+        and a trailing group of fewer than `world_size` batches is
+        dropped (the JAX Trainer's data-parallel grouping)."""
+        self.rank, self.world_size = int(rank), int(world_size)
+        return self
 
     def __len__(self):
         n = len(self.dataset)
@@ -298,20 +308,25 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batches(self):
+        """[(batch number in the epoch, sample indices)] of this epoch's
+        batches of this rank."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
         self.epoch += 1
+        out = []
         for i in range(0, n, self.batch_size):
             idx = order[i:i + self.batch_size]
             if self.drop_last and idx.shape[0] < self.batch_size:
                 break
-            yield idx
+            out.append(idx)
+        full = len(out) // self.world_size * self.world_size
+        return [(b, out[b]) for b in range(self.rank, full, self.world_size)]
 
     def __iter__(self):
         if self.prefetch <= 0:
-            for idx in self._batches():
+            for _, idx in self._batches():
                 yield [self.dataset[int(j)] for j in idx]
             return
         import queue
@@ -321,7 +336,7 @@ class DataLoader:
 
         def worker():
             try:
-                for idx in self._batches():
+                for _, idx in self._batches():
                     q.put([self.dataset[int(j)] for j in idx])
             finally:
                 q.put(end)
@@ -414,23 +429,24 @@ class PreparedDataLoader(DataLoader):
     def __iter__(self):
         import queue
         import time
-        batches = list(self._batches())
+        batches = self._batches()
+        # one seed a batch of the epoch, whichever rank takes it
         seeds = np.random.SeedSequence(
-            self.seed + 7919 * self.epoch).generate_state(
-            max(len(batches), 1))
+            self.seed + 7919 * self.epoch).generate_state(max(len(self), 1))
+        batches = [(idx, int(seeds[b])) for b, idx in batches]
         if self.num_workers <= 0:
             from ..transforms.prepare import prepare_batch
-            for bid, idx in enumerate(batches):
+            for idx, seed in batches:
                 nags = [self.dataset[int(j)] for j in idx]
                 yield self._to_device(prepare_batch(
                     nags, self.batch_cfg, train=self.train,
-                    rng=np.random.default_rng(int(seeds[bid]))))
+                    rng=np.random.default_rng(seed)))
             return
         self._ensure_pool()
         self._generation += 1
         gen = self._generation
-        for bid, idx in enumerate(batches):
-            self._task_q.put((gen, bid, np.asarray(idx), int(seeds[bid])))
+        for bid, (idx, seed) in enumerate(batches):
+            self._task_q.put((gen, bid, np.asarray(idx), seed))
         pending = {}
         for next_bid in range(len(batches)):
             waited = time.monotonic()

@@ -312,12 +312,14 @@ def _device(device, fn):
 
 
 def build_model(cfg, num_graphs=8, compute_dtype='auto',
-                plain_attention=False, device='cuda'):
+                plain_attention=False, device='cuda', shard_group=None):
     """Build the SPT backbone of `cfg` (a nested dict shaped like
     `FLAGSHIP_CFG`) on `device`, deriving every channel width as the JAX
     `build_model` does. `compute_dtype='auto'` reads `trainer.precision`.
     `plain_attention` runs the attention kernel's plain PyTorch version
-    (for comparing the kernel with it). Raises without a CUDA device
+    (for comparing the kernel with it). `shard_group` builds the model for
+    one rank's shard of a graph-partition-sharded batch
+    (`parallel/mesh.py:make_sharded_forward`). Raises without a CUDA device
     unless `device` is the CPU."""
     device = _device(device, 'build_model')
     dm, m = cfg['datamodule'], cfg['model']
@@ -397,11 +399,12 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
         fusion=str(net['fusion']), norm_mode=str(net['norm_mode']),
         num_graphs=num_graphs,
         compute_dtype=compute_dtype, plain_attention=plain_attention,
-        device=device)
+        shard_group=shard_group, device=device)
 
 
 def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
-               compute_dtype='auto', plain_attention=False, device='cuda'):
+               compute_dtype='auto', plain_attention=False, device='cuda',
+               shard_group=None):
     """The task of `cfg` (a nested dict shaped like `FLAGSHIP_CFG`) around
     `build_model(cfg, ...)` on `device`: the `SemanticTask`, or the
     `PanopticTask` where `model.task` is 'panoptic' (as `PANOPTIC_CFG`
@@ -417,8 +420,9 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
     `[cnn_width] * cnn_depth + [cnn_out]` over the `datamodule.point_hf`
     features, drawn from a generator seeded with `cfg.seed`, with the
     criterion's keys, the LR and the weight decay; `compute_dtype` and
-    `plain_attention` do not apply to it. Raises without a CUDA device
-    unless `device` is the CPU."""
+    `plain_attention` do not apply to it. `shard_group` goes to
+    `build_model`. Raises without a CUDA device unless `device` is the
+    CPU."""
     device = _device(device, 'build_task')
     m = cfg['model']
     task_type = str(m.get('task', 'semantic'))
@@ -429,7 +433,8 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
     sched = m['scheduler']
     net = build_model(cfg, num_graphs=num_graphs,
                       compute_dtype=compute_dtype,
-                      plain_attention=plain_attention, device=device)
+                      plain_attention=plain_attention, device=device,
+                      shard_group=shard_group)
     common = dict(
         num_classes=int(cfg['datamodule']['num_classes']),
         loss_type=str(m['loss_type']),

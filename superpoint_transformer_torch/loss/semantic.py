@@ -1,6 +1,8 @@
 """Semantic segmentation losses over padded levels; counterpart of
-`superpoint_transformer_tpu/loss/semantic.py` (without `axis_name`,
-which waits for the parallel slice).
+`superpoint_transformer_tpu/loss/semantic.py`. `group` (a process group,
+where JAX has `axis_name`) makes every loss the ratio of its numerator and
+denominator summed over the ranks, so that a node-sharded batch
+(`parallel/shard_nag.py`) gives the loss of the whole batch on every rank.
 
 Conventions, as in the JAX package:
   - logits [N, C]; y_hist [N, C+1] where column C counts void points;
@@ -14,10 +16,20 @@ Conventions, as in the JAX package:
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce_sum
+
 __all__ = ['ce_loss', 'ce_with_histogram', 'multi_stage_loss']
 
 
-def ce_loss(logits, y_hist, class_weight=None, node_mask=None):
+def _ratio(num, den, group):
+    """num / den, each summed over the ranks of `group` when given."""
+    if group is not None:
+        num, den = all_reduce_sum(torch.stack([num, den.to(num.dtype)]),
+                                  group)
+    return num / den.clamp(min=1e-12)
+
+
+def ce_loss(logits, y_hist, class_weight=None, node_mask=None, group=None):
     """CE against the dominant histogram label (the first stage of the
     'ce*' losses)."""
     C = logits.shape[1]
@@ -31,10 +43,11 @@ def ce_loss(logits, y_hist, class_weight=None, node_mask=None):
         w = class_weight[y_safe] * valid
     else:
         w = valid.to(logits.dtype)
-    return (nll * w).sum() / w.sum().clamp(min=1e-12)
+    return _ratio((nll * w).sum(), w.sum(), group)
 
 
-def ce_with_histogram(logits, y_hist, class_weight=None, node_mask=None):
+def ce_with_histogram(logits, y_hist, class_weight=None, node_mask=None,
+                      group=None):
     """Cross-entropy against the full label histogram (the reference's
     loss_with_target_histogram)."""
     C = logits.shape[1]
@@ -49,10 +62,10 @@ def ce_with_histogram(logits, y_hist, class_weight=None, node_mask=None):
         per = -(y * class_weight[None, :] * logp).sum()
     else:
         per = -(y * logp).sum()
-    return per / (y.sum() + void.sum()).clamp(min=1e-12)
+    return _ratio(per, y.sum() + void.sum(), group)
 
 
-def _dominant_hist_loss(logits, y_hist, class_weight, mask):
+def _dominant_hist_loss(logits, y_hist, class_weight, mask, group=None):
     """'wce': the histogram mass collapsed onto the dominant label."""
     y_dom = y_hist.argmax(1)
     mass = y_hist.sum(1)
@@ -60,14 +73,15 @@ def _dominant_hist_loss(logits, y_hist, class_weight, mask):
     dom_hist = (cols[None, :] == y_dom[:, None]).to(y_hist.dtype) \
         * mass[:, None]
     return ce_with_histogram(logits, dom_hist, class_weight=class_weight,
-                             node_mask=mask)
+                             node_mask=mask, group=group)
 
 
 def multi_stage_loss(logits_list, y_hist_list, lambdas, loss_type='ce_kl',
-                     class_weight=None, node_masks=None):
+                     class_weight=None, node_masks=None, group=None):
     """Weighted sum of per-level losses. loss_type in {'ce', 'wce', 'kl',
     'ce_kl', 'wce_kl'}; the '*_kl' variants use (weighted) CE on the
-    first (level-1) stage and the histogram loss above it."""
+    first (level-1) stage and the histogram loss above it. With `group`
+    each level's loss is a ratio of sums over the ranks."""
     node_masks = node_masks or [None] * len(logits_list)
     total = 0.0
     for i, (lam, logits, y_hist, mask) in enumerate(zip(
@@ -75,15 +89,17 @@ def multi_stage_loss(logits_list, y_hist_list, lambdas, loss_type='ce_kl',
         cw = class_weight if loss_type in ('wce', 'wce_kl') or \
             (loss_type == 'ce_kl' and class_weight is not None) else None
         if loss_type == 'ce':
-            li = ce_loss(logits, y_hist, node_mask=mask)
+            li = ce_loss(logits, y_hist, node_mask=mask, group=group)
         elif loss_type == 'wce' or (loss_type == 'wce_kl' and i == 0):
-            li = _dominant_hist_loss(logits, y_hist, class_weight, mask)
+            li = _dominant_hist_loss(logits, y_hist, class_weight, mask,
+                                     group=group)
         elif loss_type == 'kl' or (loss_type in ('ce_kl', 'wce_kl')
                                    and i > 0):
             li = ce_with_histogram(logits, y_hist, class_weight=cw,
-                                   node_mask=mask)
+                                   node_mask=mask, group=group)
         elif loss_type == 'ce_kl':
-            li = ce_loss(logits, y_hist, class_weight=cw, node_mask=mask)
+            li = ce_loss(logits, y_hist, class_weight=cw, node_mask=mask,
+                         group=group)
         else:
             raise ValueError(f'Unknown loss_type {loss_type}')
         total = total + lam * li

@@ -86,6 +86,7 @@ class PanopticTask(SemanticTask):
     Batches carry the level-1 instance graph (`prepare_batch` with
     `BatchConfig(instance=True)`) and the label histograms
     (`from_numpy(..., train=True)`), for evaluation too."""
+    parallel_steps = False
 
     def __init__(self, net, num_classes=13, edge_affinity_loss_lambda=1.0,
                  edge_affinity_loss_weights=(1., 1., 1., 1.),

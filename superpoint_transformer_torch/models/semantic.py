@@ -5,14 +5,18 @@ supervised level) and the training task around it. Counterparts of
 histogram loss, AdamW with cosine warm-up (or warm-up then the plateau
 controller's multiplier) and a scaled LR on the attention parameters,
 gradient accumulation with the semantics of `optax.MultiSteps`, and the
-level-1 confusion matrix.
+level-1 confusion matrix. `SemanticTask.train_step` also takes one step of
+a group of ranks: data-parallel, or on one rank's shard of a node-sharded
+batch (`parallel/mesh.py`).
 """
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..loss.semantic import multi_stage_loss
 from ..metrics.semantic import confusion_matrix_from_histogram
 from ..nn.mlp import Classifier
+from ..parallel.collectives import all_reduce_mean_
 from ..optim.lr_scheduler import (cosine_with_warmup, make_optimizer,
                                   make_plateau_optimizer, set_lr)
 
@@ -54,6 +58,9 @@ class SemanticTask:
     parameters do not move in between. `step` counts calls (micro-steps,
     the JAX TrainState's step), `updates` counts optimizer updates (the
     inner optimizer's count, which indexes the LR schedule)."""
+    # the JAX data-parallel and sharded steps take the semantic loss
+    # alone; they raise on the panoptic task's
+    parallel_steps = True
 
     def __init__(self, net, num_classes=13, loss_type='ce_kl',
                  multi_stage_loss_lambdas=(1., 50.), lr=0.01,
@@ -108,7 +115,7 @@ class SemanticTask:
         logits = self.model(batch)
         return self._semantic_loss(logits, batch), logits
 
-    def _semantic_loss(self, logits, batch):
+    def _semantic_loss(self, logits, batch, group=None):
         levels = [batch[1 + i] for i in range(len(self.lambdas))]
         cw = None
         if self.class_weight is not None:
@@ -117,19 +124,27 @@ class SemanticTask:
         return multi_stage_loss(
             logits, [lvl.y for lvl in levels], self.lambdas,
             loss_type=self.loss_type, class_weight=cw,
-            node_masks=[lvl.node_mask for lvl in levels])
+            node_masks=[lvl.node_mask for lvl in levels], group=group)
 
     def _confmat(self, logits, batch):
         return confusion_matrix_from_histogram(
             logits[0].detach(), batch[1].y, self.num_classes,
             node_mask=batch[1].node_mask)
 
-    def train_step(self, batch):
+    def train_step(self, batch, group=None, sharded=False):
         """One micro-step on `batch`: its gradient joins the accumulated
         ones, and on every `accumulate_grad_batches`-th call one AdamW
         update on their mean, at the LR of the update count (times
         `lr_mult`). Returns {'loss': scalar tensor, 'confmat': [C, C]
-        int64} computed before the update, like the JAX step."""
+        int64} computed before the update, like the JAX step.
+
+        With `group` (a process group; every rank of it calls this with
+        its own `batch`) the step is one update of the group:
+        data-parallel, or with `sharded` on this rank's shard of one
+        node-sharded batch, whose model was built with `group` as its
+        `shard_group` (`parallel/mesh.py`)."""
+        if group is not None:
+            return self._group_step(batch, group, sharded)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         loss, logits = self.loss(batch)
@@ -150,6 +165,61 @@ class SemanticTask:
             self.mini_step = 0
         return {'loss': loss.detach(), 'confmat': self._confmat(logits,
                                                                 batch)}
+
+    def check_group_step(self, group=None, sharded=False):
+        """Raise ValueError where the data-parallel step, or with
+        `sharded` the sharded step over `group`, refuses this task, as the
+        JAX package does: a task other than the semantic one, gradient
+        accumulation, a model built for the other step."""
+        if not self.parallel_steps:
+            raise ValueError(f'{type(self).__name__}: the data-parallel and '
+                             'sharded steps take the semantic task only, as '
+                             'in the JAX package')
+        if self.accumulate_grad_batches > 1:
+            raise ValueError('trainer.devices > 1 is incompatible with '
+                             'accumulate_grad_batches > 1 (DP already '
+                             'averages over the device axis)')
+        net_group = getattr(self.model.net, 'shard_group', None)
+        if sharded and (net_group is None or net_group is not group):
+            raise ValueError('the sharded step needs the model built with '
+                             'shard_group=group')
+        if not sharded and net_group is not None:
+            raise ValueError('a model built with a shard_group takes the '
+                             'sharded step only')
+
+    def _group_step(self, batch, group, sharded):
+        """The data-parallel step (JAX `make_dp_train_step`): the mean of
+        the ranks' gradients and of their losses, the sum of their
+        confusion matrices. The sharded step (JAX
+        `make_sharded_train_step`): the loss is a ratio of sums over the
+        ranks, equal on every rank, and the confusion matrices are summed.
+        In both the gradients are averaged over the ranks, in one bucket:
+        a sharded rank back-propagates the replicated loss, and the
+        collectives' backward sums the ranks' cotangents, so the ranks'
+        gradients add up to world-size times the unsharded gradient (JAX
+        sums them, and so steps on world-size times the gradient). Every
+        rank then takes the same AdamW update of its replicated
+        parameters."""
+        self.check_group_step(group, sharded)
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        logits = self.model(batch)
+        loss = self._semantic_loss(logits, batch,
+                                   group=group if sharded else None)
+        loss.backward()
+        all_reduce_mean_([p.grad for p in self.model.parameters()
+                          if p.grad is not None], group)
+        set_lr(self.optimizer, self.schedules, self.updates, self.lr_mult)
+        self.optimizer.step()
+        self.step += 1
+        self.updates += 1
+        loss = loss.detach()
+        cm = self._confmat(logits, batch)
+        dist.all_reduce(cm, group=group)
+        if not sharded:
+            dist.all_reduce(loss, group=group)
+            loss = loss / dist.get_world_size(group)
+        return {'loss': loss, 'confmat': cm}
 
     def _accumulate(self):
         """Fold this micro-batch's gradients into their running mean, in

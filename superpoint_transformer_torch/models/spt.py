@@ -10,7 +10,11 @@ on a NAG without level 0) has no PointStage: its first stage is a
 transformer `Stage` on level 1 with the first down widths, and its
 encoder and decoder start one level higher.
 
-Consumes a `PaddedNAG` of tensors (`data/padded.py`).
+Consumes a `PaddedNAG` of tensors (`data/padded.py`). Built with
+`shard_group` (a process group), it runs on this rank's shard of one
+batch (`parallel/shard_nag.py:shard_padded_nag`): every stage reduces its
+per-graph statistics over the group and attends over the ranks' gathered
+k/v rows (`parallel/mesh.py:make_sharded_forward`).
 """
 from torch import nn
 
@@ -39,7 +43,7 @@ class SPT(nn.Module):
                  use_node_hf=True, use_diameter=False,
                  use_diameter_parent=True, pool='max', fusion='cat',
                  norm_mode='graph', num_graphs=8, compute_dtype=None,
-                 plain_attention=False, device=None):
+                 plain_attention=False, shard_group=None, device=None):
         super().__init__()
         if norm_mode != 'graph':
             raise NotImplementedError(
@@ -52,9 +56,10 @@ class SPT(nn.Module):
         self.use_node_hf = use_node_hf
         self.num_graphs = num_graphs
         self.compute_dtype = compute_dtype
+        self.shard_group = shard_group
         num_down = len(down_dim)
         mlp = dict(num_graphs=num_graphs, compute_dtype=compute_dtype,
-                   device=device)
+                   shard_group=shard_group, device=device)
         if v_edge_mlp is not None or pool != 'max':
             # vertical edge features feed only the attentive pool
             raise NotImplementedError(
@@ -72,7 +77,7 @@ class SPT(nn.Module):
             use_pos=use_pos, use_diameter=use_diameter,
             use_diameter_parent=use_diameter_parent, num_graphs=num_graphs,
             compute_dtype=compute_dtype, plain_attention=plain_attention,
-            device=device)
+            shard_group=shard_group, device=device)
         down = [dict(
             num_blocks=down_num_blocks, num_heads=down_num_heads,
             in_mlp=tuple(down_in_mlp[j]),

@@ -16,6 +16,15 @@ routes:
 
 The other RPE variants run K1 at inference too in the JAX package; they
 are not ported.
+
+Under graph-partition sharding (`shard_group`, `parallel/shard_nag.py`)
+`nbr_idx` holds global slots (`rank * capacity + local slot`): the ranks'
+joint k/v rows are gathered into one global table
+(`parallel/collectives.py:all_gather_rows`), from which each rank gathers
+its neighbors. JAX gathers the k and the v table in two collectives; one
+collective of the joint rows gives the same values. The transpose
+neighbor table is rank-local, so it is dropped there, as in JAX, and the
+training gather is `gather_rows`.
 """
 import torch
 import torch.nn.functional as F
@@ -27,6 +36,7 @@ from ..ops.attention_rpe import (dense_attention_rpe,
                                  dense_attention_rpe_reference)
 from ..ops.gather import gather_rows_t
 from ..ops.segment import gather_rows
+from ..parallel.collectives import all_gather_rows
 from .mlp import linear, resolve_dtype
 
 __all__ = ['SelfAttentionBlock', 'qk_scale_from_degree']
@@ -55,7 +65,8 @@ class SelfAttentionBlock(nn.Module):
                  qk_scale=None, in_rpe_dim=18, k_rpe=False, q_rpe=False,
                  v_rpe=False, qk_share_rpe=False, q_on_minus_rpe=False,
                  heads_share_rpe=False, attn_drop=None, drop=None,
-                 compute_dtype=None, plain_attention=False, device=None):
+                 compute_dtype=None, plain_attention=False,
+                 shard_group=None, device=None):
         super().__init__()
         if not (k_rpe and q_rpe and v_rpe) or qk_share_rpe \
                 or q_on_minus_rpe or heads_share_rpe:
@@ -72,6 +83,7 @@ class SelfAttentionBlock(nn.Module):
         self.qk_scale = qk_scale
         self.dtype = resolve_dtype(compute_dtype)
         self.plain_attention = plain_attention
+        self.shard_group = shard_group
         self.qkv = nn.Linear(C, 2 * H * D + C, bias=qkv_bias,
                              device=device)
         self.k_rpe = nn.Linear(in_rpe_dim, H * D, device=device)
@@ -100,12 +112,16 @@ class SelfAttentionBlock(nn.Module):
         DH, dt = H * D, self.dtype
         qkv = linear(self.qkv, x, dt)
         q = qkv[:, :DH].reshape(N, H, D).contiguous()
+        kv = qkv[:, DH:]
+        if self.shard_group is not None:
+            kv = all_gather_rows(kv, self.shard_group)
+            nbr_in_idx = None
         # one gather of the joint k/v rows
         if self.training and nbr_in_idx is not None:
-            kvg = gather_rows_t(qkv[:, DH:], nbr_idx, nbr_in_idx,
+            kvg = gather_rows_t(kv, nbr_idx, nbr_in_idx,
                                 nbr_in_mask)               # [N, K, DH+C]
         else:
-            kvg = gather_rows(qkv[:, DH:], nbr_idx)
+            kvg = gather_rows(kv, nbr_idx)
         scale = qk_scale_from_degree(self.qk_scale, D, nbr_mask.sum(1))
         edge_feat = edge_feat.to(dt)
         rpe = (self.k_rpe, self.q_rpe, self.v_rpe)

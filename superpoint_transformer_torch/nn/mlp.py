@@ -61,7 +61,7 @@ class MLP(nn.Module):
     output is cast back to f32."""
 
     def __init__(self, dims, num_graphs=64, compute_dtype=None,
-                 device=None):
+                 shard_group=None, device=None):
         super().__init__()
         self.dims = list(dims)
         self.dtype = resolve_dtype(compute_dtype)
@@ -69,7 +69,8 @@ class MLP(nn.Module):
             self.add_module(f'linear_{i}', nn.Linear(
                 dims[i], dims[i + 1], bias=False, device=device))
             self.add_module(f'norm_{i}', GraphNorm(
-                dims[i + 1], num_graphs=num_graphs, device=device))
+                dims[i + 1], num_graphs=num_graphs, shard_group=shard_group,
+                device=device))
 
     @property
     def out_dim(self):

@@ -6,6 +6,11 @@ diameter, concatenated) -> in_mlp -> N x TransformerBlock -> out_mlp.
 Down stages pool children into parents first; up stages broadcast
 parents onto children. At the innermost level positions are normalized
 per graph, through the `batch` vector.
+
+`shard_group` (graph-partition sharding, `parallel/shard_nag.py`) reaches
+every norm and attention block. Of the position norms only the innermost
+level's, per graph, crosses the ranks: a parent and its children lie on
+one rank.
 """
 import torch
 from torch import nn
@@ -48,7 +53,7 @@ class Stage(nn.Module):
                  k_rpe=False, q_rpe=False, v_rpe=False, qk_share_rpe=False,
                  q_on_minus_rpe=False, heads_share_rpe=False,
                  num_graphs=64, compute_dtype=None, plain_attention=False,
-                 device=None):
+                 shard_group=None, device=None):
         super().__init__()
         if mlp_drop:
             raise NotImplementedError(f'Stage: mlp_drop={mlp_drop} is not '
@@ -59,8 +64,9 @@ class Stage(nn.Module):
         self.use_diameter = use_diameter
         self.use_diameter_parent = use_diameter_parent
         self.num_graphs = num_graphs
+        self.shard_group = shard_group
         mlp = dict(num_graphs=num_graphs, compute_dtype=compute_dtype,
-                   device=device)
+                   shard_group=shard_group, device=device)
         if in_mlp is not None:
             self.in_mlp = MLP(in_mlp, **mlp)
         for b in range(num_blocks):
@@ -75,7 +81,8 @@ class Stage(nn.Module):
                 q_on_minus_rpe=q_on_minus_rpe,
                 heads_share_rpe=heads_share_rpe, num_graphs=num_graphs,
                 compute_dtype=compute_dtype,
-                plain_attention=plain_attention, device=device))
+                plain_attention=plain_attention, shard_group=shard_group,
+                device=device))
         if out_mlp is not None:
             self.out_mlp = MLP(out_mlp, **mlp)
 
@@ -95,15 +102,17 @@ class Stage(nn.Module):
         diameter_parent = None
         if pos is not None:
             if super_index is None:
-                # innermost level: normalize per graph
+                # innermost level: normalize per graph, over the ranks
                 si, ns = norm_index.clamp(min=0), self.num_graphs
+                group = self.shard_group
             else:
-                si, ns = super_index, num_super
+                si, ns, group = super_index, num_super, None
             # a level is sorted by parent; graph ids with the padded
             # rows' -1 clamped to 0 are not
             normalized_pos, diameter_parent = unit_sphere_norm(
                 pos, si, ns, node_size=node_size, mask=mask,
-                indices_are_sorted=super_index is not None)
+                indices_are_sorted=super_index is not None,
+                shard_group=group)
             if self.use_pos:
                 x = _cat(normalized_pos, x)
 

@@ -5,6 +5,8 @@ Counterpart of `superpoint_transformer_tpu/nn/transformer.py` in the
 pre-norm form every config uses, for training and inference. v3
 semantics: the FFN residual shortcut re-bases on the SA output. No config
 sets a DropPath or dropout rate, so those accept only None or 0.
+`shard_group` reaches the norms and the attention (graph-partition
+sharding, `parallel/shard_nag.py`).
 """
 from torch import nn
 
@@ -24,7 +26,7 @@ class TransformerBlock(nn.Module):
                  q_rpe=False, v_rpe=False, qk_share_rpe=False,
                  q_on_minus_rpe=False, heads_share_rpe=False,
                  num_graphs=64, compute_dtype=None, plain_attention=False,
-                 device=None):
+                 shard_group=None, device=None):
         super().__init__()
         for name, rate in (('residual_drop', residual_drop),
                            ('drop_path', drop_path)):
@@ -33,7 +35,7 @@ class TransformerBlock(nn.Module):
                     f'TransformerBlock: {name}={rate} is not ported')
         if not no_sa:
             self.sa_norm = GraphNorm(dim, num_graphs=num_graphs,
-                                     device=device)
+                                     shard_group=shard_group, device=device)
             self.sa = SelfAttentionBlock(
                 dim, num_heads=num_heads, qkv_bias=qkv_bias,
                 qk_dim=qk_dim, qk_scale=qk_scale, in_rpe_dim=in_rpe_dim,
@@ -41,10 +43,11 @@ class TransformerBlock(nn.Module):
                 qk_share_rpe=qk_share_rpe, q_on_minus_rpe=q_on_minus_rpe,
                 heads_share_rpe=heads_share_rpe, attn_drop=attn_drop,
                 compute_dtype=compute_dtype,
-                plain_attention=plain_attention, device=device)
+                plain_attention=plain_attention, shard_group=shard_group,
+                device=device)
         if not no_ffn:
             self.ffn_norm = GraphNorm(dim, num_graphs=num_graphs,
-                                      device=device)
+                                      shard_group=shard_group, device=device)
             self.ffn = FFN(dim, hidden_dim=int(dim * ffn_ratio),
                            device=device)
 

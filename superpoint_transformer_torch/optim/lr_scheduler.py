@@ -15,6 +15,7 @@ The JAX plateau optimizer chains `optax.scale(lr_mult)` after AdamW, which
 scales the whole update, decoupled weight decay included. Scaling every
 group's LR by the multiplier (`set_lr`'s `multiplier`) is the same update.
 """
+import functools
 import math
 
 import torch
@@ -32,20 +33,24 @@ def cosine_with_warmup(lr, total_steps, num_warmup_steps,
     `eta_min` over the remaining steps."""
     if warmup_strategy not in ('cos', 'linear'):
         raise ValueError(f'unknown warmup_strategy {warmup_strategy!r}')
+    # a partial of a module function, so that a task pickles (the
+    # data-parallel Trainer sends it to its ranks)
+    return functools.partial(_cosine_with_warmup, lr, total_steps,
+                             num_warmup_steps, warmup_init_lr, eta_min,
+                             warmup_strategy)
 
-    def schedule(step):
-        w = float(num_warmup_steps)
-        frac = min(max(step / max(w, 1.0), 0.0), 1.0)
-        if step < w:
-            if warmup_strategy == 'cos':
-                frac = 0.5 * (1 - math.cos(math.pi * frac))
-            return warmup_init_lr + (lr - warmup_init_lr) * frac
-        progress = min(max((step - w) / max(total_steps - w, 1.0), 0.0),
-                       1.0)
-        return eta_min + (lr - eta_min) * 0.5 * (
-            1 + math.cos(math.pi * progress))
 
-    return schedule
+def _cosine_with_warmup(lr, total_steps, num_warmup_steps, warmup_init_lr,
+                        eta_min, warmup_strategy, step):
+    w = float(num_warmup_steps)
+    frac = min(max(step / max(w, 1.0), 0.0), 1.0)
+    if step < w:
+        if warmup_strategy == 'cos':
+            frac = 0.5 * (1 - math.cos(math.pi * frac))
+        return warmup_init_lr + (lr - warmup_init_lr) * frac
+    progress = min(max((step - w) / max(total_steps - w, 1.0), 0.0), 1.0)
+    return eta_min + (lr - eta_min) * 0.5 * (
+        1 + math.cos(math.pi * progress))
 
 
 def is_transformer_param(name):
@@ -65,17 +70,19 @@ def warmup_constant(lr, num_warmup_steps=0, warmup_init_lr=1e-6,
     plateau controller."""
     if warmup_strategy not in ('cos', 'linear'):
         raise ValueError(f'unknown warmup_strategy {warmup_strategy!r}')
+    return functools.partial(_warmup_constant, lr, num_warmup_steps,
+                             warmup_init_lr, warmup_strategy)
 
-    def schedule(step):
-        w = float(num_warmup_steps)
-        if step < w:
-            frac = min(max(step / max(w, 1.0), 0.0), 1.0)
-            if warmup_strategy == 'cos':
-                frac = 0.5 * (1 - math.cos(math.pi * frac))
-            return warmup_init_lr + (lr - warmup_init_lr) * frac
-        return lr
 
-    return schedule
+def _warmup_constant(lr, num_warmup_steps, warmup_init_lr, warmup_strategy,
+                     step):
+    w = float(num_warmup_steps)
+    if step < w:
+        frac = min(max(step / max(w, 1.0), 0.0), 1.0)
+        if warmup_strategy == 'cos':
+            frac = 0.5 * (1 - math.cos(math.pi * frac))
+        return warmup_init_lr + (lr - warmup_init_lr) * frac
+    return lr
 
 
 def _adamw(module, schedule_of, lr, weight_decay, transformer_lr_scale):

@@ -10,17 +10,25 @@ Checkpoints go under `<output_dir>/checkpoints/{last,best}/`: a
 `state_dict`, the step counts, the plateau multiplier, the gradients of
 an unfinished accumulation) as `state.pt`, beside the `spt_meta.json`
 that the JAX Trainer writes.
+
+`Trainer(devices=D)` trains data-parallel over D ranks, one process
+each (`parallel/`): `fit` spawns them, each with its own copy of the
+task and the loaders, and takes rank 0's trained task back.
 """
 import csv
+import dataclasses
 import json
 import os
 import os.path as osp
+import tempfile
 import time
 from dataclasses import dataclass
+from itertools import islice
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import __version__
 from .data.csr import InstanceData
@@ -165,7 +173,20 @@ class Trainer:
     `batch_cfg`, augmented for training, `eval_batch_cfg` for evaluation)
     or a `PreparedDataLoader` (ready `PaddedNAG`s). Every epoch's host
     batch preparation, step time (CUDA events on a card), validation and
-    wall time land in `epoch_times`."""
+    wall time land in `epoch_times`.
+
+    `devices` > 1 trains data-parallel, with the JAX Trainer's semantics:
+    global step s on rank r takes loader batch `s * devices + r` (a
+    trailing incomplete group is dropped), the ranks' gradients and
+    losses are averaged and their confusion matrices summed
+    (`parallel/mesh.py:make_dp_train_step`), and rank 0 logs, validates
+    and checkpoints while the others wait. `fit` spawns the ranks: on
+    CUDA, rank r on `cuda:r` over NCCL (the task's model on a card needs
+    `devices` cards), on the CPU over gloo. A process that already is one
+    of `devices` ranks passes its `mesh` (`make_data_mesh`) and runs its
+    share of `fit` itself. Each rank draws its augmentations from its
+    own generator (seeded with `seed` on rank 0, `[seed, rank]` on the
+    others)."""
     task: object
     batch_cfg: object
     # evaluation takes whole tiles (no crops), so it has its own
@@ -193,16 +214,18 @@ class Trainer:
     # ReduceOnPlateau, where the task's scheduler is 'plateau'
     plateau_factor: float = 0.5
     plateau_patience: int = 3
+    # this process's rank (`parallel.mesh.Mesh`) when it runs as one of
+    # `devices` ranks
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         if self.devices > 1:
-            raise NotImplementedError(
-                'trainer.devices > 1: data parallelism is not ported '
-                '(ROADMAP Queue 1 item 5)')
+            self._check_devices()
         if self.eval_batch_cfg is None:
             self.eval_batch_cfg = self.batch_cfg
         os.makedirs(self.output_dir, exist_ok=True)
-        self.logger = make_loggers(self.loggers, self.output_dir)
+        self.logger = make_loggers(self.loggers if self.is_main else (),
+                                   self.output_dir)
         self.best_miou = -1.0
         self.epoch = 0
         self.epoch_times = []
@@ -217,6 +240,26 @@ class Trainer:
     @property
     def device(self):
         return next(self.task.model.parameters()).device
+
+    @property
+    def is_main(self):
+        """Whether this process logs, validates and checkpoints: the only
+        one, or rank 0."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _check_devices(self):
+        """The JAX Trainer's refusals for `devices` > 1."""
+        if self.device.type == 'cuda' \
+                and torch.cuda.device_count() < self.devices:
+            raise RuntimeError(
+                f'trainer.devices={self.devices} but only '
+                f'{torch.cuda.device_count()} CUDA device(s) are visible — '
+                'run on a host with more cards or set trainer.devices '
+                'accordingly')
+        self.task.check_group_step()
+        if self.mesh is not None and self.mesh.size != self.devices:
+            raise ValueError(f'trainer.devices={self.devices} but the mesh '
+                             f'has {self.mesh.size} ranks')
 
     def _to_device(self, host):
         return from_numpy(host, self.device,
@@ -262,22 +305,32 @@ class Trainer:
         """Train from `self.epoch` to `max_epochs`, validating every
         `check_val_every_n_epoch` epochs and at the last. Per-step losses
         and confusion matrices stay on the device: one host copy per
-        epoch."""
+        epoch. With `devices` > 1 and no `mesh`, spawns the ranks and
+        returns when they are done, with this Trainer's task, epoch and
+        best metric those of rank 0."""
+        if self.devices > 1 and self.mesh is None:
+            return self._fit_ranks(train_loader, val_loader)
+        step_fn = self.task.train_step
         np_rng = np.random.default_rng(self.seed)
+        if self.mesh is not None:
+            from .parallel.mesh import make_dp_train_step
+            step_fn = make_dp_train_step(self.task, self.mesh)
+            if self.mesh.rank:
+                np_rng = np.random.default_rng([self.seed, self.mesh.rank])
         for epoch in range(self.epoch, self.max_epochs):
             self.epoch = epoch
             t0 = time.time()
             prep = 0.0
             clock = _StepClock(self.device)
             dev_losses, dev_cms = [], []
-            for nags in train_loader:
+            for nags in self._own_batches(train_loader):
                 tp = time.time()
                 batch = nags if isinstance(nags, PaddedNAG) \
                     else self._to_device(prepare_batch(
                         nags, self.batch_cfg, train=True, rng=np_rng))
                 prep += time.time() - tp
                 clock.start()
-                metrics = self.task.train_step(batch)
+                metrics = step_fn(batch)
                 clock.stop()
                 dev_losses.append(metrics['loss'])
                 dev_cms.append(metrics['confmat'])
@@ -301,12 +354,13 @@ class Trainer:
             self.logger.log(row)
             loss_s = f"{row['loss']:.4f}" if row['loss'] is not None \
                 else 'n/a'
-            print(f"[epoch {epoch}] train loss={loss_s} "
-                  f"miou={m['miou']:.2f} ({row['time']:.1f}s)")
+            if self.is_main:
+                print(f"[epoch {epoch}] train loss={loss_s} "
+                      f"miou={m['miou']:.2f} ({row['time']:.1f}s)")
 
             stop = False
             tv = time.time()
-            validated = val_loader is not None and (
+            validated = self.is_main and val_loader is not None and (
                 (epoch + 1) % self.check_val_every_n_epoch == 0
                 or epoch == self.max_epochs - 1)
             if validated:
@@ -331,7 +385,16 @@ class Trainer:
                               f'{self.monitor} did not improve for '
                               f'{self._stale_validations} validations')
                         stop = True
-            self.save_checkpoint('last')
+            if self.is_main:
+                self.save_checkpoint('last')
+            if self.mesh is not None:
+                # the other ranks wait here for rank 0's validation and
+                # checkpoint, and take its decisions
+                decided = [stop, self.task.lr_mult]
+                dist.broadcast_object_list(decided, src=0,
+                                           group=self.mesh.group)
+                stop = decided[0]
+                set_lr_multiplier(self.task, decided[1])
             self.epoch_times.append(dict(
                 epoch=epoch, prepare_s=prep, step_ms=step_ms,
                 steps=len(dev_losses),
@@ -339,6 +402,43 @@ class Trainer:
                 wall_s=time.time() - t0))
             if stop:
                 break
+
+    def _own_batches(self, loader):
+        """This process's loader items: all of them, or as rank r of D,
+        items s * D + r of the complete groups of D (a port `DataLoader`
+        loads only those)."""
+        if self.mesh is None:
+            yield from loader
+            return
+        D, r = self.devices, self.mesh.rank
+        n = len(loader)
+        if hasattr(loader, 'shard'):
+            yield from loader.shard(r, D)
+        else:
+            for j, item in enumerate(islice(loader, n - n % D)):
+                if j % D == r:
+                    yield item
+        if n % D and self.is_main:
+            print(f'[epoch {self.epoch}] dropping {n % D} trailing '
+                  f'batch(es) not filling the {D}-device group')
+
+    def _fit_ranks(self, train_loader, val_loader):
+        """Spawn the `devices` ranks (`_fit_rank`), each with a copy of
+        this Trainer's fields, task and loaders, and take rank 0's trained
+        task, epoch, best metric and epoch times."""
+        from .parallel.multihost import run_ranks
+        fields = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(self) if f.name != 'mesh'}
+        progress = {k: getattr(self, k) for k in _PROGRESS}
+        with tempfile.TemporaryDirectory(prefix='spt_fit_') as tmp:
+            path = osp.join(tmp, 'fit.pt')
+            torch.save({'fields': fields, 'progress': progress,
+                        'loaders': (train_loader, val_loader)}, path)
+            out = run_ranks(_fit_rank, self.devices,
+                            args=(path, self.device.type))[0]
+        self.task.load_state_dict(out.pop('task'))
+        for k, v in out.items():
+            setattr(self, k, v)
 
     def _panoptic_due(self, epoch):
         """The instance partition and PQ run on validation epochs that
@@ -443,6 +543,43 @@ class Trainer:
 
     def test(self, loader):
         return self.validate(loader, split='test')
+
+
+# what a rank's Trainer carries from one epoch to the next, beyond its task
+_PROGRESS = ('epoch', 'best_miou', 'epoch_times', '_stale_validations',
+             '_plateau', '_partition_settings')
+
+
+def _fit_rank(rank, world_size, init_method, path, device_type):
+    """One rank of `Trainer.fit` with `devices` > 1: rank r on `cuda:r`
+    (NCCL) or the CPU (gloo). Loads the task onto its device (AdamW's
+    step counts stay on the host, as `load_checkpoint` keeps them) and
+    runs its share of `fit`; rank 0 returns the trained task's state and
+    the Trainer's progress."""
+    from .parallel.mesh import make_data_mesh
+    device = torch.device('cuda', rank) if device_type == 'cuda' \
+        else torch.device('cpu')
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    mesh = make_data_mesh(device=device, init_method=init_method,
+                          rank=rank, world_size=world_size)
+    payload = torch.load(path, map_location=device, weights_only=False)
+    task = payload['fields']['task']
+    for state in task.optimizer.state.values():
+        if torch.is_tensor(state.get('step')):
+            state['step'] = state['step'].cpu()
+    train_loader, val_loader = payload['loaders']
+    for loader in (train_loader, val_loader):
+        if hasattr(loader, 'device'):
+            loader.device = device
+    trainer = Trainer(**payload['fields'], mesh=mesh)
+    for k, v in payload['progress'].items():
+        setattr(trainer, k, v)
+    trainer.fit(train_loader, val_loader)
+    if rank:
+        return None
+    return {'task': task.state_dict(),
+            **{k: getattr(trainer, k) for k in _PROGRESS}}
 
 
 def _numpy(t):

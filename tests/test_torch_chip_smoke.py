@@ -225,6 +225,50 @@ def test_whole_cloud_phase_rehearsal_on_the_cpu(monkeypatch):
     assert name == 'K2' and path == 'whole-cloud path' and offset > 0
 
 
+def test_parallel_phase_rehearsal_on_the_cpu(monkeypatch):
+    """`phase_parallel` end to end on the CPU: two spawned gloo ranks on
+    the CPU (the ranks' card-only calls stubbed by
+    `torch_ranks.rehearsal`) at small crops and a room of 6,000 raw
+    points: the data-parallel step bit-equal to the single-process one
+    and to its rerun, the sharded forward and train step held to the
+    unsharded ones, and the launches of both paths; 2 graphs a batch
+    and one timing round, in the ranks too."""
+    import torch
+    from superpoint_transformer_torch.parallel import run_ranks
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+    import torch_ranks
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    _rehearse_on_the_cpu(monkeypatch)
+    constants = dict(TRAIN_GRAPHS=2, PARALLEL_ROUNDS=1,
+                     CROP=dict(n_points=2_000, n_l1=128, n_l2=32))
+    for k, v in constants.items():
+        monkeypatch.setattr(chip_smoke, k, v)
+    # the bf16 limits of the sharded path are the card's readings on a
+    # 250k-point room; this room has 406 level-1 nodes, and the CPU's
+    # bf16 reads agreement 0.98522, mean 2.956e-2 and a confusion matrix
+    # 2.38% of the label mass off. The f32 limits stay the card's.
+    for k, v in (('SHARDED_BF16_ARGMAX_AGREEMENT', 0.97),
+                 ('SHARDED_BF16_LOGIT_MEAN_MAX', 5e-2),
+                 ('SHARDED_BF16_CONFMAT_OFF', 5e-2)):
+        monkeypatch.setattr(chip_smoke, k, v)
+    monkeypatch.setattr(chip_smoke, 'launch_ranks', lambda fn, args: (
+        run_ranks(torch_ranks.rehearsal, chip_smoke.PARALLEL_RANKS,
+                  args=(fn.__name__, args, constants), timeout=240)))
+    nags = [preprocess_cloud(synthetic_room_cloud(seed=0, n_points=6_000))]
+    try:
+        paths = chip_smoke.phase_parallel(torch.device('cpu'), 'cpu', nags)
+    finally:
+        torch.set_num_threads(threads)
+    # 7 a step or a forward, in each rank; the sharded forward and step
+    # in f32 and bf16
+    assert paths == {'data-parallel': {'K1': 2 * 7},
+                     'graph-sharded': {'K1': 2 * 2 * 7, 'K2': 2 * 2 * 7}}
+
+
 def test_allocator_runs_time_fresh_processes_of_each_setting(monkeypatch,
                                                              capsys):
     """`allocator_runs` starts fresh processes with the allocator tuned

@@ -377,6 +377,61 @@ def test_native_library_is_the_ports_own_build(blocked_run):
                                  '_build', 'libspt_native.so')], libs
 
 
+BLOCKER = textwrap.dedent('''
+    import sys
+
+    BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
+               'superpoint_transformer_tpu')
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split('.')[0] in BLOCKED:
+                raise ImportError(f'{name} is blocked')
+            return None
+
+    sys.meta_path.insert(0, Block())
+''')
+
+RANKS_SCRIPT = textwrap.dedent('''
+    import sys
+    import numpy as np
+    from superpoint_transformer_torch import tune
+    from superpoint_transformer_torch.parallel import (
+        launch_multihost_dryrun, run_ranks)
+    from superpoint_transformer_torch.parallel.multihost import worker_main
+
+    if __name__ == '__main__':
+        try:
+            import jax  # noqa: F401
+        except ImportError:
+            pass
+        else:
+            raise SystemExit('the blocker is not installed')
+        assert tune.sample({'a': tune.parse_space('uniform(0,1)')},
+                           np.random.default_rng(0))['a'] < 1
+        results = launch_multihost_dryrun(n_proc=1, n_dev=2, timeout=240)
+        assert len(results) == 2 and results[0]['world_size'] == 2
+        print('RANKS_OK', results[0]['loss'])
+''')
+
+
+def test_spawned_ranks_run_without_jax_flax(tmp_path):
+    """Two spawned gloo ranks on the CPU, whose interpreters (and their
+    parent's) cannot import jax, flax, optax, orbax or the JAX package
+    (a `sitecustomize` on their PYTHONPATH blocks them), import
+    `parallel/` and `tune.py` and run the all-reduces of one data-parallel
+    step of the flagship (`launch_multihost_dryrun`)."""
+    (tmp_path / 'sitecustomize.py').write_text(BLOCKER)
+    script = tmp_path / 'ranks.py'
+    script.write_text(RANKS_SCRIPT)
+    env = dict(os.environ, OMP_NUM_THREADS='1',
+               PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
+    out = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert 'RANKS_OK' in out.stdout
+
+
 NO_OPENMP_CXX = """#!/bin/sh
 for a in "$@"; do
   if [ "$a" = -fopenmp ]; then
