@@ -78,7 +78,22 @@ against its plain PyTorch version:
    launches a rank, K2 held on its widest launch there) and a sharded
    train step in each against the unsharded step (loss, gradients,
    confusion matrix, update); the DP step, the sharded forward and a
-   level-1 block's `all_gather_rows` timed a rank;
+   level-1 block's `all_gather_rows` timed a rank; then the SPT options
+   that no config sets (`phase_variants`, a path of its own), at SPT-2's
+   full width: the variant models of VARIANTS (an RPE variant with a
+   query per edge and post-norm layer norms; no edge features with the
+   attentive pool, residual fusions, batch norms and every dropout; key
+   RPE alone with instance and group norms and min pooling) served on K1
+   (7 launches a forward) and stepped (7, or none where attention
+   dropout takes JAX's materialized route), each against the plain
+   attention in f32 and bf16 and twice bit-equal (dropout reseeded), K1
+   held on its widest per-node and per-edge launches and timed on the
+   per-node one; EZ-SP semantic (the point CNN into and beside the point
+   MLP) on the host path's rooms with `quantize_coordinates` coords,
+   served on K2 and stepped on K1 likewise, its reference-keyed state
+   dict imported with strict=True to bit-equal logits; the flagship
+   forward's and step's model FLOPs (`utils/flops.py`), equal with the
+   kernels and with the plain attention, and their mfu in bf16;
 8. SuperCluster panoptic segmentation (`experiment=panoptic/s3dis`,
    SPT-2 width, random weights): 2 synthetic rooms of 250k raw points
    with instance ids through `preprocess_cloud(with_instances=True)`;
@@ -257,7 +272,13 @@ TRAIN_TOL = {('flagship', None): (1e-4, 2e-2),
              ('kitti360', None): (1e-4, 5e-3),
              ('kitti360', 'bfloat16'): (1e-2, 0.75),
              ('scannet', None): (1e-4, 2.5e-3),
-             ('scannet', 'bfloat16'): (2e-3, 0.15)}
+             ('scannet', 'bfloat16'): (2e-3, 0.15),
+             # the variant and EZ-SP SPTs (`phase_variants`): the
+             # flagship's limits
+             ('variants', None): (1e-4, 2e-2),
+             ('variants', 'bfloat16'): (2e-3, 0.25),
+             ('ezsp', None): (1e-4, 2e-2),
+             ('ezsp', 'bfloat16'): (2e-3, 0.25)}
 # whole model, kernel vs plain attention: in f32 the largest logit
 # difference and the argmax agreement (the parent's floor: the run-twice
 # agreement less 0.001, 0.99829-0.99890 on the flagship levels); in bf16
@@ -373,38 +394,44 @@ DALES_SERVE_TILES = 4
 KITTI360_WINDOW_POINTS = 200_000
 KITTI360_EPOCHS = 1
 SCANNET_SCAN_POINTS = 100_000
+# the SPT options no config sets (`phase_variants`), on SPT-2 at full
+# width (the flagship's spt_kwargs changed): A, a query RPE through the
+# shared key encoder on the negated edge features, one RPE for all heads,
+# the 'g' scale, post-norm layer norms; B, no edge features (no RPE: a
+# query per node), the attentive pool over vertical edge features, residual
+# fusions, batch norms, every dropout and DropPath; C, key RPE alone (a
+# query per node), instance norms in the blocks and group norms in the
+# MLPs, min pooling. B's random node features (VARIANT_HF channels at
+# levels 1 and 2) feed its pool's queries and its fusions; its vertical
+# edge features (VARIANT_HF channels at levels 0 and 1) the pool's RPE.
+VARIANT_HF = 4
+VARIANT_DROP = 0.1
+VARIANTS = {
+    'A': dict(qk_share_rpe=True, q_on_minus_rpe=True, heads_share_rpe=True,
+              qk_scale='g', pre_norm=False, norm='layer'),
+    'B': dict(h_edge_mlp=None, in_rpe_dim=0, pool='attentive',
+              node_mlp=(VARIANT_HF, 64, 64),
+              v_edge_mlp=(VARIANT_HF, 32, 32), fusion='residual',
+              norm='batch', mlp_norm='batch',
+              down_in_mlp=((68, 64, 64), (68, 64, 64)),
+              down_out_mlp=((64, 64), (64, 128)),
+              up_in_mlp=((132, 64, 64),),
+              **{f'{side}_{rate}': VARIANT_DROP for side in ('down', 'up')
+                 for rate in ('mlp_drop', 'residual_drop', 'attn_drop',
+                              'drop_path')},
+              point_drop=VARIANT_DROP),
+    'C': dict(q_rpe=False, v_rpe=False, norm='instance', mlp_norm='group',
+              pool='min')}
+# EZ-SP semantic: the sparse CNN of the stage-1 partition model's widths
+# ahead of the point MLP (into it, or beside it)
+POINT_CNN = (32, 32, 32)
 
 
-def kernel_cost(name, N, K, H, D, C, De=0, elem=2, q_per_edge=True):
+def kernel_cost(name, **shape):
     """(bytes, product FLOPs, other FLOPs) of one call of kernel `name`
-    ('K1', 'K2' or 'K3') at these shapes, with `elem`-byte inputs. Bytes
-    count each input read once and each output written once. Product
-    FLOPs are the contractions over the De edge features (the RPE
-    projections and their gradients), which the tensor cores can take in
-    bf16; other FLOPs are the elementwise, logit and weighted-sum work in
-    f32. K2 is counted without lse, K3 with the `delta` pass outside."""
-    DH, W, slots = H * D, 2 * H * D + C, N * K
-    if name == 'K1':
-        q = slots * DH if q_per_edge else N * DH
-        nbytes = (q + slots * (DH + C)) * elem + slots + N * 4 + N * C * 4
-        # q * scale, the logit products and sums, the weighted sum
-        return nbytes, 0, slots * (3 * DH + 2 * C)
-    # q, the gathered k/v rows and edge features, the weights, mask, scale
-    inputs = (N * DH + slots * (DH + C + De) + (De + 1) * W) * elem \
-        + slots + N * 4
-    if name == 'K2':
-        # + out; one projection, the RPE adds, logits, weighted sum
-        return (inputs + N * C * 4, slots * 2 * De * W,
-                slots * (W + 2 * DH + 2 * C))
-    if name == 'K3':
-        # + out, lse and g in f32; dq, dkg, dvg, d_ef and the f32 weight
-        # gradients out; the projection again, d_ef and the weight
-        # gradients, then the RPE adds, logits, dv, dp, dq and dk
-        nbytes = inputs + (2 * N * C + H * N) * 4 \
-            + (N * DH + slots * (DH + C + De)) * elem + (De + 1) * W * 4
-        return (nbytes, slots * 3 * 2 * De * W,
-                slots * (W + 5 * DH + 3 * C))
-    raise ValueError(name)
+    at `shape` (`ops/cost.py:kernel_cost`)."""
+    from superpoint_transformer_torch.ops.cost import kernel_cost as cost
+    return cost(name, **shape)
 
 
 def bound(name, **shape):
@@ -1061,11 +1088,14 @@ def phase_training(dev, card):
     return launches['K1']
 
 
-def loss_grads(task, batch):
+def loss_grads(task, batch, seed=None):
     """(loss, all parameter gradients flattened) of one forward and
     backward of `task` on `batch`, in training mode, without an update;
-    a parameter that gets no gradient counts as zeros."""
+    a parameter that gets no gradient counts as zeros. `seed` restarts
+    the model's dropout stream first."""
     import torch
+    if seed is not None:
+        task.model.net.dropout_rng.manual_seed(seed)
     task.model.train()
     task.optimizer.zero_grad(set_to_none=True)
     loss, _ = task.loss(batch)
@@ -1075,15 +1105,15 @@ def loss_grads(task, batch):
          .reshape(-1).float() for p in task.model.parameters()])
 
 
-def step_twice(label, kern, plain, batch, cd):
+def step_twice(label, kern, plain, batch, cd, seed=None):
     """(kernel loss, gradients), (plain loss, gradients) of one training
     step of the tasks `kern` (the kernels) and `plain` (the same weights
     on the plain attention) on `batch`; the kernel's the same in two
-    runs."""
+    runs (each from the dropout seed `seed`, where one is given)."""
     import torch
-    lk, gk = loss_grads(kern, batch)
-    lk2, gk2 = loss_grads(kern, batch)
-    lp, gp = loss_grads(plain, batch)
+    lk, gk = loss_grads(kern, batch, seed)
+    lk2, gk2 = loss_grads(kern, batch, seed)
+    lp, gp = loss_grads(plain, batch, seed)
     check(torch.isfinite(gk).all().item(), f'{label}non-finite gradients')
     twice = max(abs(lk - lk2).item(), (gk - gk2).abs().max().item())
     check(torch.equal(lk, lk2) and torch.equal(gk, gk2),
@@ -1092,13 +1122,16 @@ def step_twice(label, kern, plain, batch, cd):
     return (lk, gk), (lp, gp)
 
 
-def hold_train_step(path, kern, plain, batch, cd):
+def hold_train_step(path, kern, plain, batch, cd, seed=None,
+                    label=None):
     """One training step's loss and gradients of the task `kern` (the
     kernels): the same in two runs, and within TRAIN_TOL[(path, cd)] of
     `plain` (the same weights on the plain attention) in the compute
-    dtype `cd`. Returns the kernel's (loss, gradients)."""
-    label = '' if path == 'flagship' else f'{path} '
-    (lk, gk), (lp, gp) = step_twice(label, kern, plain, batch, cd)
+    dtype `cd`; each run from the dropout seed `seed` where one is given.
+    Returns the kernel's (loss, gradients)."""
+    if label is None:
+        label = '' if path == 'flagship' else f'{path} '
+    (lk, gk), (lp, gp) = step_twice(label, kern, plain, batch, cd, seed)
     loss_err = (abs(lk - lp) / lp.abs()).item()
     grad_err = rel_l2(gk, gp)
     tol_loss, tol_grad = TRAIN_TOL[(path, cd)]
@@ -1633,17 +1666,10 @@ def dataset_pool_runs(card, dev, rooms):
 
 def reference_state_dict(module):
     """The reference-format state_dict of a port module (the inverse of
-    `import_reference_checkpoint` for Linear and norm parameters): each
-    parameter under its reference key, Linear weights [out, in] as
-    they are."""
+    `import_reference_checkpoint`, `utils/import_ckpt.py`)."""
     from superpoint_transformer_torch.utils.import_ckpt import (
-        flax_path, reference_key_for)
-    state = {}
-    for name, p in module.named_parameters():
-        key = reference_key_for(flax_path(name, p))
-        check(key is not None, f'no reference key for {name}')
-        state[key] = p.detach().cpu().clone()
-    return state
+        reference_state_dict as state_dict)
+    return state_dict(module)
 
 
 def phase_whole_cloud(dev, card, nags):
@@ -3946,6 +3972,278 @@ def phase_datasets(dev, card, tmp):
     return paths, timings
 
 
+def variant_host(seed, num_graphs, size, variant):
+    """A `random_padded_nag` (host) batch for the variant model `variant`:
+    for B, random node features at levels 1 and 2 and vertical edge
+    features at levels 0 and 1 (VARIANT_HF channels, zero on padded rows)
+    and no horizontal edge features."""
+    import dataclasses
+    import numpy as np
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+    host = random_padded_nag(seed=seed, num_graphs=num_graphs, **size)
+    rng = np.random.default_rng(seed + 100)
+
+    def feats(lvl):
+        f = rng.standard_normal((lvl.capacity, VARIANT_HF)).astype(
+            np.float32)
+        return f * lvl.node_mask[:, None]
+
+    if variant != 'B':
+        return host
+    levels = []
+    for i, lvl in enumerate(host.levels):
+        kw = {'edge_feat': None}
+        if i > 0:
+            kw['x'] = feats(lvl)
+        if i < 2:
+            kw['v_edge_attr'] = feats(lvl)
+        levels.append(dataclasses.replace(lvl, **kw))
+    return dataclasses.replace(host, levels=tuple(levels))
+
+
+def phase_variants(dev, card, nags):
+    """The SPT options that no config sets, at SPT-2's full width:
+    (a) the variant models A, B, C (VARIANTS) served on K1 (a query per
+    edge in A, per node in B and C) and trained for one step, each held
+    to the same weights on the plain attention in f32 and bf16 and run
+    twice bit-equal (dropout streams reseeded); K1 held and timed on the
+    arguments of its widest per-node and per-edge launches; (b) EZ-SP
+    semantic, SPT-2 with the point CNN into and beside the point MLP, on
+    the host path's rooms `nags` with `quantize_coordinates` coords,
+    served on K2 and trained on K1, and its reference-keyed state dict
+    imported with strict=True; (c) the model-FLOP count of the flagship
+    forward and step with the kernels and with the plain attention
+    (equal), and the mfu of the bf16 forward and step. Returns the
+    launches of the main paths and K1's per-node timing."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (
+        FLAGSHIP_CFG, build_model, build_task, spt_kwargs)
+    from superpoint_transformer_torch.inference import EVAL_BATCH_OVERRIDES
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel, SemanticTask)
+    from superpoint_transformer_torch.models.spt import SPT
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.transforms.prepare import (
+        BatchConfig, prepare_batch)
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+    from superpoint_transformer_torch.transforms.preprocess import (
+        quantize_coordinates)
+    from superpoint_transformer_torch.utils.flops import matmul_flops
+    from superpoint_transformer_torch.utils.import_ckpt import (
+        import_reference_checkpoint, reference_state_dict)
+
+    t_phase = time.perf_counter()
+    settle()
+
+    def net(over, num_graphs, cd, plain=False):
+        kw = spt_kwargs(FLAGSHIP_CFG, num_graphs=num_graphs,
+                        compute_dtype=cd, plain_attention=plain, device=dev)
+        kw.update(over)
+        return SPT(**kw)
+
+    def model(over, cd, plain=False):
+        m = SemanticSegmentationModel(net(over, NUM_GRAPHS, cd, plain), 13,
+                                      device=dev)
+        init_weights(m, torch.Generator().manual_seed(SEED))
+        return m.eval()
+
+    def task(over, cd, plain=False):
+        t = SemanticTask(net(over, TRAIN_GRAPHS, cd, plain), num_classes=13,
+                         lr=1e-3)
+        init_weights(t.model, torch.Generator().manual_seed(SEED))
+        return t
+
+    def calibrated(m, batch):
+        """`m` with its BatchNorms' running statistics set to those of
+        `batch` (one training forward at momentum 0), as a trained model
+        has them: at their initial values (0 and 1) a random model's
+        logits reach ~140."""
+        from superpoint_transformer_torch.nn.norm import BatchNorm
+        norms = [n for n in m.modules() if isinstance(n, BatchNorm)]
+        for n in norms:
+            n.momentum = 0.0
+        m.net.dropout_rng.manual_seed(SEED)
+        with torch.no_grad():
+            m.train()(batch)
+        for n in norms:
+            n.momentum = 0.9
+        return m.eval()
+
+    def one_forward(m, batch):
+        reset_counts()
+        with torch.inference_mode():
+            m(batch)
+        return counts()
+
+    def one_step(t, batch):
+        reset_counts()
+        loss_grads(t, batch, seed=SEED)
+        return counts()
+
+    served = {'K1': 0, 'K2': 0}
+    trained = {'K1': 0}
+    widest = {}
+    for name, over in VARIANTS.items():
+        serve_host = variant_host(SEED + 40, NUM_GRAPHS, ROOM, name)
+        train_host = variant_host(SEED + 41, TRAIN_GRAPHS, CROP, name)
+        for cd in (None, 'bfloat16'):
+            batch = from_numpy(serve_host, dev, cd)
+            kern = calibrated(model(over, cd), batch)
+            plain = model(over, cd, True)
+            plain.load_state_dict(kern.state_dict())
+            with widest_call('dense_attention') as k1_args:
+                got = one_forward(kern, batch)
+            check(got == {'K1': K1_LAUNCHES_PER_STEP, 'K2': 0, 'K3': 0},
+                  f'variant {name}: launches {got} in one forward, expected '
+                  f'{K1_LAUNCHES_PER_STEP} K1')
+            served['K1'] += got['K1']
+            hold_logits(f'variant {name} ', kern, plain, batch, cd)
+            if cd == 'bfloat16':
+                widest[name] = k1_args
+            t = task(over, cd)
+            tb = from_numpy(train_host, dev, cd, train=True)
+            got = one_step(t, tb)
+            # attention dropout in training takes JAX's materialized route
+            want = 0 if over.get('down_attn_drop') else K1_LAUNCHES_PER_STEP
+            check(got == {'K1': want, 'K2': 0, 'K3': 0},
+                  f'variant {name}: launches {got} in one step, expected '
+                  f'{want} K1')
+            trained['K1'] += got['K1']
+            hold_train_step('variants', t, task(over, cd, True), tb, cd,
+                            seed=SEED, label=f'variant {name} ')
+            del kern, plain, t, batch, tb
+        print(f'variant {name}: {K1_LAUNCHES_PER_STEP} K1 launches a '
+              f'forward, {want} a training step')
+    # K1 on its widest launches: a query per node (B), per edge (A)
+    for name in ('A', 'B'):
+        q = widest[name][0]
+        check((q.dim() == 3) == (name == 'B'),
+              f'variant {name}: K1 took a query of {q.dim()} dims')
+        hold_on_path('K1', widest[name], path=f'variant {name}')
+    k1_node = time_on_path('K1', widest['B'])
+    ms, plain_ms, bound_ms, by, shape, rounds = k1_node
+    print(f'K1 with a query per node at variant B\'s widest level '
+          f'({shape}, bf16) on {card}: {ms:.4f} ms, plain version '
+          f'{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, '
+          f'{bound_ms / ms:.1%} of it reached); rounds {rounds}')
+    del widest
+    settle()
+
+    # (b) EZ-SP semantic: the rooms' level-0 voxels quantized
+    rooms = []
+    for nag in nags:
+        nag = copy.deepcopy(nag)
+        quantize_coordinates(nag[0], size=VOXEL)
+        rooms.append(nag)
+    host = prepare_batch(rooms * 2, dataclasses.replace(
+        BatchConfig(), **EVAL_BATCH_OVERRIDES), train=False)
+    thost = prepare_batch(rooms, BatchConfig(), train=True,
+                          rng=np.random.default_rng(SEED + 2))
+    tbl = host.levels[0].cnn_nbr_idx
+    check(tbl is not None and tbl.dtype == np.int32,
+          'pad_nag built no int32 cnn_nbr_idx from the level-0 coords')
+    print(f'ezsp: cnn_nbr_idx {tbl.shape} int32 on the host '
+          f'({tbl.nbytes / 2**20:.1f} MiB; int64 on the card), '
+          f'{(tbl[:host.levels[0].num_nodes] >= 0).sum(1).mean():.2f} '
+          'voxels a kernel on average')
+    point_hf = spt_kwargs(FLAGSHIP_CFG, device='cpu')['point_hf_dim']
+    ezsp = {'K1': 0, 'K2': 0}
+    for into in (True, False):
+        mlp = (4 + POINT_CNN[-1], 32, 64, 128) if into \
+            else (4 + point_hf, 32, 64, 128 - POINT_CNN[-1])
+        over = dict(point_cnn=POINT_CNN, point_cnn_into_mlp=into,
+                    point_mlp=mlp)
+        label = f'ezsp (CNN {"into" if into else "beside"} the MLP) '
+        for cd in (None, 'bfloat16'):
+            kern = model(over, cd)
+            batch = from_numpy(host, dev, cd)
+            got = one_forward(kern, batch)
+            check(got == {'K1': 0, 'K2': K2_LAUNCHES_PER_FORWARD, 'K3': 0},
+                  f'{label}launches {got} in one forward')
+            ezsp['K2'] += got['K2']
+            logits = hold_logits(label, kern, model(over, cd, True), batch,
+                                 cd)
+            t = task(over, cd)
+            tb = from_numpy(thost, dev, cd, train=True)
+            got = one_step(t, tb)
+            check(got == {'K1': K1_LAUNCHES_PER_STEP, 'K2': 0, 'K3': 0},
+                  f'{label}launches {got} in one step')
+            ezsp['K1'] += got['K1']
+            hold_train_step('ezsp', t, task(over, cd, True), tb, cd,
+                            label=label)
+            if into and cd == 'bfloat16':
+                state = reference_state_dict(kern)
+                twin = SemanticSegmentationModel(
+                    net(over, NUM_GRAPHS, cd), 13, device=dev).eval()
+                report = import_reference_checkpoint(state, twin)
+                with torch.inference_mode():
+                    again = twin(batch)
+                same = all(torch.equal(a, b) for a, b in zip(logits, again))
+                kernel = state['net.first_stage.cnn_blocks.0.conv.kernel']
+                print(f'{label}reference state dict: {len(state)} keys '
+                      f'(cnn_blocks.0.conv.kernel {tuple(kernel.shape)}), '
+                      f'imported with strict=True: {len(report["mapped"])} '
+                      f'tensors, served logits bit-equal: {same}')
+                check(same and not report['missing'],
+                      f'{label}the imported reference state dict serves '
+                      'other logits')
+            del kern, t, batch, tb
+    del rooms, host, thost
+    settle()
+
+    # (c) the model-FLOP count of the flagship forward and step
+    fhost = random_padded_nag(seed=SEED + 1, num_graphs=NUM_GRAPHS, **ROOM)
+    thost = random_padded_nag(seed=SEED + 10, num_graphs=TRAIN_GRAPHS,
+                              **CROP)
+    flops = {}
+    for plain in (False, True):
+        m = SemanticSegmentationModel(build_model(
+            FLAGSHIP_CFG, num_graphs=NUM_GRAPHS, plain_attention=plain,
+            device=dev), 13, device=dev).eval()
+        init_weights(m, torch.Generator().manual_seed(SEED))
+        cd = m.net.compute_dtype
+        fb = from_numpy(fhost, dev, cd)
+        with torch.inference_mode():
+            fwd = matmul_flops(m, fb)
+        t = build_task(FLAGSHIP_CFG, num_graphs=TRAIN_GRAPHS,
+                       plain_attention=plain, device=dev)
+        init_weights(t.model, torch.Generator().manual_seed(SEED))
+        tb = from_numpy(thost, dev, cd, train=True)
+        step = matmul_flops(lambda: loss_grads(t, tb))
+        flops[plain] = (fwd, step)
+        if not plain:
+            def forward():
+                with torch.inference_mode():
+                    m(fb)
+            fwd_ms = min(cuda_ms(forward, 10) for _ in range(2))
+            step_ms = min(cuda_ms(lambda: t.train_step(tb), 5)
+                          for _ in range(2))
+    print(f'flagship model FLOPs (contractions, ops/cost.py for the '
+          f'kernels): forward {flops[False][0]:,} with the kernels, '
+          f'{flops[True][0]:,} with the plain attention; training step '
+          f'(forward and backward) {flops[False][1]:,} / {flops[True][1]:,}')
+    check(flops[False] == flops[True],
+          'the FLOP count differs between the kernels and the plain '
+          'attention')
+    mfu_fwd = flops[False][0] / (fwd_ms * 1e-3 * PEAK_BF16_FLOP_S)
+    mfu_step = flops[False][1] / (step_ms * 1e-3 * PEAK_BF16_FLOP_S)
+    print(f'flagship bf16 on {card}: forward {fwd_ms:.3f} ms, mfu '
+          f'{mfu_fwd:.4%}; train step {step_ms:.3f} ms (with the AdamW '
+          f'update), mfu {mfu_step:.4%} (of {PEAK_BF16_FLOP_S:.3g} '
+          'FLOP/s, CUDA events)')
+    print(f'variants phase: {time.perf_counter() - t_phase:.1f} s')
+    timing = dict(zip(('ms', 'plain_ms', 'bound_ms', 'bound_by', 'shape'),
+                      k1_node[:5]))
+    return ({'K1': served['K1'] + trained['K1'] + ezsp['K1'],
+             'K2': ezsp['K2']}, timing)
+
+
 def main():
     t_start = time.perf_counter()
     check(os.path.isdir(os.path.join(HERE, 'superpoint_transformer_torch')),
@@ -3989,6 +4287,7 @@ def main():
     host_path, host_nags = phase_host_path(dev, card)
     whole_cloud = {'K2': phase_whole_cloud(dev, card, host_nags)}
     parallel = phase_parallel(dev, card, host_nags)
+    variants, variants_timing = phase_variants(dev, card, host_nags)
     del host_nags
     panoptic, pan_nags = phase_panoptic(dev, card)
     # the fit phase's rooms serve the EZ-SP and nano phases too
@@ -4002,7 +4301,8 @@ def main():
     finally:
         rooms.cleanup()
     paths = {'serving/training/fused-RPE': launches, 'host': host_path,
-             'whole-cloud': whole_cloud, **parallel, 'panoptic': panoptic,
+             'whole-cloud': whole_cloud, **parallel, 'variants': variants,
+             'panoptic': panoptic,
              'fit-and-evaluate': fit, 'tune': tune, 'ezsp': ezsp,
              'nano': nano, **datasets}
     print(f'launches by path: serving/training/fused-RPE {launches}, '
@@ -4013,6 +4313,7 @@ def main():
     print(f'launches on the fit-and-evaluate path: {fit}')
     print(f'launches on the tune path: {tune}')
     print(f'launches on the EZ-SP path: {ezsp}')
+    print(f'launches on the variants path: {variants}')
     print(f'launches on the nano path: {nano}')
     print(f'launches on the dales, kitti360 and scannet paths: {datasets}')
     for path, got in paths.items():
@@ -4034,7 +4335,9 @@ def main():
                                  if name in p},
             **res, 'bound_ms': bound_ms,
             'bound_by': bound_by, 'bound_share': bound_ms / res['ms']})
-        for key, timing in (('nano', nano_timing), ('spt3', spt3_timing)):
+        for key, timing in (('nano', nano_timing), ('spt3', spt3_timing),
+                            ('variants_per_node_query',
+                             {'K1': variants_timing})):
             if name in timing:
                 t = timing[name]
                 table[-1][key] = dict(t, bound_share=t['bound_ms'] / t['ms'])

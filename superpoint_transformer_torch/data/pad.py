@@ -286,10 +286,12 @@ def pad_nag(nag, num_classes=None, node_caps=None, k_caps=None,
                 kw['edge_feat'] = ef
 
         if 'coords' in d:
-            raise NotImplementedError(
-                'pad_nag: sparse-convolution neighbors (`coords`) feed the '
-                'sparse-CNN point stage, which is not ported (ROADMAP Queue '
-                '1 item 9)')
+            # the sparse CNN's kernel-neighbor table of the level's
+            # voxels, int32 on the host; padded rows see empty sites
+            nbr = build_sparse_conv_neighbors(d.coords, batch=batch_vec)
+            full = np.full((cap, nbr.shape[1]), -1, dtype=np.int32)
+            full[:n] = nbr
+            kw['cnn_nbr_idx'] = full
 
         if 'obj_edge_index' in d:
             oe = d.obj_edge_index

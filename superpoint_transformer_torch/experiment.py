@@ -29,7 +29,7 @@ from .transforms.prepare import BatchConfig
 __all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'EZSP_PARTITION_CFG',
            'EZSP_CFG', 'NANO_CFG', 'PANOPTIC_NANO_CFG', 'DALES_CFG',
            'KITTI360_CFG', 'PANOPTIC_SCANNET_CFG', 'build_model',
-           'build_task', 'build_batch_config', 'build_datasets',
+           'spt_kwargs', 'build_task', 'build_batch_config', 'build_datasets',
            'precision_to_dtype']
 
 
@@ -321,6 +321,16 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
     one rank's shard of a graph-partition-sharded batch
     (`parallel/mesh.py:make_sharded_forward`). Raises without a CUDA device
     unless `device` is the CPU."""
+    return SPT(**spt_kwargs(cfg, num_graphs=num_graphs,
+                            compute_dtype=compute_dtype,
+                            plain_attention=plain_attention, device=device,
+                            shard_group=shard_group))
+
+
+def spt_kwargs(cfg, num_graphs=8, compute_dtype='auto',
+               plain_attention=False, device='cuda', shard_group=None):
+    """The keyword arguments of the `SPT` that `build_model` builds (the
+    same arguments), to build it with some of them changed."""
     device = _device(device, 'build_model')
     dm, m = cfg['datamodule'], cfg['model']
     net = m['net']
@@ -374,7 +384,7 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
         if v_edge_mlp_out and num_hf_v_edge > 0 else None
     in_rpe_dim = h_edge_mlp_out if h_edge_mlp else num_hf_edge
 
-    return SPT(
+    return dict(
         point_mlp=(None if nano else [num_hf_point + 3 * use_pos
                                       + use_diam_p] + list(point_mlp)),
         nano=nano, down_dim=down_dim, down_in_mlp=down_in_mlp,
@@ -393,13 +403,17 @@ def build_model(cfg, num_graphs=8, compute_dtype='auto',
         q_rpe=bool(net['q_rpe']), v_rpe=bool(net['v_rpe']),
         qk_share_rpe=bool(net['qk_share_rpe']),
         q_on_minus_rpe=bool(net['q_on_minus_rpe']),
+        stages_share_rpe=bool(net.get('stages_share_rpe', False)),
+        blocks_share_rpe=bool(net.get('blocks_share_rpe', False)),
         heads_share_rpe=bool(net['heads_share_rpe']),
         use_pos=use_pos, use_node_hf=use_node_hf, use_diameter=use_diam,
         use_diameter_parent=use_diam_p, pool=str(net['pool']),
         fusion=str(net['fusion']), norm_mode=str(net['norm_mode']),
-        num_graphs=num_graphs,
-        compute_dtype=compute_dtype, plain_attention=plain_attention,
-        shard_group=shard_group, device=device)
+        output_stage_wise=True, num_graphs=num_graphs,
+        point_hf_dim=num_hf_point, node_hf_dim=num_hf_segment,
+        v_edge_dim=num_hf_v_edge, compute_dtype=compute_dtype,
+        plain_attention=plain_attention, shard_group=shard_group,
+        device=device)
 
 
 def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,

@@ -1,21 +1,33 @@
 """SelfAttentionBlock over dense padded neighbors.
 
-Counterpart of `superpoint_transformer_tpu/nn/attention.py` for the
-flagship RPE set (independent k/q/v encoders of the edge features): qkv
+Counterpart of `superpoint_transformer_tpu/nn/attention.py`: qkv
 projection in the compute dtype, one gather of the neighbors' joint k/v
 rows (in training, with the transpose neighbor table when the batch
-carries it: `ops/gather.py:gather_rows_t`), attention, `out_proj` in the
-compute dtype, output in f32. The attention takes the JAX package's
-routes:
+carries it: `ops/gather.py:gather_rows_t`), the k/q/v relative position
+encodings (RPE) of the edge features, attention, `out_proj` in the
+compute dtype, output in f32, and the residual dropout `drop`. The
+attention takes the JAX package's routes:
 
-- evaluation: the streaming RPE attention kernel K2
-  (`ops/attention_rpe.py`), which computes the RPE projections itself;
-- training: the three RPE projections as one concatenated matmul added to
-  the gathered rows, a query per edge, and the dense attention kernel K1
-  with its closed-form backward (`ops/attention.py`).
+- independent k/q/v RPE (the flagship's), in evaluation: the streaming
+  RPE attention kernel K2 (`ops/attention_rpe.py`), which computes the
+  RPE projections itself;
+- independent k/q/v RPE in training: the three RPE projections as one
+  concatenated matmul added to the gathered rows, a query per edge, and
+  the dense attention kernel K1 with its closed-form backward
+  (`ops/attention.py`);
+- any other RPE set (k, q or v alone or in pairs, `qk_share_rpe`,
+  `q_on_minus_rpe`, `heads_share_rpe`), or no edge features: each RPE
+  its own projection, then K1 in both modes, with a query per node when
+  no q RPE is added and per edge otherwise;
+- attention dropout (`attn_drop > 0`) in training: the plain attention
+  with the dropout on the materialized weights, JAX's own XLA route (its
+  kernels take no dropout). In evaluation such a model runs its kernel.
 
-The other RPE variants run K1 at inference too in the JAX package; they
-are not ported.
+The parameters are JAX's: `k_rpe` / `q_rpe` project to H*D channels, or
+to D shared by the heads with `heads_share_rpe`; `v_rpe` to C, or C/H;
+under `qk_share_rpe` the queries reuse `k_rpe` and there is no `q_rpe`.
+A block built with `in_rpe_dim=0` has no RPE parameters (the JAX block
+makes them only when it sees edge features).
 
 Under graph-partition sharding (`shard_group`, `parallel/shard_nag.py`)
 `nbr_idx` holds global slots (`rank * capacity + local slot`): the ranks'
@@ -30,66 +42,152 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import (dense_attention_reference,
+from ..ops.attention import (dense_attention, dense_attention_reference,
                              dense_attention_trainable)
 from ..ops.attention_rpe import (dense_attention_rpe,
                                  dense_attention_rpe_reference)
 from ..ops.gather import gather_rows_t
 from ..ops.segment import gather_rows
 from ..parallel.collectives import all_gather_rows
-from .mlp import linear, resolve_dtype
+from .mlp import dropout, linear, resolve_dtype
 
 __all__ = ['SelfAttentionBlock', 'qk_scale_from_degree']
 
 
 def qk_scale_from_degree(mode, qk_dim, degree):
-    """Softmax temperature 1/sqrt(qk_dim) * 1/sqrt(degree), the 'd.g'
-    mode every config uses (qk_scale None); degree [N] is the number of
-    valid neighbor slots, clamped at 1."""
-    if mode not in (None, 'd.g', 'dg', 'gd', 'd*g', 'g*d', 'g.d'):
-        raise NotImplementedError(f'qk_scale {mode!r}: only d.g is ported')
+    """Softmax temperature per node from its degree [N] (the number of
+    valid neighbor slots, clamped at 1), with D = 1/sqrt(qk_dim) and
+    G = 1/sqrt(degree): 'd.g' (and None, every config's) D*G, 'd+g' D+G,
+    'd' D, 'g' G, a number that number."""
+    d = float(qk_dim) ** -0.5
     g = degree.to(torch.float32).clamp(min=1.0) ** -0.5
-    return float(qk_dim) ** -0.5 * g
+    if mode is None or mode in ('d.g', 'dg', 'gd', 'd*g', 'g*d', 'g.d'):
+        return d * g
+    if mode in ('d+g', 'g+d'):
+        return d + g
+    if mode == 'd':
+        return torch.full_like(g, d)
+    if mode == 'g':
+        return g
+    if isinstance(mode, (int, float)):
+        return torch.full_like(g, float(mode))
+    raise ValueError(f'unknown qk_scale {mode!r}')
+
+
+def _materialized_attention(q, k, v, nbr_mask, scale, drop):
+    """JAX's XLA attention with the weights materialized, for attention
+    dropout in training: q*scale rounded to the dtype of q, the logits
+    and the weighted sum accumulated in f32, the masked softmax, then
+    `drop` on the weights. Returns [N, H, C/H] f32."""
+    f32 = torch.float32
+    if q.dim() == 3:
+        qs = (q * scale[:, None, None]).to(q.dtype)
+        logit = torch.einsum('nhd,nkhd->nkh', qs.to(f32), k.to(f32))
+    else:
+        qs = (q * scale[:, None, None, None]).to(q.dtype)
+        logit = torch.einsum('nkhd,nkhd->nkh', qs.to(f32), k.to(f32))
+    m3 = nbr_mask[:, :, None]
+    logit = torch.where(m3, logit, torch.full_like(logit, -1e30))
+    attn = torch.softmax(logit, dim=1) * m3.to(f32)
+    attn = drop(attn)
+    return torch.einsum('nkh,nkhc->nhc', attn.to(v.dtype).to(f32),
+                        v.to(f32))
 
 
 class SelfAttentionBlock(nn.Module):
     """Multi-head self-attention of each node over its K neighbor slots,
-    with k/q/v relative position encodings of the edge features.
+    with the relative position encodings of the edge features that
+    `k_rpe`, `q_rpe`, `v_rpe`, `qk_share_rpe`, `q_on_minus_rpe` and
+    `heads_share_rpe` select (see the module docstring for the routes).
 
     `plain_attention=True` runs the plain PyTorch versions of the kernels
     on every device (autograd through the plain forward in training); it
-    exists to compare the kernels with them. Attention dropout and
-    residual dropout accept only None or 0: no config sets them."""
+    exists to compare the kernels with them. `attn_drop` drops attention
+    weights and `drop` the block's output, in training, drawing from
+    `rng` (`nn/dropout.py`)."""
 
     def __init__(self, dim, num_heads=1, qkv_bias=True, qk_dim=8,
                  qk_scale=None, in_rpe_dim=18, k_rpe=False, q_rpe=False,
                  v_rpe=False, qk_share_rpe=False, q_on_minus_rpe=False,
                  heads_share_rpe=False, attn_drop=None, drop=None,
                  compute_dtype=None, plain_attention=False,
-                 shard_group=None, device=None):
+                 shard_group=None, rng=None, device=None):
         super().__init__()
-        if not (k_rpe and q_rpe and v_rpe) or qk_share_rpe \
-                or q_on_minus_rpe or heads_share_rpe:
-            raise NotImplementedError(
-                'SelfAttentionBlock: only independent k/q/v RPE is '
-                'ported; the JAX package runs this RPE variant on the '
-                'dense attention kernel K1 at inference too')
-        for name, rate in (('attn_drop', attn_drop), ('drop', drop)):
-            if rate:
-                raise NotImplementedError(
-                    f'SelfAttentionBlock: {name}={rate} is not ported')
         H, D, C = num_heads, qk_dim, dim
         self.num_heads, self.qk_dim, self.dim = H, D, C
         self.qk_scale = qk_scale
         self.dtype = resolve_dtype(compute_dtype)
         self.plain_attention = plain_attention
         self.shard_group = shard_group
+        self.qk_share_rpe = qk_share_rpe
+        self.q_on_minus_rpe = q_on_minus_rpe
+        self.heads_share_rpe = heads_share_rpe
+        self.k_rpe_on, self.q_rpe_on, self.v_rpe_on = k_rpe, q_rpe, v_rpe
+        # the flagship's independent k/q/v encoders: K2 in evaluation
+        self.independent_rpe = (k_rpe and q_rpe and v_rpe
+                                and not qk_share_rpe and not q_on_minus_rpe
+                                and not heads_share_rpe)
         self.qkv = nn.Linear(C, 2 * H * D + C, bias=qkv_bias,
                              device=device)
-        self.k_rpe = nn.Linear(in_rpe_dim, H * D, device=device)
-        self.q_rpe = nn.Linear(in_rpe_dim, H * D, device=device)
-        self.v_rpe = nn.Linear(in_rpe_dim, C, device=device)
+        rpe_dim = D if heads_share_rpe else H * D
+        if in_rpe_dim:
+            if k_rpe:
+                self.k_rpe = nn.Linear(in_rpe_dim, rpe_dim, device=device)
+            if q_rpe and not (k_rpe and qk_share_rpe):
+                self.q_rpe = nn.Linear(in_rpe_dim, rpe_dim, device=device)
+            if v_rpe:
+                self.v_rpe = nn.Linear(
+                    in_rpe_dim, C // H if heads_share_rpe else C,
+                    device=device)
         self.out_proj = nn.Linear(C, C, device=device)
+        self.attn_drop = dropout(attn_drop, rng)
+        self.drop = dropout(drop, rng)
+
+    def _heads(self, r, N, K, width):
+        """An RPE [N, K, *] as [N, K, H, width], tiled over the heads
+        under `heads_share_rpe` (JAX's `jnp.tile`)."""
+        if self.heads_share_rpe:
+            r = r.repeat(1, 1, self.num_heads)
+        return r.reshape(N, K, self.num_heads, width)
+
+    def _variant_terms(self, q, kvg, edge_feat, N, K):
+        """k [N, K, H, D], q [N, H, D] or per edge [N, K, H, D] and
+        v [N, K, H, C/H] with each RPE its own projection, as the JAX
+        block adds them."""
+        H, D, C, DH, dt = (self.num_heads, self.qk_dim, self.dim,
+                           self.num_heads * self.qk_dim, self.dtype)
+        k = kvg[..., :DH].reshape(N, K, H, D)
+        v = kvg[..., DH:].reshape(N, K, H, C // H)
+        if edge_feat is None:
+            return q, k, v
+        ef = edge_feat.to(dt)
+        q_ef = -ef if self.q_on_minus_rpe else ef
+        if hasattr(self, 'k_rpe'):
+            k = k + self._heads(linear(self.k_rpe, ef, dt), N, K, D)
+            if self.q_rpe_on and self.qk_share_rpe:
+                q = q[:, None] + self._heads(linear(self.k_rpe, q_ef, dt),
+                                             N, K, D)
+        if hasattr(self, 'q_rpe'):
+            q = q[:, None] + self._heads(linear(self.q_rpe, q_ef, dt), N, K,
+                                         D)
+        if hasattr(self, 'v_rpe'):
+            v = v + self._heads(linear(self.v_rpe, ef, dt), N, K, C // H)
+        return q, k, v
+
+    def _flagship_terms(self, q, kvg, edge_feat, N, K):
+        """The independent k/q/v RPE of the JAX training path: the three
+        projections as one [N*K, De] @ [De, 2*DH + C] matmul added to the
+        gathered rows, a query per edge."""
+        H, D, C, DH, dt = (self.num_heads, self.qk_dim, self.dim,
+                           self.num_heads * self.qk_dim, self.dtype)
+        rpe = (self.k_rpe, self.q_rpe, self.v_rpe)
+        w_cat = torch.cat([m.weight for m in rpe]).to(dt)
+        b_cat = torch.cat([m.bias for m in rpe]).to(dt)
+        r = F.linear(edge_feat.to(dt), w_cat, b_cat)       # [N, K, 2DH+C]
+        k = (kvg[..., :DH] + r[..., :DH]).reshape(N, K, H, D)
+        q = q[:, None] + r[..., DH:2 * DH].reshape(N, K, H, D)
+        v = (kvg[..., DH:] + r[..., 2 * DH:]).reshape(N, K, H, C // H)
+        return q, k, v
 
     def forward(self, x, nbr_idx, nbr_mask, edge_feat=None,
                 nbr_in_idx=None, nbr_in_mask=None):
@@ -97,16 +195,11 @@ class SelfAttentionBlock(nn.Module):
         :param x: [N, C] node features
         :param nbr_idx: [N, K] neighbor node ids (padded slots: 0)
         :param nbr_mask: [N, K] slot validity
-        :param edge_feat: [N, K, De] edge features for the RPE
+        :param edge_feat: [N, K, De] edge features for the RPE, or None
         :param nbr_in_idx, nbr_in_mask: [N, K_in] transpose neighbor
             table; in training the k/v gather's backward runs over it
         :return: [N, C] f32
         """
-        if edge_feat is None:
-            raise NotImplementedError(
-                'SelfAttentionBlock without edge features is not ported '
-                '(the JAX package runs it on the dense attention kernel '
-                'K1 in both modes)')
         N, K = nbr_idx.shape
         C, H, D = self.dim, self.num_heads, self.qk_dim
         DH, dt = H * D, self.dtype
@@ -123,28 +216,34 @@ class SelfAttentionBlock(nn.Module):
         else:
             kvg = gather_rows(kv, nbr_idx)
         scale = qk_scale_from_degree(self.qk_scale, D, nbr_mask.sum(1))
-        edge_feat = edge_feat.to(dt)
-        rpe = (self.k_rpe, self.q_rpe, self.v_rpe)
+        flagship = (self.independent_rpe and edge_feat is not None
+                    and hasattr(self, 'v_rpe'))
 
-        if self.training:
-            # the three RPE projections as one [N*K, De] @ [De, 2*DH + C]
-            # matmul, added to the gathered rows
-            w_cat = torch.cat([m.weight for m in rpe]).to(dt)
-            b_cat = torch.cat([m.bias for m in rpe]).to(dt)
-            r = F.linear(edge_feat, w_cat, b_cat)          # [N, K, 2DH+C]
-            k = (kvg[..., :DH] + r[..., :DH]).reshape(N, K, H, D)
-            q = q[:, None] + r[..., DH:2 * DH].reshape(N, K, H, D)
-            v = (kvg[..., DH:] + r[..., 2 * DH:]).reshape(N, K, H, C // H)
-            attention = dense_attention_reference if self.plain_attention \
-                else dense_attention_trainable
-            out = attention(q, k, v, nbr_mask, scale)
-        else:
+        if flagship and not self.training:
+            rpe = (self.k_rpe, self.q_rpe, self.v_rpe)
             attention = dense_attention_rpe_reference \
                 if self.plain_attention else dense_attention_rpe
             out = attention(
-                q, kvg[..., :DH], kvg[..., DH:], edge_feat,
+                q, kvg[..., :DH], kvg[..., DH:], edge_feat.to(dt),
                 *(t for m in rpe
                   for t in (m.weight.to(dt).t().contiguous(), m.bias)),
                 nbr_mask, scale)
+        else:
+            terms = self._flagship_terms if flagship else \
+                self._variant_terms
+            q, k, v = (t.contiguous() for t in terms(q, kvg, edge_feat, N,
+                                                      K))
+            if self.training and self.attn_drop is not None:
+                # JAX's own route under attention dropout: its kernels
+                # take no dropout, so the weights are materialized
+                out = _materialized_attention(q, k, v, nbr_mask, scale,
+                                              self.attn_drop)
+            elif self.plain_attention:
+                out = dense_attention_reference(q, k, v, nbr_mask, scale)
+            elif self.training:
+                out = dense_attention_trainable(q, k, v, nbr_mask, scale)
+            else:
+                out = dense_attention(q, k, v, nbr_mask, scale)
         out = linear(self.out_proj, out.reshape(N, C), dt)
-        return out.to(torch.float32)
+        out = out.to(torch.float32)
+        return out if self.drop is None else self.drop(out)

@@ -8,10 +8,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .norm import GraphNorm
+from .dropout import Dropout, DropoutRNG
+from .norm import make_norm
 
 __all__ = ['MLP', 'FFN', 'Classifier', 'leaky_relu', 'init_weights',
-           'resolve_dtype']
+           'resolve_dtype', 'dropout']
 
 # torch.nn.init.calculate_gain('leaky_relu'), as the JAX package's
 # xavier_uniform_gain uses it
@@ -40,10 +41,18 @@ def linear(layer, x, dtype):
 @torch.no_grad()
 def init_weights(module, generator):
     """Initialize every Linear of `module` as the JAX package does:
-    torch-style xavier-uniform with the leaky-relu gain, zero bias.
+    torch-style xavier-uniform with the leaky-relu gain, zero bias; the
+    sparse convolutions' weights likewise; and the learnt query of an
+    attentive pool, truncated normal of std 0.02.
     Values are drawn on the CPU from `generator` and copied to each
     parameter's device, so the result does not depend on the device."""
     for m in module.modules():
+        if hasattr(m, 'init_from'):      # a sparse convolution
+            m.init_from(generator)
+        if getattr(m, 'learnt_queries', False):
+            q = nn.init.trunc_normal_(torch.empty(m.q.shape), std=0.02,
+                                      a=-0.04, b=0.04, generator=generator)
+            m.q.copy_(q)
         if isinstance(m, nn.Linear):
             fan_out, fan_in = m.weight.shape
             a = XAVIER_GAIN_LEAKY * (6.0 / (fan_in + fan_out)) ** 0.5
@@ -55,22 +64,36 @@ def init_weights(module, generator):
     return module
 
 
-class MLP(nn.Module):
-    """Linear-GraphNorm-LeakyReLU stack (the Linear layers have no bias,
-    since a norm follows). Under bf16 the chain runs in bf16 and the
-    output is cast back to f32."""
+def dropout(rate, rng):
+    """A `Dropout` of `rate` drawing from `rng` (a fresh stream when
+    None), or None at rate 0."""
+    if not rate:
+        return None
+    return Dropout(rate, rng if rng is not None else DropoutRNG())
 
-    def __init__(self, dims, num_graphs=64, compute_dtype=None,
-                 shard_group=None, device=None):
+
+class MLP(nn.Module):
+    """Linear-Norm-LeakyReLU stack; `norm` is 'graph' (GraphNorm, every
+    config's), 'layer', 'instance', 'group', 'batch' or None (no norm: the
+    Linear layers take a bias, as in the JAX MLP, where they drop it
+    because a norm follows). `drop` is a dropout rate on the output, in
+    training, drawn from `rng` (`nn/dropout.py`). Under bf16 the chain
+    runs in bf16 and the output is cast back to f32."""
+
+    def __init__(self, dims, norm='graph', drop=None, num_graphs=64,
+                 compute_dtype=None, shard_group=None, rng=None,
+                 device=None):
         super().__init__()
         self.dims = list(dims)
         self.dtype = resolve_dtype(compute_dtype)
         for i in range(len(dims) - 1):
             self.add_module(f'linear_{i}', nn.Linear(
-                dims[i], dims[i + 1], bias=False, device=device))
-            self.add_module(f'norm_{i}', GraphNorm(
-                dims[i + 1], num_graphs=num_graphs, shard_group=shard_group,
-                device=device))
+                dims[i], dims[i + 1], bias=norm is None, device=device))
+            if norm is not None:
+                self.add_module(f'norm_{i}', make_norm(
+                    norm, dims[i + 1], num_graphs=num_graphs,
+                    shard_group=shard_group, device=device))
+        self.drop = dropout(drop, rng)
 
     @property
     def out_dim(self):
@@ -80,22 +103,30 @@ class MLP(nn.Module):
         x = x.to(self.dtype)
         for i in range(len(self.dims) - 1):
             x = linear(getattr(self, f'linear_{i}'), x, self.dtype)
-            x = leaky_relu(getattr(self, f'norm_{i}')(x, batch=batch,
-                                                      mask=mask))
+            norm = getattr(self, f'norm_{i}', None)
+            if norm is not None:
+                x = norm(x, batch=batch, mask=mask)
+            x = leaky_relu(x)
+        if self.drop is not None:
+            x = self.drop(x)
         return x.to(torch.float32)
 
 
 class FFN(nn.Module):
-    """Transformer feed-forward: Linear-LeakyReLU-Linear, in f32."""
+    """Transformer feed-forward: Linear-LeakyReLU-Linear, in f32, and a
+    dropout of rate `drop` on the output in training."""
 
-    def __init__(self, dim, hidden_dim=None, out_dim=None, device=None):
+    def __init__(self, dim, hidden_dim=None, out_dim=None, drop=None,
+                 rng=None, device=None):
         super().__init__()
         hidden = hidden_dim or dim
         self.linear_0 = nn.Linear(dim, hidden, device=device)
         self.linear_1 = nn.Linear(hidden, out_dim or dim, device=device)
+        self.drop = dropout(drop, rng)
 
     def forward(self, x):
-        return self.linear_1(leaky_relu(self.linear_0(x)))
+        x = self.linear_1(leaky_relu(self.linear_0(x)))
+        return x if self.drop is None else self.drop(x)
 
 
 class Classifier(nn.Module):

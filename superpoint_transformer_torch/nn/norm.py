@@ -1,14 +1,18 @@
-"""GraphNorm and unit-sphere position normalization over padded levels.
+"""The index-based norms (GraphNorm, LayerNorm, InstanceNorm,
+GroupNorm), BatchNorm and unit-sphere position normalization over
+padded levels.
 
-Counterpart of `superpoint_transformer_tpu/nn/norm.py` (`GraphNorm`,
-`unit_sphere_norm`). Statistics ignore padded rows: `mask` zeroes them
-by multiplication, and their graph id (-1) or segment index
-(== num_segments) sends them to the segment ops' dump row.
+Counterpart of `superpoint_transformer_tpu/nn/norm.py`. Statistics
+ignore padded rows: `mask` zeroes them by multiplication, and their
+graph id (-1) or segment index (== num_segments) sends them to the
+segment ops' dump row. `make_norm` builds a norm by its config name.
 
 Under graph-partition sharding (`parallel/shard_nag.py`) a graph's nodes
 lie on several ranks: `shard_group` (a process group, where JAX has
 `shard_axis`) sums the per-graph statistics over the ranks, and takes
-the min and max of the positions over them.
+the min and max of the positions over them. The JAX GroupNorm takes no
+`shard_axis` (its statistics stay per shard); the port's sums them over
+the group like the other norms.
 """
 import torch
 from torch import nn
@@ -17,7 +21,23 @@ from ..ops.segment import (segment_sum, segment_count, segment_max,
                            gather_rows_small)
 from ..parallel.collectives import all_reduce_max, all_reduce_sum
 
-__all__ = ['GraphNorm', 'unit_sphere_norm']
+
+def _group_sum(x, group):
+    return x if group is None else all_reduce_sum(x, group)
+
+
+def _affine(num_features, device):
+    return (nn.Parameter(torch.ones(num_features, device=device)),
+            nn.Parameter(torch.zeros(num_features, device=device)))
+
+
+def _graph_index(batch, x):
+    if batch is None:
+        return torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+    return batch
+
+__all__ = ['GraphNorm', 'LayerNorm', 'InstanceNorm', 'GroupNorm',
+           'BatchNorm', 'make_norm', 'unit_sphere_norm']
 
 
 class GraphNorm(nn.Module):
@@ -62,6 +82,167 @@ class GraphNorm(nn.Module):
         sh = gather_rows_small(self.bias - am * inv * self.weight,
                                batch, g)
         return (x.to(torch.float32) * sc + sh).to(in_dtype)
+
+
+class LayerNorm(nn.Module):
+    """PyG LayerNorm in graph mode: each node normalized by the mean and
+    variance of its graph over all nodes and channels, then a
+    per-channel affine map. `mode='node'` normalizes each node over its
+    own channels."""
+
+    def __init__(self, num_features, num_graphs=64, eps=1e-5, mode='graph',
+                 shard_group=None, device=None):
+        super().__init__()
+        self.num_features, self.num_graphs = num_features, num_graphs
+        self.eps, self.mode, self.shard_group = eps, mode, shard_group
+        self.weight, self.bias = _affine(num_features, device)
+
+    def forward(self, x, batch=None, mask=None):
+        if self.mode == 'node':
+            mean = x.mean(-1, keepdim=True)
+            var = ((x - mean) ** 2).mean(-1, keepdim=True)
+            return (x - mean) / torch.sqrt(var + self.eps) * self.weight \
+                + self.bias
+        batch = _graph_index(batch, x)
+        g, C = self.num_graphs, self.num_features
+        n = _group_sum(segment_count(batch, g, mask=mask), self.shard_group)
+        n = (n.to(x.dtype) * C).clamp(min=1)
+        xm = x if mask is None else x * mask[:, None].to(x.dtype)
+        s12 = _group_sum(segment_sum(torch.cat([xm, xm * xm], 1), batch, g,
+                                     acc_dtype=torch.float32),
+                         self.shard_group)
+        mean = s12[:, :C].sum(-1) / n
+        ex2 = s12[:, C:].sum(-1) / n
+        inv = 1.0 / torch.sqrt((ex2 - mean * mean).clamp(min=0.0)
+                               + self.eps)
+        sc = gather_rows_small(inv[:, None], batch, g)
+        sh = gather_rows_small((-mean * inv)[:, None], batch, g)
+        return (x * sc + sh) * self.weight + self.bias
+
+
+class InstanceNorm(nn.Module):
+    """Per-graph, per-channel mean and variance normalization, then an
+    affine map (output in f32)."""
+
+    def __init__(self, num_features, num_graphs=64, eps=1e-5,
+                 shard_group=None, device=None):
+        super().__init__()
+        self.num_features, self.num_graphs = num_features, num_graphs
+        self.eps, self.shard_group = eps, shard_group
+        self.weight, self.bias = _affine(num_features, device)
+
+    def forward(self, x, batch=None, mask=None):
+        batch = _graph_index(batch, x)
+        g, C = self.num_graphs, self.num_features
+        xm = x if mask is None else x * mask[:, None].to(x.dtype)
+        s12 = _group_sum(segment_sum(torch.cat([xm, xm * xm], 1), batch, g,
+                                     acc_dtype=torch.float32),
+                         self.shard_group)
+        n = _group_sum(segment_count(batch, g, mask=mask), self.shard_group)
+        n = n.clamp(min=1).to(torch.float32)[:, None]
+        mean = s12[:, :C] / n
+        var = (s12[:, C:] / n - mean * mean).clamp(min=0.0)
+        inv = 1.0 / torch.sqrt(var + self.eps)
+        sc = gather_rows_small(inv * self.weight, batch, g)
+        sh = gather_rows_small(self.bias - mean * inv * self.weight,
+                               batch, g)
+        return x.to(torch.float32) * sc + sh
+
+
+class GroupNorm(nn.Module):
+    """Graph-wise group normalization: the channels in `num_groups`
+    groups, each normalized by its graph's mean and variance over the
+    group's channels, then a per-channel affine map."""
+
+    def __init__(self, num_features, num_groups=4, num_graphs=64, eps=1e-5,
+                 shard_group=None, device=None):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError(f'GroupNorm: {num_features} channels in '
+                             f'{num_groups} groups')
+        self.num_features, self.num_groups = num_features, num_groups
+        self.num_graphs, self.eps = num_graphs, eps
+        self.shard_group = shard_group
+        self.weight, self.bias = _affine(num_features, device)
+
+    def forward(self, x, batch=None, mask=None):
+        batch = _graph_index(batch, x)
+        C, G, g = self.num_features, self.num_groups, self.num_graphs
+        gc = C // G
+        xg = x.reshape(-1, G, gc)
+        n = _group_sum(segment_count(batch, g, mask=mask), self.shard_group)
+        norm = n.clamp(min=1).to(x.dtype) * gc
+        xm = xg if mask is None else xg * mask[:, None, None].to(x.dtype)
+        mean = _group_sum(segment_sum(xm, batch, g), self.shard_group).sum(
+            -1, keepdim=True) / norm[:, None, None]
+        var = _group_sum(segment_sum(xm * xm, batch, g),
+                         self.shard_group).sum(-1, keepdim=True) \
+            / norm[:, None, None] - mean * mean
+        inv = 1.0 / torch.sqrt(var.clamp(min=0.0) + self.eps)
+        sc = gather_rows_small(inv.reshape(g, G), batch, g)
+        sh = gather_rows_small((-mean * inv).reshape(g, G), batch, g)
+        out = (xg * sc[..., None] + sh[..., None]).reshape(-1, C)
+        return out * self.weight + self.bias
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over the valid nodes, with running statistics (the
+    buffers `mean` and `var`, the JAX `batch_stats`): in training each
+    call normalizes by the batch's masked mean and biased variance and
+    moves the running ones by `momentum` (running = momentum * running +
+    (1 - momentum) * batch, over the masked count); in evaluation it
+    normalizes by the running ones. `shard_group` sums the batch
+    statistics over the ranks (sync batch norm)."""
+
+    def __init__(self, num_features, momentum=0.9, eps=1e-5, num_graphs=1,
+                 shard_group=None, device=None):
+        super().__init__()
+        self.num_features, self.momentum, self.eps = (num_features,
+                                                      momentum, eps)
+        self.num_graphs, self.shard_group = num_graphs, shard_group
+        self.weight, self.bias = _affine(num_features, device)
+        self.register_buffer('mean', torch.zeros(num_features,
+                                                 device=device))
+        self.register_buffer('var', torch.ones(num_features, device=device))
+
+    def forward(self, x, batch=None, mask=None):
+        if self.training:
+            if mask is not None:
+                m = mask.to(x.dtype)[:, None]
+                s, ss, n = (x * m).sum(0), (x * x * m).sum(0), m.sum()
+            else:
+                s, ss = x.sum(0), (x * x).sum(0)
+                n = torch.tensor(float(x.shape[0]), dtype=x.dtype,
+                                 device=x.device)
+            if self.shard_group is not None:
+                s, ss, n = (all_reduce_sum(t, self.shard_group)
+                            for t in (s, ss, n))
+            n = n.clamp(min=1)
+            mean = s / n
+            var = (ss / n - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean
+                                + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var
+                               + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) / torch.sqrt(var + self.eps) * self.weight \
+            + self.bias
+
+
+_NORMS = {'graph': GraphNorm, 'graph_norm': GraphNorm, 'layer': LayerNorm,
+          'instance': InstanceNorm, 'group': GroupNorm, 'batch': BatchNorm}
+
+
+def make_norm(kind, num_features, num_graphs=64, shard_group=None,
+              device=None):
+    """The norm named `kind` ('graph', 'layer', 'instance', 'group' or
+    'batch') over `num_features` channels."""
+    if kind not in _NORMS:
+        raise ValueError(f'unknown norm {kind!r}')
+    return _NORMS[kind](num_features, num_graphs=num_graphs,
+                        shard_group=shard_group, device=device)
 
 
 def unit_sphere_norm(pos, super_index, num_super, node_size=None,

@@ -3,9 +3,12 @@ tensors; counterpart of `superpoint_transformer_tpu/nn/stage.py`.
 
 A Stage = position injection (unit-sphere-normalized pos and the parent
 diameter, concatenated) -> in_mlp -> N x TransformerBlock -> out_mlp.
-Down stages pool children into parents first; up stages broadcast
-parents onto children. At the innermost level positions are normalized
-per graph, through the `batch` vector.
+Down stages pool children into parents first (`nn/pool.py`: a segment
+pool, or the attentive pool `down_pool_block`); up stages broadcast
+parents onto children. Both fuse the two feature sets by `fusion`. At the
+innermost level positions are normalized per graph, through the `batch`
+vector. The PointStage of EZ-SP runs a sparse CNN (`nn/sparse.py`, the
+module `cnn`) over level 0's voxels first.
 
 `shard_group` (graph-partition sharding, `parallel/shard_nag.py`) reaches
 every norm and attention block. Of the position norms only the innermost
@@ -18,7 +21,8 @@ from torch import nn
 from ..ops.segment import gather_rows
 from .mlp import MLP
 from .norm import unit_sphere_norm
-from .pool import pool
+from .pool import POOL_MODES, AttentivePool, pool
+from .sparse import SparseCNN
 from .transformer import TransformerBlock
 
 __all__ = ['Stage', 'DownNFuseStage', 'UpNFuseStage', 'PointStage',
@@ -35,11 +39,22 @@ def _cat(*xs):
 
 
 def fuse(mode, x1, x2):
-    """Fuse two feature sets; either may be None. Every config fuses by
-    concatenation ('cat'), the only mode ported."""
-    if mode not in ('cat', 'concatenate', '|'):
-        raise NotImplementedError(f'fusion {mode!r}: only cat is ported')
-    return _cat(x1, x2)
+    """Fuse two feature sets; where one is None the other is returned.
+    'cat' concatenates them (every config's), 'residual' adds them,
+    'first' / 'second' keep one."""
+    if x1 is None:
+        return x2
+    if x2 is None:
+        return x1
+    if mode in ('cat', 'concatenate', '|'):
+        return torch.cat([x1, x2], 1)
+    if mode in ('residual', 'additive', '+'):
+        return x1 + x2
+    if mode in ('first', '1'):
+        return x1
+    if mode in ('second', '2'):
+        return x2
+    raise ValueError(f'unknown fusion {mode!r}')
 
 
 class Stage(nn.Module):
@@ -48,16 +63,14 @@ class Stage(nn.Module):
                  out_mlp=None, use_pos=True,
                  use_diameter=False, use_diameter_parent=False, qk_dim=8,
                  qkv_bias=True, qk_scale=None, in_rpe_dim=18, ffn_ratio=4,
-                 mlp_drop=None, residual_drop=None, attn_drop=None,
-                 drop_path=None, no_sa=False, no_ffn=False,
+                 mlp_drop=None, mlp_norm='graph', residual_drop=None,
+                 attn_drop=None, drop_path=None, norm='graph',
+                 pre_norm=True, no_sa=False, no_ffn=False,
                  k_rpe=False, q_rpe=False, v_rpe=False, qk_share_rpe=False,
                  q_on_minus_rpe=False, heads_share_rpe=False,
                  num_graphs=64, compute_dtype=None, plain_attention=False,
-                 shard_group=None, device=None):
+                 shard_group=None, rng=None, device=None):
         super().__init__()
-        if mlp_drop:
-            raise NotImplementedError(f'Stage: mlp_drop={mlp_drop} is not '
-                                      'ported')
         self.dim = dim
         self.num_blocks = num_blocks
         self.use_pos = use_pos
@@ -65,8 +78,9 @@ class Stage(nn.Module):
         self.use_diameter_parent = use_diameter_parent
         self.num_graphs = num_graphs
         self.shard_group = shard_group
-        mlp = dict(num_graphs=num_graphs, compute_dtype=compute_dtype,
-                   shard_group=shard_group, device=device)
+        mlp = dict(norm=mlp_norm, drop=mlp_drop, num_graphs=num_graphs,
+                   compute_dtype=compute_dtype, shard_group=shard_group,
+                   rng=rng, device=device)
         if in_mlp is not None:
             self.in_mlp = MLP(in_mlp, **mlp)
         for b in range(num_blocks):
@@ -74,15 +88,15 @@ class Stage(nn.Module):
                 dim, num_heads=num_heads, qkv_bias=qkv_bias, qk_dim=qk_dim,
                 qk_scale=qk_scale, in_rpe_dim=in_rpe_dim,
                 ffn_ratio=ffn_ratio, residual_drop=residual_drop,
-                attn_drop=attn_drop, drop_path=drop_path, no_sa=no_sa,
-                no_ffn=no_ffn,
+                attn_drop=attn_drop, drop_path=drop_path, norm=norm,
+                pre_norm=pre_norm, no_sa=no_sa, no_ffn=no_ffn,
                 k_rpe=k_rpe, q_rpe=q_rpe,
                 v_rpe=v_rpe, qk_share_rpe=qk_share_rpe,
                 q_on_minus_rpe=q_on_minus_rpe,
                 heads_share_rpe=heads_share_rpe, num_graphs=num_graphs,
                 compute_dtype=compute_dtype,
                 plain_attention=plain_attention, shard_group=shard_group,
-                device=device))
+                rng=rng, device=device))
         if out_mlp is not None:
             self.out_mlp = MLP(out_mlp, **mlp)
 
@@ -147,17 +161,41 @@ class Stage(nn.Module):
 
 class DownNFuseStage(Stage):
     """Pool children into parents, fuse with the parents' handcrafted
-    features, then Stage."""
+    features, then Stage. `pool` is a segment pool ('max', 'min', 'mean',
+    'sum', 'std') or 'attentive' (`AttentivePool` on the stage's heads,
+    qk_dim, scale and k/q RPE flags, over the vertical edge features),
+    which needs the widths of the child features `pool_in_dim`, of the
+    parent features `pool_parent_dim` and of the vertical edge features
+    `pool_rpe_dim` (0: none)."""
 
-    def __init__(self, *args, pool='max', fusion='cat', **kwargs):
+    def __init__(self, *args, pool='max', fusion='cat', pool_in_dim=None,
+                 pool_parent_dim=None, pool_rpe_dim=0, **kwargs):
         super().__init__(*args, **kwargs)
         self.pool = pool
         self.fusion = fusion
+        if pool == 'attentive':
+            self.down_pool_block = AttentivePool(
+                self.dim, pool_in_dim, parent_dim=pool_parent_dim,
+                num_heads=kwargs.get('num_heads', 1),
+                qk_dim=kwargs.get('qk_dim', 8),
+                qk_scale=kwargs.get('qk_scale'), in_rpe_dim=pool_rpe_dim,
+                k_rpe=kwargs.get('k_rpe', False),
+                q_rpe=kwargs.get('q_rpe', False),
+                heads_share_rpe=kwargs.get('heads_share_rpe', False),
+                device=kwargs.get('device'))
+        elif pool not in POOL_MODES:
+            raise ValueError(f'unknown pool {pool!r}')
 
     def forward(self, x_parent, x_child, norm_index, pool_index,
-                num_parents=None, child_mask=None, **stage_kwargs):
-        x_pooled = pool(self.pool, x_child, pool_index, num_parents,
-                        mask=child_mask)
+                num_parents=None, child_mask=None, v_edge_attr=None,
+                **stage_kwargs):
+        if self.pool == 'attentive':
+            x_pooled = self.down_pool_block(
+                x_child, x_parent, pool_index, num_parents,
+                edge_attr=v_edge_attr, mask=child_mask)
+        else:
+            x_pooled = pool(self.pool, x_child, pool_index, num_parents,
+                            mask=child_mask)
         return super().forward(fuse(self.fusion, x_parent, x_pooled),
                                norm_index, **stage_kwargs)
 
@@ -180,10 +218,44 @@ class UpNFuseStage(Stage):
 
 class PointStage(Stage):
     """Level-0 encoder: position injection + MLP over raw points, no
-    attention. The sparse-CNN branch (EZ-SP) is not ported."""
+    attention. With `cnn_channels` (EZ-SP), a sparse CNN `cnn` runs first
+    over the voxels' kernel-neighbor table `cnn_nbr_idx` (its input the
+    `cnn_in_dim` point features, its norm `cnn_norm`); its output
+    replaces the point features ahead of the MLP (`cnn_into_mlp`), or is
+    concatenated to the MLP output."""
 
-    def __init__(self, *args, cnn_channels=None, **kwargs):
-        if cnn_channels:
-            raise NotImplementedError(
-                'PointStage: the sparse CNN branch is not ported')
+    def __init__(self, *args, cnn_channels=None, cnn_into_mlp=True,
+                 cnn_in_dim=None, cnn_norm='graph', **kwargs):
         super().__init__(*args, **kwargs)
+        self.cnn_into_mlp = cnn_into_mlp
+        if cnn_channels:
+            if not cnn_in_dim:
+                raise ValueError('PointStage: the sparse CNN needs the width '
+                                 'of the point features (cnn_in_dim)')
+            self.cnn = SparseCNN(cnn_in_dim, cnn_channels, norm=cnn_norm,
+                                 num_graphs=self.num_graphs,
+                                 device=kwargs.get('device'))
+
+    @property
+    def out_dim(self):
+        dim = super().out_dim
+        if hasattr(self, 'cnn') and not self.cnn_into_mlp:
+            dim += self.cnn.out_dim
+        return dim
+
+    def forward(self, x, norm_index, cnn_nbr_idx=None, mask=None,
+                **stage_kwargs):
+        x_cnn = None
+        if hasattr(self, 'cnn'):
+            if cnn_nbr_idx is None:
+                raise ValueError(
+                    'PointStage: the sparse CNN needs the batch\'s '
+                    '`cnn_nbr_idx` (level-0 `coords` at padding)')
+            x_cnn = self.cnn(x, cnn_nbr_idx, batch=norm_index, mask=mask)
+            if self.cnn_into_mlp:
+                x, x_cnn = x_cnn, None
+        out, diameter = super().forward(x, norm_index, mask=mask,
+                                        **stage_kwargs)
+        if x_cnn is not None:
+            out = torch.cat([out, x_cnn], 1)
+        return out, diameter

@@ -21,6 +21,8 @@ import functools
 
 import torch
 
+from ..utils.flops import count_contraction, opaque
+from .cost import contraction_flops
 from .cuda_build import library
 
 __all__ = ['dense_attention', 'dense_attention_reference',
@@ -58,7 +60,11 @@ def dense_attention_reference(q, k, v, nbr_mask, scale):
     `_xla_reference`). q*scale is rounded to the dtype of `k` as the
     kernel does; the math is f32."""
     qs = _scaled(q, scale).to(k.dtype).to(torch.float32)
-    a = _weights((qs * k.to(torch.float32)).sum(-1), nbr_mask)
+    N, K, H, D = k.shape
+    # <q, k> over D: counted as a contraction
+    logit = count_contraction((qs * k.to(torch.float32)).sum(-1),
+                              2 * N * K * H * D)
+    a = _weights(logit, nbr_mask)
     return torch.einsum('nkh,nkhc->nhc', a, v.to(torch.float32))
 
 
@@ -138,8 +144,10 @@ def dense_attention(q, k, v, nbr_mask, scale):
     _check('v', v, dt, (N, K, H, CH), dev)
     _check('nbr_mask', nbr_mask, torch.bool, (N, K), dev)
     _check('scale', scale, torch.float32, (N,), dev)
+    flops = contraction_flops('K1', N, K, H, D, H * CH)
     if dev.type == 'cpu':
-        return dense_attention_reference(q, k, v, nbr_mask, scale)
+        with opaque(flops):
+            return dense_attention_reference(q, k, v, nbr_mask, scale)
 
     if dev.index != torch.cuda.current_device():
         raise ValueError(f'dense_attention: tensors on {dev}, not on the '
@@ -158,10 +166,12 @@ def dense_attention(q, k, v, nbr_mask, scale):
             'H*C/H must be multiples of 16 bytes and q, k, v 16-byte '
             f'aligned (got H*D={H * D}, C={C}, {esz}-byte elements)')
     out = torch.empty((N, H, CH), dtype=torch.float32, device=dev)
-    rc = _launcher()(
-        int(dt == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        nbr_mask.data_ptr(), scale.data_ptr(), out.data_ptr(), N, K, H, D, C,
-        int(q.dim() == 4), torch.cuda.current_stream(dev).cuda_stream)
+    with opaque(flops):
+        rc = _launcher()(
+            int(dt == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), nbr_mask.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), N, K, H, D, C, int(q.dim() == 4),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f'dense_attention: kernel launch failed with CUDA error {rc}')
@@ -183,8 +193,12 @@ class _DenseAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, nbr_mask, scale = ctx.saved_tensors
-        dq, dk, dv, dscale = dense_attention_bwd(
-            q, k, v, nbr_mask, scale, g, with_dscale=ctx.needs_input_grad[4])
+        N, K, H, D = k.shape
+        with opaque(contraction_flops('K1_bwd', N, K, H, D,
+                                      H * v.shape[3])):
+            dq, dk, dv, dscale = dense_attention_bwd(
+                q, k, v, nbr_mask, scale, g,
+                with_dscale=ctx.needs_input_grad[4])
         return dq, dk, dv, None, dscale
 
 

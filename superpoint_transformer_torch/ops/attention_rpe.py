@@ -21,6 +21,8 @@ import functools
 
 import torch
 
+from ..utils.flops import count_contraction, opaque
+from .cost import contraction_flops
 from .cuda_build import library
 
 __all__ = ['dense_attention_rpe', 'dense_attention_rpe_reference',
@@ -70,8 +72,10 @@ def _rpe_terms(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq, wv, bv):
 
 def _masked_logits(q, k, nbr_mask, scale, H):
     N, K, DH = k.shape
-    logit = (q * k).reshape(N, K, H, DH // H).sum(-1) \
-        * scale.to(torch.float32)[:, None, None]          # [N, K, H]
+    # <q, k> over each head's D channels: counted as a contraction
+    qk = count_contraction((q * k).reshape(N, K, H, DH // H).sum(-1),
+                           2 * N * K * DH)
+    logit = qk * scale.to(torch.float32)[:, None, None]   # [N, K, H]
     return torch.where(nbr_mask[:, :, None], logit,
                        torch.full_like(logit, -1e30))
 
@@ -249,8 +253,10 @@ def dense_attention_rpe(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq,
     args, (N, K, H, D, C, De) = _prepare(
         'dense_attention_rpe', q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
         bq, wv, bv, nbr_mask, scale)
+    flops = contraction_flops('K2', N, K, H, D, C, De)
     if k_nodes_g.device.type == 'cpu':
-        return dense_attention_rpe_reference(*args, with_lse=with_lse)
+        with opaque(flops):
+            return dense_attention_rpe_reference(*args, with_lse=with_lse)
 
     q_node, kg, vg, ef, wk, bk, wq, bq, wv, bv, nbr_mask, scale = args
     dev = kg.device
@@ -271,13 +277,15 @@ def dense_attention_rpe(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq, bq,
     out = torch.empty((N, C), dtype=torch.float32, device=dev)
     lse = torch.empty((H, N), dtype=torch.float32, device=dev) \
         if with_lse else None
-    rc = _launcher()(
-        int(kg.dtype == torch.bfloat16), q_node.data_ptr(), kg.data_ptr(),
-        kg.stride(1), vg.data_ptr(), vg.stride(1), ef.data_ptr(),
-        wk.data_ptr(), bk.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-        wv.data_ptr(), bv.data_ptr(), nbr_mask.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), N, K, H, D,
-        C, De, torch.cuda.current_stream(dev).cuda_stream)
+    with opaque(flops):
+        rc = _launcher()(
+            int(kg.dtype == torch.bfloat16), q_node.data_ptr(), kg.data_ptr(),
+            kg.stride(1), vg.data_ptr(), vg.stride(1), ef.data_ptr(),
+            wk.data_ptr(), bk.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+            wv.data_ptr(), bv.data_ptr(), nbr_mask.data_ptr(),
+            scale.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), N, K, H, D, C, De,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f'dense_attention_rpe: kernel launch failed with CUDA error {rc}')
@@ -314,8 +322,10 @@ def dense_attention_rpe_bwd(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
     _check('lse', lse, torch.float32, (H, N), dev)
     if not lse.is_contiguous():
         raise ValueError('dense_attention_rpe_bwd: lse must be contiguous')
+    flops = contraction_flops('K3', N, K, H, D, C, De)
     if dev.type == 'cpu':
-        return dense_attention_rpe_bwd_reference(*args, out, lse, g)
+        with opaque(flops):
+            return dense_attention_rpe_bwd_reference(*args, out, lse, g)
 
     q_node, kg, vg, ef, wk, bk, wq, bq, wv, bv, nbr_mask, scale = args
     DH, W = H * D, 2 * H * D + C
@@ -352,15 +362,17 @@ def dense_attention_rpe_bwd(q_node, k_nodes_g, v_nodes_g, ef, wk, bk, wq,
         (max(blocks, 1), De + 1, W), device=dev,
         dtype=torch.float32 if bf16 else torch.float64)
     dw = torch.zeros((De + 1, W), dtype=torch.float32, device=dev)
-    rc = launch(
-        int(bf16), q_node.data_ptr(), kg.data_ptr(),
-        kg.stride(1), vg.data_ptr(), vg.stride(1), ef.data_ptr(),
-        wk.data_ptr(), bk.data_ptr(), wq.data_ptr(), bq.data_ptr(),
-        wv.data_ptr(), bv.data_ptr(), nbr_mask.data_ptr(), scale.data_ptr(),
-        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dkg.data_ptr(), dvg.data_ptr(), d_ef.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), N, K, H, D, C, De,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with opaque(flops):
+        rc = launch(
+            int(bf16), q_node.data_ptr(), kg.data_ptr(),
+            kg.stride(1), vg.data_ptr(), vg.stride(1), ef.data_ptr(),
+            wk.data_ptr(), bk.data_ptr(), wq.data_ptr(), bq.data_ptr(),
+            wv.data_ptr(), bv.data_ptr(), nbr_mask.data_ptr(),
+            scale.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dkg.data_ptr(), dvg.data_ptr(),
+            d_ef.data_ptr(), partial.data_ptr(), dw.data_ptr(), N, K, H, D,
+            C, De,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('dense_attention_rpe_bwd: kernel launch failed '
                            f'with CUDA error {rc}')

@@ -17,11 +17,16 @@ statistics); other float sums are a sorted segmented reduction
 (`torch.segment_reduce`) over the rows, sorted first unless the caller
 says they are. The gathers' backward is such a sum too (`gather_rows`).
 """
+import math
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ['segment_sum', 'segment_count', 'segment_max', 'gather_rows',
-           'gather_rows_small']
+from ..utils.flops import count_contraction
+
+__all__ = ['segment_sum', 'segment_count', 'segment_max', 'segment_min',
+           'segment_mean', 'segment_std', 'segment_softmax',
+           'segment_mean_weighted', 'gather_rows', 'gather_rows_small']
 
 # the JAX package's threshold for the one-hot form
 _ONEHOT_MAX_SEGMENTS = 128
@@ -140,15 +145,110 @@ def segment_count(idx, num_segments, mask=None):
     return segment_sum(ones, idx, num_segments)
 
 
+def _segment_extreme(x, idx, num_segments, reduce, identity):
+    out = torch.full((num_segments + 1,) + tuple(x.shape[1:]), identity,
+                     dtype=x.dtype, device=x.device)
+    index = _dump_index(idx, num_segments).view(
+        (-1,) + (1,) * (x.dim() - 1)).expand_as(x)
+    out.scatter_reduce_(0, index, x, reduce=reduce, include_self=True)
+    return out[:num_segments]
+
+
 def segment_max(x, idx, num_segments):
     """Per-segment max of the rows of `x` [N, C]; empty segments give
     -inf (the identity of max, as in `jax.ops.segment_max`)."""
-    out = torch.full((num_segments + 1,) + tuple(x.shape[1:]),
-                     float('-inf'), dtype=x.dtype, device=x.device)
-    index = _dump_index(idx, num_segments).view(
-        (-1,) + (1,) * (x.dim() - 1)).expand_as(x)
-    out.scatter_reduce_(0, index, x, reduce='amax', include_self=True)
-    return out[:num_segments]
+    return _segment_extreme(x, idx, num_segments, 'amax', float('-inf'))
+
+
+def segment_min(x, idx, num_segments):
+    """Per-segment min of the rows of `x` [N, C]; empty segments give
+    +inf (the identity of min, as in `jax.ops.segment_min`)."""
+    return _segment_extreme(x, idx, num_segments, 'amin', float('inf'))
+
+
+def _expand(v, like):
+    """A per-row vector broadcast against `like`'s trailing dims."""
+    return v.reshape(tuple(v.shape) + (1,) * (like.dim() - v.dim()))
+
+
+def _row_index(idx, num_rows):
+    """The row each index reads in a JAX gather `table[idx]`: a negative
+    index counts from the end, and the result is clamped into range."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + num_rows, idx)
+    return idx.clamp(0, num_rows - 1)
+
+
+def _gather(table, idx, num_rows):
+    """`table[idx]` as JAX computes it and its gradient: the row of
+    `_row_index`, and no gradient from an index out of range (its
+    clamped read is a constant: XLA's scatter drops it), with
+    `gather_rows`' reproducible backward."""
+    flat = table.reshape(num_rows, -1)
+    out = gather_rows(flat, _row_index(idx, num_rows))
+    oob = ((idx < -num_rows) | (idx >= num_rows)).reshape(-1, 1)
+    out = torch.where(oob, out.detach(), out)
+    return out.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
+def segment_mean(x, idx, num_segments, indices_are_sorted=False,
+                 mask=None):
+    """Per-segment mean of the rows of `x`; `mask` marks valid rows;
+    an empty segment gives 0."""
+    if mask is not None:
+        x = x * _expand(mask, x).to(x.dtype)
+    s = segment_sum(x, idx, num_segments, indices_are_sorted)
+    n = segment_count(idx, num_segments, mask=mask)
+    return s / _expand(n.clamp(min=1).to(x.dtype), s)
+
+
+def segment_std(x, idx, num_segments, indices_are_sorted=False, mask=None,
+                correction=1):
+    """Per-segment standard deviation, Bessel-corrected by default (the
+    JAX `segment_std`, torch_scatter's `scatter_std`): the sum of squared
+    deviations from the segment mean over max(n - correction, 1)."""
+    if mask is not None:
+        x = x * _expand(mask, x).to(x.dtype)
+    n = segment_count(idx, num_segments, mask=mask).to(x.dtype)
+    s = segment_sum(x, idx, num_segments, indices_are_sorted)
+    mean = s / _expand(n.clamp(min=1), s)
+    d = x - _gather(mean, idx, num_segments)
+    if mask is not None:
+        d = d * _expand(mask, d).to(d.dtype)
+    var = segment_sum(d * d, idx, num_segments, indices_are_sorted)
+    var = var / _expand((n - correction).clamp(min=1), var)
+    return torch.sqrt(var.clamp(min=0))
+
+
+def segment_softmax(x, idx, num_segments, indices_are_sorted=False,
+                    mask=None):
+    """Softmax of the rows of `x` [N, ...] over the rows sharing a
+    segment id; `mask` marks valid rows, which alone take weight. The
+    segment max is held constant (it cancels in the value and the
+    gradient)."""
+    if mask is not None:
+        x = torch.where(_expand(mask, x), x,
+                        torch.full_like(x, float('-inf')))
+    with torch.no_grad():
+        m = segment_max(x, idx, num_segments)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(x - _gather(m, idx, num_segments))
+    if mask is not None:
+        e = e * _expand(mask, e).to(e.dtype)
+    z = segment_sum(e, idx, num_segments, indices_are_sorted)
+    z = z.clamp(min=torch.finfo(e.dtype).tiny)
+    return e / _gather(z, idx, num_segments)
+
+
+def segment_mean_weighted(x, idx, w, num_segments,
+                          indices_are_sorted=False):
+    """Per-segment mean of the rows of `x` [N, C] weighted by `w` [N]; a
+    segment of zero total weight divides by 1."""
+    w = w.to(x.dtype).reshape(-1)
+    s = segment_sum(x * w[:, None], idx, num_segments, indices_are_sorted)
+    z = segment_sum(w, idx, num_segments, indices_are_sorted)
+    z = torch.where(z == 0, torch.ones_like(z), z)
+    return s / z[:, None]
 
 
 class _GatherRows(torch.autograd.Function):
@@ -188,8 +288,16 @@ def gather_rows(table, idx):
 def gather_rows_small(table, idx, num_rows):
     """`table[idx]` for a small per-segment table [G, C]; an
     out-of-range index (-1 on padded rows) gives a zero row, as the
-    JAX one-hot form does."""
+    JAX one-hot form does. For a float table of at most
+    `_ONEHOT_MAX_SEGMENTS` rows the FLOP count (`utils/flops.py`) adds
+    that form's contraction, 2 * N * G * C, as the JAX count does; its
+    backward here is a `segment_sum`, counted where it contracts."""
     zero = torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype,
                        device=table.device)
-    return gather_rows(torch.cat([table[:num_rows], zero]),
-                       _dump_index(idx, num_rows))
+    out = gather_rows(torch.cat([table[:num_rows], zero]),
+                      _dump_index(idx, num_rows))
+    if num_rows <= _ONEHOT_MAX_SEGMENTS and table.dtype.is_floating_point:
+        out = count_contraction(
+            out, 2 * idx.shape[0] * num_rows * math.prod(table.shape[1:]),
+            backward_flops=0)
+    return out

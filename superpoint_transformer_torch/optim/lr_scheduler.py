@@ -2,7 +2,12 @@
 parameters, and the plateau variant; counterpart of `cosine_with_warmup`,
 `_is_transformer_param`, `make_optimizer`, `warmup_constant`,
 `ReduceOnPlateau`, `make_plateau_optimizer` and `set_lr_multiplier` in
-`superpoint_transformer_tpu/optim/lr_scheduler.py`.
+`superpoint_transformer_tpu/optim/lr_scheduler.py`, and of its other
+schedules (`step_with_warmup`, `multi_step_with_warmup`,
+`exponential_with_warmup`, `cosine_power_with_warmup`) and their factory
+`make_schedule`, which the JAX package exports and calls nowhere. A
+schedule is a plain function of the step (a partial of a module
+function, so that a task pickles), in float64 where JAX computes in f32.
 
 `torch.optim.AdamW` is optax's `adamw` (b1 0.9, b2 0.999, eps 1e-8,
 decoupled weight decay on every parameter). The two parameter groups
@@ -22,7 +27,9 @@ import torch
 
 __all__ = ['cosine_with_warmup', 'is_transformer_param', 'make_optimizer',
            'set_lr', 'warmup_constant', 'ReduceOnPlateau',
-           'make_plateau_optimizer', 'set_lr_multiplier']
+           'make_plateau_optimizer', 'set_lr_multiplier', 'step_with_warmup',
+           'multi_step_with_warmup', 'exponential_with_warmup',
+           'cosine_power_with_warmup', 'make_schedule']
 
 
 def cosine_with_warmup(lr, total_steps, num_warmup_steps,
@@ -51,6 +58,94 @@ def _cosine_with_warmup(lr, total_steps, num_warmup_steps, warmup_init_lr,
     progress = min(max((step - w) / max(total_steps - w, 1.0), 0.0), 1.0)
     return eta_min + (lr - eta_min) * 0.5 * (
         1 + math.cos(math.pi * progress))
+
+
+def _with_warmup(lr, body, num_warmup_steps, warmup_init_lr, warmup_strategy,
+                 step):
+    """The warm-up from `warmup_init_lr` to `lr` over `num_warmup_steps`
+    ('cos' or 'linear' shape), then `body(step - num_warmup_steps)`."""
+    w = float(num_warmup_steps)
+    if step < w:
+        frac = min(max(step / max(w, 1.0), 0.0), 1.0)
+        if warmup_strategy != 'linear':
+            frac = 0.5 * (1 - math.cos(math.pi * frac))
+        return warmup_init_lr + (lr - warmup_init_lr) * frac
+    return body(max(step - w, 0.0))
+
+
+def _warmup_schedule(body, lr, num_warmup_steps, warmup_init_lr=1e-6,
+                     warmup_strategy='cos'):
+    return functools.partial(_with_warmup, lr, body, num_warmup_steps,
+                             warmup_init_lr, warmup_strategy)
+
+
+def _step_body(lr, step_size, gamma, s):
+    return lr * gamma ** math.floor(s / step_size)
+
+
+def _multi_step_body(lr, milestones, gamma, s):
+    return lr * gamma ** sum(s >= m for m in milestones)
+
+
+def _exponential_body(lr, gamma, s):
+    return lr * gamma ** s
+
+
+def _cosine_power_body(lr, total_steps, power, eta_min, num_warmup_steps, s):
+    t = max(total_steps - num_warmup_steps, 1)
+    progress = min(max(s / t, 0.0), 1.0)
+    return eta_min + (lr - eta_min) * (
+        0.5 * (1 + math.cos(math.pi * progress))) ** power
+
+
+def step_with_warmup(lr, step_size, gamma=0.1, num_warmup_steps=0, **kw):
+    """Warm-up, then `lr` times `gamma` every `step_size` steps."""
+    return _warmup_schedule(functools.partial(_step_body, lr, step_size,
+                                              gamma),
+                            lr, num_warmup_steps, **kw)
+
+
+def multi_step_with_warmup(lr, milestones, gamma=0.1, num_warmup_steps=0,
+                           **kw):
+    """Warm-up, then `lr` times `gamma` at each of `milestones` (steps
+    after the warm-up) passed."""
+    return _warmup_schedule(functools.partial(
+        _multi_step_body, lr, tuple(float(m) for m in milestones), gamma),
+        lr, num_warmup_steps, **kw)
+
+
+def exponential_with_warmup(lr, gamma=0.999, num_warmup_steps=0, **kw):
+    """Warm-up, then `lr * gamma ** step`."""
+    return _warmup_schedule(functools.partial(_exponential_body, lr, gamma),
+                            lr, num_warmup_steps, **kw)
+
+
+def cosine_power_with_warmup(lr, total_steps, power=2.0, eta_min=1e-6,
+                             num_warmup_steps=0, **kw):
+    """Warm-up, then a cosine anneal to `eta_min` raised to `power` (a
+    sharper decay than the cosine's)."""
+    return _warmup_schedule(functools.partial(
+        _cosine_power_body, lr, total_steps, power, eta_min,
+        num_warmup_steps), lr, num_warmup_steps, **kw)
+
+
+def make_schedule(name, lr, total_steps, num_warmup_steps=0, **kw):
+    """The schedule named `name`: None / 'cosine' / 'cos', 'step',
+    'multistep', 'exponential' or 'cosine_power'."""
+    if name in (None, 'cosine', 'cos'):
+        return cosine_with_warmup(lr, total_steps, num_warmup_steps, **kw)
+    if name == 'step':
+        return step_with_warmup(lr, num_warmup_steps=num_warmup_steps, **kw)
+    if name == 'multistep':
+        return multi_step_with_warmup(lr, num_warmup_steps=num_warmup_steps,
+                                      **kw)
+    if name == 'exponential':
+        return exponential_with_warmup(
+            lr, num_warmup_steps=num_warmup_steps, **kw)
+    if name == 'cosine_power':
+        return cosine_power_with_warmup(
+            lr, total_steps, num_warmup_steps=num_warmup_steps, **kw)
+    raise ValueError(f'unknown scheduler {name}')
 
 
 def is_transformer_param(name):

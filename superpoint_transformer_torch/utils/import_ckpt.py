@@ -47,7 +47,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ['import_reference_checkpoint', 'reference_key_for', 'flax_path']
+__all__ = ['import_reference_checkpoint', 'reference_key_for', 'flax_path',
+           'reference_state_dict']
 
 
 def _stage_key(name):
@@ -187,6 +188,25 @@ def flax_path(name, param):
     if leaf == 'weight' and param.dim() == 2:
         leaf = 'kernel'
     return tuple(mods) + (leaf,)
+
+
+def reference_state_dict(module):
+    """The reference-format state_dict of a port `module`, the inverse of
+    `import_reference_checkpoint`: each parameter under its reference key
+    (ValueError where it has none), Linear weights [out, in] as they are,
+    a sparse convolution's weight [out, K*in] as the reference kernel
+    [K, in, out]. CPU tensors."""
+    from ..nn.sparse import KERNEL_VOLUME
+    state = {}
+    for name, p in module.named_parameters():
+        key = reference_key_for(flax_path(name, p))
+        if key is None:
+            raise ValueError(f'no reference key for {name}')
+        t = p.detach().cpu().clone()
+        if key.endswith('.conv.kernel'):
+            t = t.t().reshape(KERNEL_VOLUME, -1, t.shape[0]).contiguous()
+        state[key] = t
+    return state
 
 
 def _load_state(ckpt):

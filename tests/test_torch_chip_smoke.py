@@ -160,7 +160,8 @@ def _rehearse_on_the_cpu(monkeypatch):
     for name, kernel in (('dense_attention_rpe',
                           attention_rpe.dense_attention_rpe),
                          ('dense_attention_trainable',
-                          attention.dense_attention)):
+                          attention.dense_attention),
+                         ('dense_attention', attention.dense_attention)):
         def counted(*args, _fn=getattr(block, name), _kernel=kernel):
             _kernel.launches += 1
             return _fn(*args)
@@ -441,3 +442,50 @@ def test_datasets_phase_rehearsal_on_the_cpu(monkeypatch, tmp_path):
                    'kitti360': {'K1': 11, 'K2': 11 * 2},
                    'scannet': {'K1': 11, 'K2': 11}}
     assert sorted(timing) == ['K1', 'K2']
+
+
+def test_variants_phase_rehearsal_on_the_cpu(monkeypatch):
+    """`phase_variants` end to end on the CPU at small sizes (2-graph
+    batches of a few hundred points, 2 host-path rooms of 6,000 raw
+    points): the variant models A, B, C served (7 K1 a forward) and
+    stepped (7 K1, none for B's attention dropout), held to the plain
+    attention and run twice bit-equal; K1 held on its widest per-node and
+    per-edge launches; the point-CNN SPTs served (7 K2) and stepped
+    (7 K1), the reference state dict round trip; the FLOP counts of the
+    kernels' entry points and of the plain attention equal. The timings
+    stubbed."""
+    import torch
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    _rehearse_on_the_cpu(monkeypatch)
+    small = dict(n_points=300, n_l1=40, n_l2=10)
+    for name, value in (('ROOM', small), ('CROP', small), ('NUM_GRAPHS', 2),
+                        ('TRAIN_GRAPHS', 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, 'cuda_ms', lambda fn, iters, warmup=3:
+                        (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, 'time_on_path', lambda name, args: (
+        1.0, 1.0, 1.0, 'bytes', {'N': args[0].shape[0]}, {}))
+    held, hold = [], chip_smoke.hold_on_path
+
+    def holding(name, args, path):
+        held.append((name, args[0].dim(), path))
+        hold(name, args, path)
+
+    monkeypatch.setattr(chip_smoke, 'hold_on_path', holding)
+    nags = [preprocess_cloud(synthetic_room_cloud(seed=s, n_points=6_000))
+            for s in range(2)]
+    try:
+        launches, timing = chip_smoke.phase_variants(
+            torch.device('cpu'), 'cpu', nags)
+    finally:
+        torch.set_num_threads(threads)
+    # a forward and a step in f32 and bf16: A, B, C served; A and C
+    # stepped on K1; the two point-CNN models stepped on K1, served on K2
+    assert launches == {'K1': 7 * 2 * (3 + 2 + 2), 'K2': 7 * 2 * 2}
+    assert held == [('K1', 4, 'variant A'), ('K1', 3, 'variant B')]
+    assert set(timing) == {'ms', 'plain_ms', 'bound_ms', 'bound_by', 'shape'}

@@ -408,8 +408,13 @@ def test_sparse_cnn_matches_jax(batches, jax_params):
         got = tm(tb.x, tb.cnn_nbr_idx, batch=tb.batch, mask=tb.node_mask)
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
                                    rtol=CNN_TOL, atol=CNN_TOL)
-    with pytest.raises(NotImplementedError, match='instance'):
-        TSparseCNN(8, CHANNELS, norm='instance')
+    # the instance and layer norms build their flax-named submodule
+    # (their parity with JAX: test_torch_point_cnn.py); an unknown norm
+    # raises
+    assert hasattr(TSparseCNN(8, CHANNELS, norm='instance').block_0,
+                   'InstanceNorm_0')
+    with pytest.raises(ValueError, match='unknown norm'):
+        TSparseCNN(8, CHANNELS, norm='batch')
 
 
 @pytest.mark.parametrize('case', ['train', 'eval', 'no_inter'])

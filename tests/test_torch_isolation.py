@@ -271,6 +271,38 @@ SCRIPT = textwrap.dedent('''
     assert Timings().summary() == ''
     print('SERVING_OK')
 
+    # the SPT options no config sets, the point CNN, the FLOP count and
+    # the other LR schedules
+    import dataclasses
+    from superpoint_transformer_torch.experiment import spt_kwargs
+    from superpoint_transformer_torch.models.spt import SPT
+    from superpoint_transformer_torch.optim.lr_scheduler import (
+        make_schedule)
+    from superpoint_transformer_torch.transforms.preprocess import (
+        quantize_coordinates)
+    from superpoint_transformer_torch.utils.flops import matmul_flops
+    kw = spt_kwargs(FLAGSHIP_CFG, num_graphs=2, device='cpu')
+    kw.update(qk_share_rpe=True, heads_share_rpe=True, pre_norm=False,
+              norm='layer', mlp_norm='batch', pool='std', down_drop_path=0.1,
+              down_attn_drop=0.1, point_cnn=(8, 8), point_cnn_into_mlp=False,
+              point_mlp=(12, 32, 64, 120))
+    variant = SemanticSegmentationModel(SPT(**kw), 13)
+    init_weights(variant, torch.Generator().manual_seed(0))
+    quantize_coordinates(dknn[0], size=0.1)
+    host = prepare_batch([dknn, dknn], cfg, train=False)
+    assert host.levels[0].cnn_nbr_idx is not None
+    vb = from_numpy(host, 'cpu')
+    with torch.no_grad():
+        flops = matmul_flops(variant.eval(), vb)
+        variant.train()(vb)
+    assert flops > 0
+    lrs = [make_schedule(n, 0.1, 100, num_warmup_steps=5, **a)(50)
+           for n, a in (('step', dict(step_size=10)),
+                        ('multistep', dict(milestones=(10,))),
+                        ('exponential', {}), ('cosine_power', {}))]
+    assert all(0 < lr < 0.1 for lr in lrs)
+    print('VARIANTS_OK')
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
@@ -364,6 +396,16 @@ def test_whole_cloud_serving_runs_without_jax_flax_h5py_yaml(blocked_run):
     allocator tuned at package import, with the same imports blocked."""
     assert blocked_run.returncode == 0, blocked_run.stderr
     assert 'SERVING_OK' in blocked_run.stdout
+
+
+def test_variants_run_without_jax_flax_h5py_yaml(blocked_run):
+    """An SPT with RPE variants, post-norm layer norms, batch-normed MLPs,
+    std pooling, DropPath and attention dropout, and the point CNN beside
+    its MLP, on a preprocessed room with `quantize_coordinates` coords,
+    served, trained and FLOP-counted; the other LR schedules; with the
+    same imports blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'VARIANTS_OK' in blocked_run.stdout
 
 
 def test_native_library_is_the_ports_own_build(blocked_run):

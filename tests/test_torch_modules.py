@@ -177,20 +177,30 @@ def test_self_attention_block(nag, dtype):
                                      dict(heads_share_rpe=True),
                                      dict(q_on_minus_rpe=True),
                                      dict(v_rpe=False)])
-def test_self_attention_other_rpe_variants_need_k1(variant):
+def test_self_attention_other_rpe_variants_need_k1(nag, variant):
+    """The RPE variants other than independent k/q/v run on K1 at
+    inference (its plain version on the CPU): the output matches the
+    JAX block's."""
+    lvl, x, ef = _attention_inputs(nag)
     cfg = dict(num_heads=4, qk_dim=4, in_rpe_dim=16, k_rpe=True,
                q_rpe=True, v_rpe=True)
     cfg.update(variant)
-    with pytest.raises(NotImplementedError, match='K1'):
-        tattn.SelfAttentionBlock(32, **cfg)
+    jm = jattn.SelfAttentionBlock(dim=32, **cfg)
+    args = (_j(x), _j(lvl.nbr_idx), _j(lvl.nbr_mask))
+    params = _init(jm, *args, edge_feat=_j(ef), train=False)
+    ref = _apply(jm, params, *args, edge_feat=_j(ef), train=False)
+    tm = _port(tattn.SelfAttentionBlock(32, **cfg), params)
+    assert not tm.independent_rpe
+    got = tm(_t(x), _t(lvl.nbr_idx), _t(lvl.nbr_mask), _t(ef))
+    _close(got, ref)
 
 
 def test_self_attention_training_needs_k1(nag):
     """Training takes the K1 route (RPE as one matmul added to the
     gathered rows, a query per edge, K1 with its closed-form backward):
     the output and every gradient match the JAX block's train=True
-    forward and `jax.grad`. Without edge features the block needs K1 at
-    inference too, which is not ported."""
+    forward and `jax.grad`. Without edge features the block runs K1 at
+    inference too, as in JAX."""
     lvl, x, ef = _attention_inputs(nag)
     cfg = dict(num_heads=4, qk_dim=4, in_rpe_dim=16, k_rpe=True,
                q_rpe=True, v_rpe=True)
@@ -218,8 +228,10 @@ def test_self_attention_training_needs_k1(nag):
         name = f'{layer}.{"weight" if leaf == "kernel" else "bias"}'
         t = grads[name].t() if leaf == 'kernel' else grads[name]
         _close(t, g, tol=(RTOL, 1e-4))
-    with pytest.raises(NotImplementedError, match='K1'):
-        tm.eval()(_t(x), _t(lvl.nbr_idx), _t(lvl.nbr_mask), None)
+    # without edge features the block runs K1 at inference too, with a
+    # query per node, the RPE modules unused as in JAX
+    ref = _apply(jm, params, _j(x), *args, edge_feat=None, train=False)
+    _close(tm.eval()(_t(x), _t(lvl.nbr_idx), _t(lvl.nbr_mask), None), ref)
 
 
 def test_transformer_block_with_ffn(nag):

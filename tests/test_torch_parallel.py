@@ -40,7 +40,8 @@ from superpoint_transformer_tpu.optim.lr_scheduler import make_optimizer
 from superpoint_transformer_tpu.parallel import (
     make_data_mesh as jdata_mesh, make_dp_train_step as jdp_step,
     make_shard_mesh as jshard_mesh, make_sharded_forward as jsharded_fwd,
-    shard_batch, shard_padded_nag as jshard, stack_batches)
+    make_sharded_train_step as jsharded_step, shard_batch,
+    shard_padded_nag as jshard, stack_batches)
 from superpoint_transformer_tpu.trainer import Trainer as JTrainer
 from superpoint_transformer_tpu.transforms import (
     BatchConfig as JBatchConfig, prepare_batch as jprepare)
@@ -280,6 +281,52 @@ def test_sharded_train_step_matches_unsharded(graph, weights, sharded_run):
         np.testing.assert_array_equal(out['confmat'],
                                       metrics['confmat'].numpy())
         _check_updates(out['params'], ref, weights[1], grads)
+
+
+def test_sharded_train_step_matches_jax(graph, weights, sharded_run):
+    """The port's 2-rank sharded train step against JAX's
+    `make_sharded_train_step` on 2 virtual devices, from the same weights
+    and shards: the loss (1e-4 relative) and the confusion matrix equal,
+    the parameter updates aligned (cosine at least 0.98, JAX's own bar
+    for its sharded step against its unsharded one,
+    tests/test_sharded_attention.py), and the gradients JAX steps on are
+    the world size times the port's: JAX sums the ranks' gradients of the
+    replicated loss, the port averages them (Adam's first step hides the
+    factor)."""
+    import optax
+    task = JTask(net=JSPT(output_stage_wise=True, shard_axis='shard',
+                          **R.NARROW), num_classes=13, **R.HPARAMS)
+    mesh = jshard_mesh(jax.devices()[:N_DEV])
+    state, metrics = jsharded_step(task, mesh)(
+        _jax_state(task, weights[0]),
+        jshard(graph['jnag'], N_DEV, num_classes=13),
+        jax.random.PRNGKey(5))
+    ref, p0 = _flat(state.params), weights[1]
+    mus = [s.mu for s in jax.tree_util.tree_leaves(
+        state.opt_state, is_leaf=lambda s: isinstance(
+            s, optax.ScaleByAdamState)) if isinstance(
+        s, optax.ScaleByAdamState)]
+    # Adam's first moment after one step: (1 - b1) times the gradient
+    jax_norm = np.sqrt(sum(float(np.sum(np.square(np.asarray(m))))
+                           for mu in mus
+                           for m in jax.tree_util.tree_leaves(mu))) / 0.1
+    for out in sharded_run:
+        np.testing.assert_allclose(out['loss'], float(metrics['loss']),
+                                   rtol=1e-4)
+        np.testing.assert_array_equal(out['confmat'],
+                                      np.asarray(metrics['confmat']))
+        d_port = np.concatenate([(out['params'][k] - p0[k]).ravel()
+                                 for k in sorted(ref)])
+        d_jax = np.concatenate([(ref[k] - p0[k]).ravel()
+                                for k in sorted(ref)])
+        cos = d_port @ d_jax / (np.linalg.norm(d_port)
+                                * np.linalg.norm(d_jax))
+        assert cos >= 0.98, cos
+        port_norm = np.sqrt(sum(float(np.sum(np.square(g)))
+                                for g in out['grads'].values()))
+        print(f"sharded step vs JAX: update cosine {cos:.6f}, gradient "
+              f"ratio {jax_norm / port_norm:.6f}")
+        np.testing.assert_allclose(jax_norm / port_norm, N_DEV, rtol=1e-3)
 
 
 def _jax_batches(n):

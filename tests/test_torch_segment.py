@@ -179,3 +179,75 @@ def test_sorted_segment_sum_takes_a_segment_of_many_rows():
     np.testing.assert_allclose(float((got * torch.from_numpy(w)).sum()),
                                float(ref), rtol=1e-5)
     np.testing.assert_array_equal(t.grad.numpy(), np.asarray(ref_grad))
+
+
+def _pair(x, idx, mask=None):
+    j = [jnp.asarray(x), jnp.asarray(idx)]
+    t = [torch.from_numpy(x), torch.from_numpy(idx)]
+    jm = None if mask is None else jnp.asarray(mask)
+    tm = None if mask is None else torch.from_numpy(mask)
+    return j, t, jm, tm
+
+
+# each reduction in both segment_sum routes (n < 1024: the sorted sum;
+# n >= 1024: the one-hot contraction), with and without a row mask, on
+# the padding ids -1 and G and an empty segment
+@pytest.mark.parametrize('n', [300, 2048])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('op', ['mean', 'std', 'softmax', 'min'])
+def test_segment_reductions_match_jax(n, masked, op):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((n, 4)).astype(np.float32)
+    idx = _index(rng, n)
+    mask = (rng.random(n) < 0.8) if masked else None
+    (jx, ji), (tx, ti), jm, tm = _pair(x, idx, mask)
+    if op == 'min':
+        ref = jseg.segment_min(jx, ji, G)
+        got = tseg.segment_min(tx, ti, G)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        assert np.all(np.isposinf(got.numpy()[3]))
+        return
+    kw = {} if op == 'softmax' else dict(indices_are_sorted=False)
+    ref = getattr(jseg, f'segment_{op}')(jx, ji, G, mask=jm, **kw)
+    got = getattr(tseg, f'segment_{op}')(tx, ti, G, mask=tm, **kw)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('n', [300, 2048])
+def test_segment_mean_weighted_matches_jax(n):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((n, 3)).astype(np.float32)
+    idx = _index(rng, n)
+    w = rng.random(n).astype(np.float32)
+    w[idx == 1] = 0          # a segment of zero weight divides by 1
+    ref = jseg.segment_mean_weighted(jnp.asarray(x), jnp.asarray(idx),
+                                     jnp.asarray(w), G)
+    got = tseg.segment_mean_weighted(torch.from_numpy(x),
+                                     torch.from_numpy(idx),
+                                     torch.from_numpy(w), G)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_segment_softmax_gradient_matches_jax():
+    """Softmax over [N, H] scores with a row mask: the gradient of a
+    weighted sum of the weights (the segment max held constant in the
+    port; its gradient cancels in JAX)."""
+    import jax
+    rng = np.random.default_rng(5)
+    n = 500
+    x = rng.standard_normal((n, 2)).astype(np.float32)
+    idx = np.sort(_index(rng, n) % (G + 1)).astype(np.int32)
+    mask = rng.random(n) < 0.9
+    c = rng.standard_normal((n, 2)).astype(np.float32)
+    gref = jax.grad(lambda v: (jseg.segment_softmax(
+        v, jnp.asarray(idx), G, mask=jnp.asarray(mask)) * c).sum())(
+        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    (tseg.segment_softmax(tx, torch.from_numpy(idx), G,
+                          mask=torch.from_numpy(mask))
+     * torch.from_numpy(c)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gref),
+                               rtol=1e-5, atol=1e-5)

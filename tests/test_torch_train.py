@@ -338,9 +338,18 @@ def test_build_task_reads_the_flagship_values():
                                   'down_drop_path', 'up_mlp_drop',
                                   'up_residual_drop', 'up_attn_drop',
                                   'up_drop_path'])
-def test_dropout_and_drop_path_accept_only_none_or_zero(rate):
-    """No config sets a dropout or DropPath rate; the port builds with 0
-    and refuses any other value instead of training without it."""
-    TSPT(**NARROW, **{rate: 0.0})
-    with pytest.raises(NotImplementedError, match='not ported'):
-        TSPT(**NARROW, **{rate: 0.1})
+def test_dropout_and_drop_path_accept_only_none_or_zero(batch, rate):
+    """Every dropout and DropPath rate builds; in evaluation a model with
+    the rate set gives the outputs of the model at rate 0 (the same
+    weights), and in training it drops (test_torch_variants.py holds the
+    masks' statistics)."""
+    zero = TSPT(**NARROW, **{rate: 0.0}).eval()
+    some = TSPT(**NARROW, **{rate: 0.1}).eval()
+    some.load_state_dict(zero.state_dict())
+    tb = from_numpy(batch, 'cpu')
+    with torch.no_grad():
+        for a, b in zip(zero(tb), some(tb)):
+            assert torch.equal(a, b)
+        some.train()
+        assert any(not torch.equal(a, b)
+                   for a, b in zip(zero.train()(tb), some(tb)))

@@ -64,7 +64,8 @@ def collectives(rank, world_size, init_method, xs, idx, cs):
 
 def sharded(rank, world_size, init_method, shards, state):
     """The narrow SPT on this rank's shard: the sharded forward, then one
-    sharded train step."""
+    sharded train step (its loss, confusion matrix, updated parameters
+    and the gradients it stepped on)."""
     mesh = make_shard_mesh(device='cpu', init_method=init_method,
                            rank=rank, world_size=world_size)
     task = narrow_task(state, shard_group=mesh.group)
@@ -73,7 +74,9 @@ def sharded(rank, world_size, init_method, shards, state):
     metrics = make_sharded_train_step(task, mesh)(batch)
     return {'feats': [f.numpy() for f in feats],
             'loss': float(metrics['loss']),
-            'confmat': metrics['confmat'].numpy(), 'params': params(task)}
+            'confmat': metrics['confmat'].numpy(), 'params': params(task),
+            'grads': {k: p.grad.numpy().copy()
+                      for k, p in task.model.named_parameters()}}
 
 
 def data_parallel(rank, world_size, init_method, batches, state):
