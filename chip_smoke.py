@@ -105,7 +105,22 @@ against its plain PyTorch version:
    above the random weights'; 3 `PanopticTask` train steps (K1, 7 a
    step; finite losses; the parameters and the edge-affinity head move)
    and one step held to the plain attention in f32 and bf16; times of
-   each, the host's partition and grid search included;
+   each, the host's partition and grid search included; then the rest
+   of the JAX package's surface (`phase_rest`), three paths of their
+   own at SPT-2's full width: Delaunay serving (a host-path raw room
+   through `preprocess_cloud(graph_builder='delaunay')`, whose degree is
+   not capped, so K2 takes its widest K yet, K=160 at level 1; served
+   through `infer_batch`, 7 K2 launches, K2 held on its widest launch,
+   the logits held to the plain attention in f32 and bf16 and run twice
+   bit-equal), held-out (`split_nag_spatially` of host-path room 0, then
+   `run_heldout` for 3 steps of 4 crops: 7 K1 launches a step, 7 K2 for
+   the evaluation; finite losses, mIoU in [0, 100], OA at most the
+   partition oracle's) and the SuperCluster demo
+   (`run_supercluster_demo` on panoptic room 0 for 2 steps of 2 crops,
+   pseudo-instances, the grid search and the cross-oracle PQs: 7 K1 a
+   step, 7 K2 for each of its 2 evaluations; pseudo-instances found, PQ,
+   SQ and RQ in [0, 100]), K1 and K2 held on their widest launches of
+   the last two, each part timed;
 9. fit and evaluate (`experiment=semantic/s3dis`'s datamodule, SPT-2,
    bf16): 5 synthetic rooms of 250k raw points written in the S3DIS
    `Annotations/*.txt` layout (training areas Area_1 and Area_2 with 2
@@ -425,6 +440,13 @@ VARIANTS = {
 # EZ-SP semantic: the sparse CNN of the stage-1 partition model's widths
 # ahead of the point MLP (into it, or beside it)
 POINT_CNN = (32, 32, 32)
+# the rest of the JAX package's surface (`phase_rest`): the held-out run's
+# steps and crops, the SuperCluster demo's; and the least count of
+# pseudo-instances on a panoptic room
+HELDOUT_STEPS = 3
+HELDOUT_CROPS = 4
+DEMO_STEPS = 2
+DEMO_CROPS = 2
 
 
 def kernel_cost(name, **shape):
@@ -4244,6 +4266,198 @@ def phase_variants(dev, card, nags):
              'K2': ezsp['K2']}, timing)
 
 
+def phase_rest(dev, card, room, pan_room):
+    """The last of the JAX package's surface, at SPT-2's full width, three
+    paths of their own: (a) Delaunay serving, one raw room of the host
+    path through `preprocess_cloud(graph_builder='delaunay')` (its degree
+    not capped, so K2's K is the widest yet), served through
+    `infer_batch` (K2, 7 launches), K2 held on its widest launch, the
+    logits held to the plain attention in f32 and bf16 and run twice
+    bit-equal; (b) held-out, `split_nag_spatially` of the host path's
+    `room` and `run_heldout` for HELDOUT_STEPS steps of HELDOUT_CROPS
+    crops (K1 on the steps, K2 on the evaluation), finite losses, mIoU in
+    [0, 100], OA at most the partition oracle's; (c) the SuperCluster
+    demo, `run_supercluster_demo` on the panoptic phase's `pan_room` for
+    DEMO_STEPS steps of DEMO_CROPS crops with the grid search and the
+    cross-oracle PQ (K1 on the steps, K2 on the two evaluations),
+    pseudo-instances found, PQ, SQ and RQ in [0, 100]. On (b) and (c) K1
+    and K2 are held on their widest launches. Returns the launches by
+    path."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (
+        FLAGSHIP_CFG, PANOPTIC_CFG, build_model, build_task)
+    from superpoint_transformer_torch.inference import (
+        EVAL_BATCH_OVERRIDES, infer_batch)
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.transforms.prepare import (
+        BatchConfig, prepare_batch)
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.heldout import (
+        run_heldout, split_nag_spatially)
+    from superpoint_transformer_torch.utils.supercluster_demo import (
+        run_supercluster_demo)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+
+    def widest(args):
+        return args[1].shape[0] * args[1].shape[1]   # N * K of k gathered
+
+    # (a) Delaunay serving
+    settle()
+    t_part = time.perf_counter()
+    raw = synthetic_room_cloud(seed=SEED, n_points=HOST_ROOM_POINTS)
+    t0 = time.perf_counter()
+    nag = preprocess_cloud(raw, graph_builder='delaunay')
+    pre_s = time.perf_counter() - t0
+    degrees = []
+    for i in nag.levels[1:]:
+        deg = np.bincount(nag[i].edge_index.ravel(),
+                          minlength=nag[i].num_nodes)
+        check(nag[i].num_nodes > 0 and nag[i].edge_index.shape[1] > 0,
+              f'delaunay: level {i} is empty or has no graph')
+        degrees.append((nag[i].num_nodes, nag[i].edge_index.shape[1],
+                        int(deg.max())))
+    print(f'delaunay: {raw.num_nodes} raw points preprocessed in '
+          f'{pre_s:.2f} s on the host; (nodes, edges, max degree) per level '
+          f'{degrees}')
+
+    def flagship(cd='auto', plain_attention=False):
+        m = SemanticSegmentationModel(build_model(
+            FLAGSHIP_CFG, num_graphs=NUM_GRAPHS, compute_dtype=cd,
+            plain_attention=plain_attention, device=dev), 13, device=dev)
+        init_weights(m, torch.Generator().manual_seed(SEED))
+        return m.eval()
+
+    model = flagship()
+    compute_dtype = model.net.compute_dtype
+    cfg = dataclasses.replace(BatchConfig(), **EVAL_BATCH_OVERRIDES)
+    host = prepare_batch([nag], cfg, train=False)
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_rpe', widest) as k2_args:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = from_numpy(host, dev, compute_dtype)
+        pred = infer_batch(model, batch)
+        serve_s = time.perf_counter() - t0
+    launches = counts()
+    n, caps, _ = level_counts(batch)
+    ks = [batch[i].nbr_idx.shape[1] for i in (1, 2, 3)]
+    print(f'delaunay serving: nodes {n}, capacities {caps}, K per level '
+          f'{ks}; from_numpy + infer_batch {serve_s * 1e3:.1f} ms; '
+          f'launches {launches}, plain attention calls {plain["plain"]}')
+    check(launches['K2'] == K2_LAUNCHES_PER_FORWARD and launches['K1'] == 0
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          'delaunay serving: not 7 K2 launches, or another kernel or the '
+          'plain attention ran')
+    delaunay = {'K2': launches['K2']}
+    check(ks[0] == max(16, -(-degrees[0][2] // 16) * 16),
+          f'delaunay: level-1 K {ks[0]} is not the max degree '
+          f'{degrees[0][2]} rounded up to 16 slots')
+    hold_on_path('K2', k2_args, path='delaunay serving')
+    del k2_args
+    for cd in (None, compute_dtype):
+        kern = model if cd == compute_dtype else flagship(cd)
+        b = batch if cd == compute_dtype else from_numpy(host, dev, cd)
+        logits = hold_logits('delaunay ', kern,
+                             flagship(cd, plain_attention=True), b, cd)
+        if cd == compute_dtype:
+            n1 = n[1]
+            agree = (pred[batch.level1_node_id[:n1]]
+                     == logits[0][:n1].argmax(1).cpu().numpy()).mean()
+            check(agree == 1.0, f'delaunay predictions vs level-1 argmax in '
+                  f'NAG order: {agree}')
+
+    def forward():
+        with torch.inference_mode():
+            model(batch)
+
+    print(f'delaunay forward on {card}: {cuda_ms(forward, 5):.3f} ms (CUDA '
+          f'events, 5 forwards after 3 warm-up); part (a) in '
+          f'{time.perf_counter() - t_part:.1f} s')
+    del model, batch, logits, b, kern
+    settle()
+
+    # (b) held-out training and evaluation
+    t_part = time.perf_counter()
+    lo, hi = split_nag_spatially(room)
+    check(lo[1].num_nodes > 0 and hi[1].num_nodes > 0,
+          'split_nag_spatially: an empty half')
+    task = build_task(FLAGSHIP_CFG, num_graphs=HELDOUT_CROPS,
+                      total_steps=HELDOUT_STEPS, device=dev)
+    init_weights(task.model, torch.Generator().manual_seed(SEED))
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_trainable', widest) as k1_args, \
+            widest_call('dense_attention_rpe', widest) as k2_args:
+        res = run_heldout(lo, hi, steps=HELDOUT_STEPS, crops=HELDOUT_CROPS,
+                          seed=SEED, task=task, log=print)
+    launches = counts()
+    print(f'held-out: halves of {lo[1].num_nodes} and {hi[1].num_nodes} '
+          f'level-1 nodes; {res}; launches {launches}, plain attention '
+          f'calls {plain["plain"]}')
+    check(launches['K1'] == HELDOUT_STEPS * K1_LAUNCHES_PER_STEP
+          and launches['K2'] == K2_LAUNCHES_PER_FORWARD
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          'held-out: not 7 K1 launches a step and 7 K2 launches for the '
+          'evaluation, or another kernel or the plain attention ran')
+    check(all(np.isfinite(res[k]) for k in ('loss_first', 'loss_last')),
+          f'held-out losses {res["loss_first"]}, {res["loss_last"]}')
+    check(0 <= res['miou'] <= 100, f'held-out mIoU {res["miou"]}')
+    check(res['oa'] <= res['oracle_oa'] + 1e-9,
+          f'held-out OA {res["oa"]} above the oracle {res["oracle_oa"]}')
+    heldout = {'K1': launches['K1'], 'K2': launches['K2']}
+    hold_on_path('K1', k1_args, path='held-out training')
+    hold_on_path('K2', k2_args, path='held-out evaluation')
+    del k1_args, k2_args, task
+    print(f'held-out part (b) in {time.perf_counter() - t_part:.1f} s')
+    settle()
+
+    # (c) the SuperCluster demo
+    t_part = time.perf_counter()
+    ptask = build_task(PANOPTIC_CFG, num_graphs=DEMO_CROPS,
+                       total_steps=DEMO_STEPS, device=dev)
+    init_weights(ptask.model, torch.Generator().manual_seed(SEED))
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_trainable', widest) as k1_args, \
+            widest_call('dense_attention_rpe', widest) as k2_args:
+        res = run_supercluster_demo(pan_room, steps=DEMO_STEPS,
+                                    crops=DEMO_CROPS, seed=SEED, task=ptask,
+                                    log=print)
+    launches = counts()
+    print(f'supercluster demo: {res}; launches {launches}, plain attention '
+          f'calls {plain["plain"]}')
+    check(launches['K1'] == DEMO_STEPS * K1_LAUNCHES_PER_STEP
+          and launches['K2'] == 2 * K2_LAUNCHES_PER_FORWARD
+          and launches['K3'] == 0 and plain['plain'] == 0,
+          'supercluster demo: not 7 K1 launches a step and 7 K2 launches '
+          'for each of its 2 evaluations, or another kernel or the plain '
+          'attention ran')
+    check(res['n_pseudo_instances'] > 0, 'supercluster demo: no '
+          'pseudo-instance')
+    check(all(np.isfinite(res[k]) for k in ('loss_first', 'loss_last')),
+          f'supercluster demo losses {res["loss_first"]}, '
+          f'{res["loss_last"]}')
+    for k in ('pq', 'sq', 'rq'):
+        check(0 <= res[k] <= 100, f'supercluster demo {k} {res[k]}')
+    demo = {'K1': launches['K1'], 'K2': launches['K2']}
+    hold_on_path('K1', k1_args, path='supercluster demo training')
+    hold_on_path('K2', k2_args, path='supercluster demo evaluation')
+    del k1_args, k2_args, ptask
+    print(f'supercluster demo part (c) in {time.perf_counter() - t_part:.1f}'
+          ' s')
+    settle()
+    return {'delaunay-serving': delaunay, 'heldout': heldout,
+            'supercluster-demo': demo}
+
+
 def main():
     t_start = time.perf_counter()
     check(os.path.isdir(os.path.join(HERE, 'superpoint_transformer_torch')),
@@ -4288,8 +4502,14 @@ def main():
     whole_cloud = {'K2': phase_whole_cloud(dev, card, host_nags)}
     parallel = phase_parallel(dev, card, host_nags)
     variants, variants_timing = phase_variants(dev, card, host_nags)
+    rest_room = host_nags[0]
     del host_nags
     panoptic, pan_nags = phase_panoptic(dev, card)
+    t0 = time.perf_counter()
+    rest = phase_rest(dev, card, rest_room, pan_nags[0])
+    print(f'rest phase (Delaunay serving, held-out, SuperCluster demo) in '
+          f'{time.perf_counter() - t0:.1f} s')
+    del rest_room
     # the fit phase's rooms serve the EZ-SP and nano phases too
     rooms = tempfile.TemporaryDirectory()
     try:
@@ -4302,12 +4522,14 @@ def main():
         rooms.cleanup()
     paths = {'serving/training/fused-RPE': launches, 'host': host_path,
              'whole-cloud': whole_cloud, **parallel, 'variants': variants,
-             'panoptic': panoptic,
+             'panoptic': panoptic, **rest,
              'fit-and-evaluate': fit, 'tune': tune, 'ezsp': ezsp,
              'nano': nano, **datasets}
     print(f'launches by path: serving/training/fused-RPE {launches}, '
           f'host path {host_path}, whole-cloud serving {whole_cloud}')
     print(f'launches on the panoptic path: {panoptic}')
+    print(f'launches on the Delaunay-serving, held-out and SuperCluster-demo '
+          f'paths: {rest}')
     print(f'launches on the data-parallel and graph-sharded paths (both '
           f'ranks): {parallel}')
     print(f'launches on the fit-and-evaluate path: {fit}')

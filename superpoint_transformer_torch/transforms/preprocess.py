@@ -12,8 +12,10 @@ EZ-SP's stage 2 swaps cut pursuit for the greedy contour-prior partition
 (`partition_mode='contour_prior'`), over the embeddings of the frozen
 stage-1 sparse CNN where a checkpoint is given (`pretrained_cnn_features`,
 on a torch device). `knn_backend='device'` runs the KNN as torch ops on a
-device (`ops/device_preprocess.py`). The Delaunay graph raises
-NotImplementedError.
+device (`ops/device_preprocess.py`). `graph_builder='delaunay'` swaps the
+radius graph for the legacy Delaunay one; `ground_elevation` fits a
+RANSAC plane, a KNN height or a small MLP; `grid_partition` is a regular
+grid hierarchy in place of the partition.
 """
 import os.path as osp
 
@@ -38,7 +40,8 @@ __all__ = [
     'radius_horizontal_graph', 'preprocess_cloud',
     'sample_xy_tiling', 'sample_recursive_main_xy_axis_tiling',
     'quantize_coordinates', 'greedy_contour_prior_partition',
-    'pretrained_cnn_features',
+    'pretrained_cnn_features', 'delaunay_horizontal_graph',
+    'grid_partition', 'd0_partition_energy',
 ]
 
 _VOTING_KEYS = ('y', 'super_index', 'is_val')
@@ -240,16 +243,18 @@ def point_features(data, keys=('linearity', 'planarity', 'scattering',
 
 def ground_elevation(data, z_threshold=1.5, xy_grid=1.0, scale=4.0,
                      iterations=200, margin=0.1, rng=None,
-                     model='ransac'):
+                     model='ransac', knn_k=10):
     """Estimate the ground and store per-point scaled elevation
     (reference GroundElevation, src/transforms/point.py:185 +
-    src/utils/ground.py RANSAC :100). Candidate
-    ground points: lowest-z per xy cell, below z_threshold above the
-    global minimum. `model='ransac'` fits one plane; the JAX package's
-    'knn' and 'mlp' ground models are not ported."""
-    if model != 'ransac':
-        raise NotImplementedError(
-            f'ground_elevation: model={model!r} is not ported (ransac only)')
+    src/utils/ground.py RANSAC :100 / knn :154 / mlp :219 models).
+    Candidate ground points: lowest-z per xy cell, below z_threshold
+    above the global minimum. `model='ransac'` fits one plane;
+    `model='knn'` takes the mean height of the `knn_k` nearest ground
+    candidates in XY, for non-planar terrain (DALES-style tiles);
+    `model='mlp'` fits a piecewise-planar surface z = f(x, y) with a
+    small MLP (`_mlp_ground_fit`)."""
+    if model not in ('ransac', 'knn', 'mlp'):
+        raise ValueError(f'ground_elevation: unknown model {model!r}')
     rng = rng or np.random.default_rng(0)
     pos = data.pos
     z0 = pos[:, 2].min()
@@ -265,6 +270,24 @@ def ground_elevation(data, z_threshold=1.5, xy_grid=1.0, scale=4.0,
         cand = cand[order[first]]
     if cand.shape[0] < 3:
         data['elevation'] = np.zeros((pos.shape[0], 1), dtype=np.float32)
+        return data
+    if model == 'knn':
+        # local ground height: mean z of the k nearest candidates in XY
+        cand_xy = np.concatenate(
+            [cand[:, :2], np.zeros((cand.shape[0], 1), np.float32)], 1)
+        query_xy = np.concatenate(
+            [pos[:, :2], np.zeros((pos.shape[0], 1), np.float32)], 1)
+        nbr, _ = radius_knn(cand_xy.astype(np.float32),
+                            query_xy.astype(np.float32), r=np.inf,
+                            k=min(knn_k, cand.shape[0]), exclude_self=False)
+        valid = nbr >= 0
+        z_nb = np.where(valid, cand[np.maximum(nbr, 0), 2], 0.0)
+        ground_z = z_nb.sum(1) / np.maximum(valid.sum(1), 1)
+    elif model == 'mlp':
+        ground_z = _mlp_ground_fit(cand, pos, rng=rng)
+    if model != 'ransac':
+        data['elevation'] = ((pos[:, 2] - ground_z) / scale).reshape(
+            -1, 1).astype(np.float32)
         return data
     best_inliers, best_plane = -1, None
     n = cand.shape[0]
@@ -292,6 +315,57 @@ def ground_elevation(data, z_threshold=1.5, xy_grid=1.0, scale=4.0,
     elev = (pos @ nrm + d) * sign / scale
     data['elevation'] = elev.reshape(-1, 1).astype(np.float32)
     return data
+
+
+def _mlp_ground_fit(cand, pos, layers=(32, 16, 8), steps=500, lr=0.01,
+                    weight_decay=0.01, rng=None):
+    """Fit z = f(x, y) on the ground candidates with a small tanh MLP
+    trained by full-batch Adam on an L2 loss, in float64 numpy on the
+    host (reference mlp_model, src/utils/ground.py:219: the same
+    normalization by mean and std), and predict the ground height under
+    every point. Returns the ground z per point in original units."""
+    rng = rng or np.random.default_rng(0)
+    mean = cand.mean(0)
+    std = cand.std(0) + 1e-6
+    xy = ((cand[:, :2] - mean[:2]) / std[:2]).astype(np.float64)
+    z = ((cand[:, 2] - mean[2]) / std[2]).astype(np.float64)
+
+    dims = [2] + list(layers) + [1]
+    params = [[rng.normal(0, np.sqrt(2.0 / dims[i]), (dims[i], dims[i + 1])),
+               np.zeros(dims[i + 1])] for i in range(len(dims) - 1)]
+
+    def forward(x):
+        acts = [x]
+        for i, (w, b) in enumerate(params):
+            x = x @ w + b
+            if i < len(params) - 1:
+                x = np.tanh(x)
+            acts.append(x)
+        return x[:, 0], acts
+
+    ms = [[np.zeros_like(w), np.zeros_like(b)] for w, b in params]
+    vs = [[np.zeros_like(w), np.zeros_like(b)] for w, b in params]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    for t in range(1, steps + 1):
+        pred, acts = forward(xy)
+        g = (pred - z)[:, None] * (2.0 / xy.shape[0])
+        grads = []
+        for i in range(len(params) - 1, -1, -1):
+            w, _ = params[i]
+            grads.append((acts[i].T @ g + weight_decay * w, g.sum(0)))
+            if i > 0:
+                g = (g @ w.T) * (1.0 - acts[i] ** 2)
+        for i, gs in enumerate(grads[::-1]):
+            for j, gj in enumerate(gs):
+                ms[i][j] = b1 * ms[i][j] + (1 - b1) * gj
+                vs[i][j] = b2 * vs[i][j] + (1 - b2) * gj ** 2
+                mh = ms[i][j] / (1 - b1 ** t)
+                vh = vs[i][j] / (1 - b2 ** t)
+                params[i][j] -= lr * mh / (np.sqrt(vh) + eps)
+
+    q = ((pos[:, :2] - mean[:2]) / std[:2]).astype(np.float64)
+    pred, _ = forward(q)
+    return (pred * std[2] + mean[2]).astype(np.float32)
 
 
 def adjacency_graph(data, k=10, w=1.0):
@@ -469,6 +543,27 @@ def cut_pursuit_partition(
     return NAG(levels, start_i_level=0)
 
 
+def d0_partition_energy(features, edge_index, edge_weight, node_weight,
+                        super_index, reg):
+    """L0/d0 partition energy (the objective cp_d0_dist minimizes,
+    reference src/transforms/partition.py:199-227):
+    sum_v w_v * ||f_v - mu_{comp(v)}||^2 + reg * sum of cut-edge weights,
+    in float64. Returns (total, fidelity, reg * cut)."""
+    f = np.asarray(features, dtype=np.float64)
+    nw = np.asarray(node_weight, dtype=np.float64).reshape(-1)
+    sup = np.asarray(super_index)
+    n_comp = int(sup.max()) + 1
+    S = np.zeros(n_comp)
+    np.add.at(S, sup, nw)
+    mu = np.zeros((n_comp, f.shape[1]))
+    np.add.at(mu, sup, f * nw[:, None])
+    mu /= np.maximum(S, 1e-12)[:, None]
+    fidelity = float((nw[:, None] * (f - mu[sup]) ** 2).sum())
+    cross = sup[edge_index[0]] != sup[edge_index[1]]
+    cut = float(np.asarray(edge_weight).reshape(-1)[cross].sum())
+    return fidelity + reg * cut, fidelity, reg * cut
+
+
 def segment_features(nag, n_max=32, n_min=5,
                      keys=('normal', 'log_length', 'log_surface',
                            'log_volume', 'log_size'),
@@ -632,6 +727,129 @@ def radius_horizontal_graph(
     return nag
 
 
+def _empty_graph(d):
+    d['edge_index'] = np.zeros((2, 0), dtype=np.int64)
+    d['edge_attr'] = np.zeros((0, 7), dtype=np.float32)
+
+
+def delaunay_horizontal_graph(nag, n_max_edge=64, n_min=5,
+                              max_dist=-1, rng=None):
+    """Legacy horizontal graph from the dual of a Delaunay triangulation
+    of per-segment point samples (reference DelaunayHorizontalGraph,
+    src/transforms/graph.py:324 + _horizontal_graph_by_delaunay :399).
+    Slower, visibility-based alternative to `radius_horizontal_graph`.
+
+    Per level >= 1: sample level-0 points near segment boundaries (points
+    touching inter-segment level-0 adjacency edges; whole segments when
+    isolated), jitter them by N(0, 1e-9), triangulate them (Qhull,
+    'QJ'), keep the simplex edges that span two segments, trim to i<j,
+    and compute the 7-dim minimalistic features
+    [mean_off | std_off | mean_dist] (the mean distance itself, where the
+    radius graph stores its square root). `rng` is drawn from in that
+    order: the sampling, then the jitter. `max_dist > 0` drops long
+    edges but keeps the shortest edge of each node the filter would
+    isolate (reference graph.py:356-361). The degree is not capped."""
+    from scipy.spatial import Delaunay, QhullError
+
+    rng = rng or np.random.default_rng(0)
+    mds = list(np.atleast_1d(max_dist).astype(np.float64))
+    while len(mds) < nag.absolute_num_levels - 1:
+        mds.append(mds[-1])
+    pos0 = nag[0].pos
+    n0 = pos0.shape[0]
+    for i_level in range(1, nag.absolute_num_levels):
+        d = nag[i_level]
+        num_seg = d.num_nodes
+        if num_seg < 2:
+            _empty_graph(d)
+            continue
+        sup = nag.get_super_index(i_level, low=0)
+        # guided sampling: points on inter-segment level-0 edges;
+        # isolated segments contribute all their points
+        mask = np.ones(n0, dtype=bool)
+        ei0 = nag[0].get('edge_index')
+        if ei0 is not None and ei0.shape[1] > 0:
+            s0, t0 = sup[ei0[0]], sup[ei0[1]]
+            inter = s0 != t0
+            mask = np.zeros(n0, dtype=bool)
+            mask[np.unique(ei0[:, inter])] = True
+            seg_has = np.zeros(num_seg, dtype=bool)
+            seg_has[s0[inter]] = True
+            seg_has[t0[inter]] = True
+            mask |= ~seg_has[sup]
+        cand = np.flatnonzero(mask)
+        local, _ = _sample_per_segment(
+            sup[cand], num_seg, n_max_edge, n_min, rng)
+        samples = cand[local]
+        pts = pos0[samples].astype(np.float64)
+        pts = pts + rng.normal(0, 1e-9, pts.shape)
+        try:
+            tri = Delaunay(pts, qhull_options='QJ')
+        except (QhullError, ValueError):
+            _empty_graph(d)
+            continue
+        simp = tri.simplices
+        pairs = [(a, b) for a in range(simp.shape[1])
+                 for b in range(a + 1, simp.shape[1])]
+        src_pt = np.concatenate([simp[:, a] for a, b in pairs])
+        dst_pt = np.concatenate([simp[:, b] for a, b in pairs])
+        ss, tt = sup[samples[src_pt]], sup[samples[dst_pt]]
+        cross = ss != tt
+        src_pt, dst_pt = src_pt[cross], dst_pt[cross]
+        ss, tt = ss[cross], tt[cross]
+        if ss.shape[0] == 0:
+            _empty_graph(d)
+            continue
+        off = (pos0[samples[dst_pt]]
+               - pos0[samples[src_pt]]).astype(np.float64)
+        dd = np.linalg.norm(off, axis=1)
+        flip = ss > tt
+        s2, t2 = ss.copy(), tt.copy()
+        s2[flip], t2[flip] = tt[flip], ss[flip]
+        off[flip] = -off[flip]
+        pair_key = s2.astype(np.int64) * num_seg + t2
+        uniq, inv = np.unique(pair_key, return_inverse=True)
+        n_pairs = uniq.shape[0]
+        cnt = np.bincount(inv, minlength=n_pairs).astype(np.float64)
+        mean_off = np.stack(
+            [np.bincount(inv, weights=off[:, c], minlength=n_pairs)
+             for c in range(3)], 1)
+        mean_off /= cnt[:, None]
+        dev = (off - mean_off[inv]) ** 2
+        var = np.stack(
+            [np.bincount(inv, weights=dev[:, c], minlength=n_pairs)
+             for c in range(3)], 1)
+        std_off = np.sqrt(var / np.maximum(cnt - 1, 1)[:, None])
+        mean_dist = np.bincount(inv, weights=dd, minlength=n_pairs)
+        mean_dist /= cnt
+        se = np.stack([uniq // num_seg, uniq % num_seg])
+        md = mds[i_level - 1]
+        if md > 0:
+            keep = mean_dist <= md
+            # keep the shortest edge of any node the filter would isolate
+            for side in (0, 1):
+                ids = se[side]
+                kept_deg = np.bincount(ids[keep], minlength=num_seg)
+                lost = np.isin(ids, np.flatnonzero(
+                    (np.bincount(ids, minlength=num_seg) > 0)
+                    & (kept_deg == 0)))
+                if lost.any():
+                    order = np.lexsort((mean_dist, ids))
+                    first = np.ones(order.shape[0], dtype=bool)
+                    first[1:] = ids[order][1:] != ids[order][:-1]
+                    shortest = np.zeros(ids.shape[0], dtype=bool)
+                    shortest[order[first]] = True
+                    keep |= lost & shortest
+            se = se[:, keep]
+            mean_off, std_off = mean_off[keep], std_off[keep]
+            mean_dist = mean_dist[keep]
+        d['edge_index'] = se.astype(np.int64)
+        d['edge_attr'] = np.concatenate(
+            [mean_off, std_off, mean_dist.reshape(-1, 1)],
+            1).astype(np.float32)
+    return nag
+
+
 def preprocess_cloud(
         data, voxel=0.03, knn=45, knn_r=2.0, knn_step=-1,
         knn_min_search=25, knn_backend='host', num_classes=13,
@@ -650,10 +868,13 @@ def preprocess_cloud(
         contour_prior_min_size=(5, 30, 90),
         contour_prior_edge_weight_mode='exp_neg_latent_distance',
         contour_prior_k_isolated=5, with_instances=False,
-        graph_builder='radius', device='cuda', verbose=False):
+        graph_builder='radius', graph_delaunay_max_dist=-1,
+        device='cuda', verbose=False):
     """Full raw-cloud -> NAG preprocessing (the reference `pre_transform`
     chain) with the JAX `preprocess_cloud`'s defaults: cut-pursuit
-    partition, radius horizontal graph, host KNN. `verbose=True` prints
+    partition, radius horizontal graph, host KNN.
+    `graph_builder='delaunay'` builds the legacy Delaunay graph instead
+    (`delaunay_horizontal_graph`, with `graph_delaunay_max_dist`). `verbose=True` prints
     per-stage wall times. Per-point instance ids in `data['obj']` become
     the `obj` InstanceData of every level; `with_instances` is accepted
     as the JAX function accepts it and changes nothing.
@@ -664,14 +885,9 @@ def preprocess_cloud(
     on the embeddings of its frozen sparse CNN. The CNN and
     `knn_backend='device'`'s KNN run on `device`, the card unless the
     caller asks for the CPU: the one argument the JAX function lacks, and
-    no part of a cache's hash. The Delaunay graph raises
-    NotImplementedError."""
+    no part of a cache's hash."""
     if partition_mode not in ('cut_pursuit', 'contour_prior'):
         raise ValueError(f'unknown partition_mode {partition_mode!r}')
-    if graph_builder != 'radius':
-        raise NotImplementedError(
-            f'preprocess_cloud: graph_builder={graph_builder!r} is not '
-            'ported')
     t = Timings()
     rng = rng or np.random.default_rng(0)
     with t.track('save_node_index'):
@@ -720,10 +936,15 @@ def preprocess_cloud(
     with t.track('segment_features'):
         nag = segment_features(nag, mean_keys=segment_mean_hf,
                                std_keys=segment_std_hf, rng=rng)
-    with t.track('radius_horizontal_graph'):
-        nag = radius_horizontal_graph(
-            nag, k_min=graph_k_min, k_max=graph_k_max,
-            gap=graph_gap, rng=rng)
+    if graph_builder == 'delaunay':
+        with t.track('delaunay_horizontal_graph'):
+            nag = delaunay_horizontal_graph(
+                nag, max_dist=graph_delaunay_max_dist, rng=rng)
+    else:
+        with t.track('radius_horizontal_graph'):
+            nag = radius_horizontal_graph(
+                nag, k_min=graph_k_min, k_max=graph_k_max,
+                gap=graph_gap, rng=rng)
     # drop working keys not saved by the reference either
     for k in ('neighbor_index', 'neighbor_distance', 'edge_index',
               'edge_attr', 'node_size', 'grid_size', 'coords'):
@@ -926,3 +1147,65 @@ def sample_recursive_main_xy_axis_tiling(data, steps=1, tile=0):
         keep = proj >= med if half else proj < med
         out, _ = out.select(np.where(keep)[0])
     return out
+
+
+def grid_partition(data, sizes=(2.0, 10.0), mode='xy'):
+    """Hierarchical partition by regular grids of growing size
+    (reference GridPartition, src/transforms/partition.py:316: xy or xyz
+    cells instead of cut pursuit, for quick baselines and very large
+    aerial tiles). Cells that hold level-0 KNN edges between them are
+    joined by a level edge weighted by their count. Returns a NAG."""
+    d1 = data
+    if d1.get('node_size') is None:
+        d1['node_size'] = np.ones(d1.num_nodes, dtype=np.int64)
+    levels = [d1]
+    dims = 2 if mode == 'xy' else 3
+    for size in np.atleast_1d(sizes).astype(float):
+        d1 = levels[-1]
+        pos = np.asarray(d1.pos)
+        cells = np.floor(pos[:, :dims] / size).astype(np.int64)
+        cells -= cells.min(0)
+        span = cells.max(0) + 1
+        key = cells[:, 0]
+        for j in range(1, dims):
+            key = key * span[j] + cells[:, j]
+        _, super_index = np.unique(key, return_inverse=True)
+        n_comp = int(super_index.max()) + 1 if super_index.size else 0
+        d1['super_index'] = super_index
+
+        size_arr = np.asarray(d1.node_size, np.float64)
+        s_m = np.zeros(n_comp)
+        np.add.at(s_m, super_index, size_arr)
+        pos_m = np.zeros((n_comp, 3))
+        np.add.at(pos_m, super_index, pos * size_arr[:, None])
+        pos_m /= np.maximum(s_m[:, None], 1e-12)
+
+        d2 = Data(pos=pos_m.astype(np.float32),
+                  node_size=s_m.astype(np.int64),
+                  sub=Cluster(super_index, np.arange(d1.num_nodes),
+                              dense=True))
+        x = d1.get('x')
+        if x is not None:
+            x_m = np.zeros((n_comp, x.shape[1]))
+            np.add.at(x_m, super_index,
+                      np.asarray(x, np.float64) * size_arr[:, None])
+            d2['x'] = (x_m / np.maximum(s_m[:, None], 1e-12)).astype(
+                np.float32)
+        y = d1.get('y')
+        if y is not None and y.ndim == 2:
+            acc = np.zeros((n_comp, y.shape[1]), dtype=np.int64)
+            np.add.at(acc, super_index, y)
+            d2['y'] = acc
+        ei = d1.get('edge_index')
+        if ei is not None and ei.size:
+            cs, ct = super_index[ei[0]], super_index[ei[1]]
+            cross = cs != ct
+            if cross.any():
+                red, w = to_trimmed_np(
+                    np.stack([cs[cross], ct[cross]]),
+                    np.ones((int(cross.sum()), 1), np.float32),
+                    reduce='sum')
+                d2['edge_index'] = red
+                d2['edge_attr'] = w.reshape(-1)
+        levels.append(d2)
+    return NAG(levels, start_i_level=0)

@@ -489,3 +489,48 @@ def test_variants_phase_rehearsal_on_the_cpu(monkeypatch):
     assert launches == {'K1': 7 * 2 * (3 + 2 + 2), 'K2': 7 * 2 * 2}
     assert held == [('K1', 4, 'variant A'), ('K1', 3, 'variant B')]
     assert set(timing) == {'ms', 'plain_ms', 'bound_ms', 'bound_by', 'shape'}
+
+
+def test_rest_phase_rehearsal_on_the_cpu(monkeypatch):
+    """`phase_rest` end to end on the CPU at rooms of 6,000 raw points:
+    Delaunay serving (7 K2, held on its widest launch, the logits held to
+    the plain attention in f32 and bf16), `run_heldout` (7 K1 a step, 7
+    K2) and `run_supercluster_demo` (7 K1 a step, 7 K2 for each of its 2
+    evaluations), each with K1 and K2 held on their widest launches. The
+    timings stubbed."""
+    import torch
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        room_instances, synthetic_room_cloud)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    _rehearse_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, 'HOST_ROOM_POINTS', 6_000)
+    monkeypatch.setattr(chip_smoke, 'cuda_ms', lambda fn, iters, warmup=3:
+                        (fn(), 1.0)[1])
+    held, hold = [], chip_smoke.hold_on_path
+
+    def holding(name, args, path):
+        held.append((name, path))
+        hold(name, args, path)
+
+    monkeypatch.setattr(chip_smoke, 'hold_on_path', holding)
+    room = preprocess_cloud(synthetic_room_cloud(seed=0, n_points=6_000))
+    raw = synthetic_room_cloud(seed=1, n_points=6_000)
+    raw['obj'] = room_instances(raw)
+    pan_room = preprocess_cloud(raw, with_instances=True)
+    try:
+        paths = chip_smoke.phase_rest(torch.device('cpu'), 'cpu', room,
+                                      pan_room)
+    finally:
+        torch.set_num_threads(threads)
+    assert paths == {
+        'delaunay-serving': {'K2': 7},
+        'heldout': {'K1': 7 * chip_smoke.HELDOUT_STEPS, 'K2': 7},
+        'supercluster-demo': {'K1': 7 * chip_smoke.DEMO_STEPS, 'K2': 14}}
+    assert held == [('K2', 'delaunay serving'),
+                    ('K1', 'held-out training'),
+                    ('K2', 'held-out evaluation'),
+                    ('K1', 'supercluster demo training'),
+                    ('K2', 'supercluster demo evaluation')]

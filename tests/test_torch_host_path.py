@@ -224,9 +224,15 @@ def test_geometric_features_match_jax(rooms, k_step):
 @pytest.mark.parametrize('kw', [dict(graph_builder='delaunay')],
                          ids=['delaunay'])
 def test_preprocess_cloud_unported_branches_raise(kw):
+    """The branches that raised before the port had them (the Delaunay
+    graph) now run and give JAX's NAG; an unknown partition mode still
+    raises."""
     raw = tsyn.synthetic_room_cloud(seed=0, n_points=2_000)
-    with pytest.raises(NotImplementedError):
-        tpre.preprocess_cloud(raw, **kw)
+    ref = jpre.preprocess_cloud(
+        jsyn.synthetic_room_cloud(seed=0, n_points=2_000), **kw)
+    assert_nags_equal(tpre.preprocess_cloud(raw.clone(), **kw), ref, 0)
+    with pytest.raises(ValueError, match='partition_mode'):
+        tpre.preprocess_cloud(raw, partition_mode='grid', **kw)
 
 
 def test_nag_files_read_across_packages(rooms, tmp_path):

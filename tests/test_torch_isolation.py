@@ -1,5 +1,5 @@
-"""The port needs none of jax, flax, optax, orbax, h5py, yaml or the JAX
-package: in a fresh interpreter where importing any of them fails, the
+"""The port needs none of jax, flax, optax, orbax, h5py, yaml, matplotlib or
+the JAX package: in a fresh interpreter where importing any of them fails, the
 port still imports every module, builds a model and runs a CPU forward,
 builds the semantic task and takes a CPU training step, preprocesses
 a synthetic room and serves it through `prepare_batch` and `infer_nag`,
@@ -10,7 +10,10 @@ runs EZ-SP's two stages (`fit_partition`, then `preprocess_cloud`
 with the frozen CNN of its checkpoint and the greedy contour-prior
 partition), reads DALES, KITTI-360 and ScanNet raw files, serving a
 preprocessed DALES tile with SPT-3, and serves whole clouds (the device
-KNN on the CPU, the stacked forward, a reference checkpoint imported).
+KNN on the CPU, the stacked forward, a reference checkpoint imported), and
+runs the Delaunay graph, the spatial split, the pseudo-instances, the
+other ground models, the grid partition, the exported losses and
+injections and the HTML viewer.
 No module of the port imports the JAX package, jax, flax,
 optax or orbax, even inside a function.
 Its native library is its own build of `native/*.cpp`, never the prebuilt
@@ -31,7 +34,7 @@ SCRIPT = textwrap.dedent('''
     import sys
 
     BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'h5py', 'yaml',
-               'superpoint_transformer_tpu')
+               'matplotlib', 'superpoint_transformer_tpu')
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -303,6 +306,42 @@ SCRIPT = textwrap.dedent('''
     assert all(0 < lr < 0.1 for lr in lrs)
     print('VARIANTS_OK')
 
+    # the rest of the JAX package's surface: the Delaunay graph through
+    # preprocess_cloud, the knn and mlp ground models, the grid
+    # partition, the spatial split and the pseudo-instances, the
+    # exported losses and injections, and the HTML viewer
+    from superpoint_transformer_torch.loss import lovasz_softmax_loss
+    from superpoint_transformer_torch.nn.position_encoding import (
+        injection_factory)
+    from superpoint_transformer_torch.transforms.preprocess import (
+        grid_partition, ground_elevation)
+    from superpoint_transformer_torch.utils.heldout import (
+        split_nag_spatially)
+    from superpoint_transformer_torch.utils.pseudo_instances import (
+        add_pseudo_instances)
+    from superpoint_transformer_torch.visualization import visualize_3d
+    dnag = preprocess_cloud(synthetic_room_cloud(seed=5, n_points=5_000),
+                            voxel=0.1, knn=25, knn_r=10.0,
+                            knn_min_search=10, graph_builder='delaunay')
+    assert all(dnag[i].edge_index.shape[1] > 0 for i in (1, 2, 3))
+    lo, hi = split_nag_spatially(dnag, gap=0.1)
+    assert lo[1].num_nodes > 0 and hi[1].num_nodes > 0
+    assert infer_nag(model, lo, cfg).shape == (lo[1].num_nodes,)
+    _, info = add_pseudo_instances(dnag.clone())
+    assert info['n_instances'] > 0
+    for ground in ('knn', 'mlp'):
+        raw = synthetic_room_cloud(seed=6, n_points=2_000)
+        assert ground_elevation(raw, model=ground).elevation.std() > 0
+    assert grid_partition(dknn[0].clone(), sizes=(1.0,)).num_levels == 2
+    lg = torch.randn(30, 5, requires_grad=True)
+    lovasz_softmax_loss(lg, torch.randint(0, 5, (30,))).backward()
+    assert lg.grad.abs().sum() > 0
+    pe = injection_factory('mlp')(3, 8, num_graphs=1)
+    assert pe(torch.randn(6, 3), torch.randn(6, 8),
+              batch=torch.zeros(6, dtype=torch.long)).shape == (6, 8)
+    assert '<canvas' in visualize_3d(dnag, max_points=100).html()
+    print('REST_OK')
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
@@ -358,6 +397,16 @@ def test_readers_and_spt3_run_without_jax_flax_h5py_yaml(blocked_run):
     with the same imports blocked."""
     assert blocked_run.returncode == 0, blocked_run.stderr
     assert 'READERS_OK' in blocked_run.stdout
+
+
+def test_rest_runs_without_jax_flax_h5py_yaml_matplotlib(blocked_run):
+    """`preprocess_cloud(graph_builder='delaunay')`, a half of its NAG
+    from `split_nag_spatially` served, the pseudo-instances, the knn and
+    mlp ground models, `grid_partition`, the Lovasz loss's backward, an
+    MLP injection and the HTML viewer, with jax, flax, h5py, yaml,
+    matplotlib and the JAX package blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'REST_OK' in blocked_run.stdout
 
 
 def _imports(path):
