@@ -120,7 +120,19 @@ against its plain PyTorch version:
    pseudo-instances, the grid search and the cross-oracle PQs: 7 K1 a
    step, 7 K2 for each of its 2 evaluations; pseudo-instances found, PQ,
    SQ and RQ in [0, 100]), K1 and K2 held on their widest launches of
-   the last two, each part timed;
+   the last two, each part timed; then the long-tail functions
+   (`phase_long_tail`, a path of its own, on the host path's room 0):
+   `inliers` and `outliers` on level 0, a seeded `is_val` split of level
+   1 by `select_by_key`, `shuffle` and `select_columns`; 2 flagship train
+   steps on 4 `sample_khop_subgraphs` crops of the train half with
+   `dropout_rows` / `dropout_columns` on `x` (7 K1 a step); 3 TTA runs of
+   k-hop crops of the val half with `random_axis_flip` through
+   `eval_step` (7 K2 a run), summed by `tta_accumulate` (seen and unseen
+   val nodes, every one predicted, seen sums exact), held to the plain
+   attention in f32 and bf16, `predict` and the `fused_rpe=False` route
+   (K1's forward) checked; `confusion_matrix_update` on the card equal
+   to the one-hot histogram update; K1 and K2 held on their widest
+   launches there, each part timed;
 9. fit and evaluate (`experiment=semantic/s3dis`'s datamodule, SPT-2,
    bf16): 5 synthetic rooms of 250k raw points written in the S3DIS
    `Annotations/*.txt` layout (training areas Area_1 and Area_2 with 2
@@ -447,6 +459,21 @@ HELDOUT_STEPS = 3
 HELDOUT_CROPS = 4
 DEMO_STEPS = 2
 DEMO_CROPS = 2
+# the long-tail transforms, TTA and confusion update (`phase_long_tail`):
+# level-0 cleanup (inliers within LONG_TAIL_INLIER_R of k_min others,
+# recursively; then outliers without a neighbor in LONG_TAIL_OUTLIER_R);
+# the val share of the level-1 split; 2 train steps, each on
+# LONG_TAIL_CROPS k-hop crops of the train half with feature dropout;
+# LONG_TAIL_TTA_RUNS k-hop crops of the val half served and accumulated
+LONG_TAIL_INLIER_K, LONG_TAIL_INLIER_R = 3, 0.1
+LONG_TAIL_OUTLIER_R = 0.05
+LONG_TAIL_VAL_SHARE = 0.5
+LONG_TAIL_STEPS = 2
+LONG_TAIL_CROPS = 4
+LONG_TAIL_KHOP = dict(k_hop=2, n_seeds=16, i_level=1)
+LONG_TAIL_DROPOUT = 0.1
+LONG_TAIL_TTA_RUNS = 3
+LONG_TAIL_TTA_KHOP = dict(k_hop=2, n_seeds=32, i_level=1)
 
 
 def kernel_cost(name, **shape):
@@ -4458,6 +4485,307 @@ def phase_rest(dev, card, room, pan_room):
             'supercluster-demo': demo}
 
 
+def phase_long_tail(dev, card, room):
+    """The JAX package's long-tail transforms, multi-run TTA, `predict`
+    and the confusion update, at SPT-2's full width, on the host path's
+    `room` (a path of its own): (a) cleanup and split, `inliers`
+    (recursive) and `outliers` on level 0, an `is_val` mask drawn from
+    SEED over level 1 and `select_by_key` into val and train halves,
+    `shuffle` and `select_columns` on the train half; (b) LONG_TAIL_STEPS
+    `SemanticTask.train_step`s, each on LONG_TAIL_CROPS
+    `sample_khop_subgraphs` crops of the train half through
+    `process_batch`, `dropout_rows` / `dropout_columns` on `x`, then
+    `pad_nag` (prepare_batch's two halves around the dropout): K1, 7
+    launches a step, finite losses, the parameters move; (c)
+    LONG_TAIL_TTA_RUNS k-hop crops of the val half with
+    `random_axis_flip`, each served through `eval_step` (K2, 7 launches a
+    run) and summed by `tta_accumulate` with the radius-kNN fill of the
+    nodes no run saw: seen and unseen shares above 0, every val node
+    predicted, the seen sums equal to the runs' own, the same runs on the
+    plain attention within the serving limits (f32 max abs, bf16 argmax
+    agreement), `predict` equal to eval_step's argmax, and the
+    `fused_rpe=False` route (K1's forward on the materialized RPE) within
+    the f32 limit of the K2 route; (d) `confusion_matrix_update` on the
+    card equal to `confusion_matrix_from_histogram` of one-hot labels;
+    (e) K1 and K2 held on their widest launches of (b) and (c). Returns
+    the launches of (b) and (c)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from superpoint_transformer_torch.data.pad import pad_nag
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (
+        FLAGSHIP_CFG, build_model, build_task)
+    from superpoint_transformer_torch.inference import (
+        EVAL_BATCH_OVERRIDES, level1_node_id, to_nag_order)
+    from superpoint_transformer_torch.metrics.semantic import (
+        confusion_matrix_from_histogram, confusion_matrix_update)
+    from superpoint_transformer_torch.models.output import tta_accumulate
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.attention import (
+        set_pallas_attention)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.ops.native import radius_knn
+    from superpoint_transformer_torch.transforms import runtime as T
+    from superpoint_transformer_torch.transforms.prepare import (
+        BatchConfig, prepare_batch, process_batch)
+
+    num_classes = 13
+    parts = {}
+
+    def nodes(nag):
+        return [nag[i].num_nodes for i in nag.levels]
+
+    def widest(args):
+        return args[1].shape[0] * args[1].shape[1]   # N * K of k gathered
+
+    # (a) cleanup and split
+    settle()
+    t_part = time.perf_counter()
+    nag = room.clone()
+    print(f'long-tail: room nodes per level {nodes(nag)}')
+    nag = T.inliers(nag, k_min=LONG_TAIL_INLIER_K, r_max=LONG_TAIL_INLIER_R,
+                    recursive=True)
+    print(f'long-tail: inliers(k_min={LONG_TAIL_INLIER_K}, '
+          f'r_max={LONG_TAIL_INLIER_R}, recursive) -> {nodes(nag)}')
+    nbr, _ = radius_knn(nag[0].pos, r=LONG_TAIL_OUTLIER_R, k=4,
+                        exclude_self=True)
+    nag[0]['neighbor_index'] = nbr
+    nag = T.outliers(nag, k_min=1)
+    nag[0].neighbor_index = None
+    print(f'long-tail: outliers(k_min=1) over a {LONG_TAIL_OUTLIER_R} m '
+          f'neighbor search -> {nodes(nag)}')
+    check(all(n > 0 for n in nodes(nag)), 'long-tail: a level emptied by '
+          'the cleanup')
+    n1 = nag[1].num_nodes
+    nag[1]['is_val'] = np.random.default_rng(SEED).random(n1) \
+        < LONG_TAIL_VAL_SHARE
+    val = T.select_by_key(nag, 'is_val', level=1)
+    train = T.select_by_key(nag, 'is_val', level=1, negation=True)
+    check('is_val' not in val[1].keys() and 'is_val' not in train[1].keys()
+          and val[1].num_nodes + train[1].num_nodes == n1,
+          'select_by_key: the halves do not split level 1, or kept the key')
+    print(f'long-tail: select_by_key(is_val) -> val {nodes(val)}, train '
+          f'{nodes(train)}')
+    before = train[0].pos.copy()
+    train = T.shuffle(train, np.random.default_rng(SEED), level=0)
+    check(train[0].num_nodes == before.shape[0] and not np.array_equal(
+        train[0].pos, before), 'shuffle: level 0 not permuted')
+    y0 = [train[i].y.copy() for i in train.levels]
+    train = T.select_columns(train, 'y', np.arange(num_classes + 1))
+    check(all(np.array_equal(train[i].y, y) for i, y in zip(train.levels,
+                                                            y0)),
+          'select_columns: the label columns changed')
+    print(f'long-tail: shuffle(level 0) and select_columns(y, {num_classes + 1}'
+          f' columns) -> train {nodes(train)}')
+    parts['cleanup and split'] = time.perf_counter() - t_part
+
+    # (b) training on k-hop crops with feature dropout
+    t_part = time.perf_counter()
+    task = build_task(FLAGSHIP_CFG, num_graphs=LONG_TAIL_CROPS,
+                      total_steps=LONG_TAIL_STEPS, device=dev)
+    init_weights(task.model, torch.Generator().manual_seed(SEED))
+    compute_dtype = task.model.net.compute_dtype
+    cfg_train = dataclasses.replace(BatchConfig(), sample_graph_r=-1)
+    rng = np.random.default_rng(SEED)
+    batches, crop_nodes = [], []
+    for _ in range(LONG_TAIL_STEPS):
+        crops = [T.sample_khop_subgraphs(train, rng, **LONG_TAIL_KHOP)
+                 for _ in range(LONG_TAIL_CROPS)]
+        crop_nodes.append([c[1].num_nodes for c in crops])
+        big = process_batch(crops, cfg_train, train=True, rng=rng)
+        zero = (~big[0].x.any(1)).sum()
+        big = T.dropout_rows(big, rng, key='x', p=LONG_TAIL_DROPOUT)
+        big = T.dropout_columns(big, rng, key='x', p=LONG_TAIL_DROPOUT)
+        dropped = (~big[0].x.any(1)).sum()
+        check(zero < dropped < big[0].num_nodes,
+              'dropout_rows / dropout_columns: no row of x zeroed, or all')
+        host = pad_nag(big, num_classes=cfg_train.num_classes,
+                       bucket_mode=cfg_train.bucket_mode)
+        batches.append(from_numpy(host, dev, compute_dtype, train=True))
+    host_s = time.perf_counter() - t_part
+    before = [p.detach().clone() for p in task.model.parameters()]
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_trainable', widest) as k1_args:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [task.train_step(b)['loss'] for b in batches]
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    train_launches = counts()
+    losses = torch.stack(losses).float().cpu().tolist()
+    moved = sum(not torch.equal(a, p.detach())
+                for a, p in zip(before, task.model.parameters()))
+    print(f'long-tail training: {LONG_TAIL_STEPS} steps of '
+          f'{LONG_TAIL_CROPS} k-hop crops ({LONG_TAIL_KHOP}; level-1 nodes '
+          f'per crop {crop_nodes}), batch levels {level_counts(batches[0])}; '
+          f'losses {losses}; {moved} of {len(before)} parameter tensors '
+          f'moved; host crops + process_batch + dropout + pad_nag '
+          f'{host_s:.2f} s, steps {step_s * 1e3:.1f} ms; launches '
+          f'{train_launches}, plain attention calls {plain["plain"]}')
+    check(train_launches == {'K1': LONG_TAIL_STEPS * K1_LAUNCHES_PER_STEP,
+                             'K2': 0, 'K3': 0} and plain['plain'] == 0,
+          'long-tail training: not 7 K1 launches a step, or another kernel '
+          'or the plain attention ran')
+    check(all(np.isfinite(losses)) and moved > 0,
+          'long-tail training: a loss is not finite, or no parameter moved')
+    parts['training'] = time.perf_counter() - t_part
+
+    # (c) multi-run TTA serving of the val half
+    t_part = time.perf_counter()
+    n_val = val[1].num_nodes
+    val[1]['val_id'] = np.arange(n_val)
+    cfg_eval = dataclasses.replace(BatchConfig(), **EVAL_BATCH_OVERRIDES)
+    rng = np.random.default_rng(SEED + 1)
+    hosts, run_ids = [], []
+    for _ in range(LONG_TAIL_TTA_RUNS):
+        crop = T.sample_khop_subgraphs(val, rng, **LONG_TAIL_TTA_KHOP)
+        crop = T.random_axis_flip(crop, rng)
+        hosts.append(prepare_batch([crop], cfg_eval, train=False))
+        run_ids.append(crop[1].val_id)
+
+    def serve(fn, cd):
+        """Level-1 logits of each run in NAG order (host f32), with
+        `fn(batch)` the level-1 logits."""
+        out = []
+        for host in hosts:
+            b = from_numpy(host, dev, cd, train=True)
+            n = b[1].num_nodes
+            lg = fn(b)[:n].float().cpu().numpy()
+            out.append(to_nag_order(lg, level1_node_id(b, n)))
+        return out
+
+    def accumulate(run_logits):
+        return tta_accumulate(run_logits, run_ids, n_val, num_classes,
+                              pos=val[1].pos)
+
+    reset_counts()
+    with plain_attention_calls() as plain, \
+            widest_call('dense_attention_rpe', widest) as k2_args:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_logits = serve(lambda b: task.eval_step(b)['logits_level1'],
+                           compute_dtype)
+        acc = accumulate(run_logits)
+        serve_s = time.perf_counter() - t0
+    serve_launches = counts()
+    seen = np.zeros(n_val, bool)
+    for ids in run_ids:
+        seen[ids] = True
+    print(f'long-tail TTA: {LONG_TAIL_TTA_RUNS} runs of k-hop crops '
+          f'({LONG_TAIL_TTA_KHOP}) of {n_val} val nodes, '
+          f'{[len(i) for i in run_ids]} nodes a run; seen share '
+          f'{seen.mean():.4f}, unseen share {1 - seen.mean():.4f}; served '
+          f'and accumulated in {serve_s * 1e3:.1f} ms; launches '
+          f'{serve_launches}, plain attention calls {plain["plain"]}')
+    check(serve_launches == {'K1': 0, 'K2': LONG_TAIL_TTA_RUNS
+                             * K2_LAUNCHES_PER_FORWARD, 'K3': 0}
+          and plain['plain'] == 0,
+          'long-tail TTA: not 7 K2 launches a run, or another kernel or '
+          'the plain attention ran')
+    check(0 < seen.mean() < 1, f'long-tail TTA: seen share {seen.mean()}: '
+          'the runs must leave some val nodes seen and some unseen')
+    sums = np.zeros_like(acc)
+    for lg, ids in zip(run_logits, run_ids):
+        sums[ids] += lg
+    check(np.array_equal(acc[seen], sums[seen]),
+          'tta_accumulate: the seen nodes are not the sums of their runs')
+    check(np.isfinite(acc).all() and (np.abs(acc[~seen]).sum(1) > 0).all(),
+          'tta_accumulate: a val node got no prediction')
+    pred = acc.argmax(1)
+
+    # the same runs on twins of the trained model: the plain attention in
+    # f32 and bf16, the kernels in f32, the fused_rpe=False route in f32
+    def twin(cd, plain_attention=False):
+        m = SemanticSegmentationModel(build_model(
+            FLAGSHIP_CFG, num_graphs=LONG_TAIL_CROPS, compute_dtype=cd,
+            plain_attention=plain_attention, device=dev), num_classes,
+            device=dev)
+        m.load_state_dict(task.model.state_dict())
+        return m.eval()
+
+    def forward(model):
+        def fn(b):
+            with torch.inference_mode():
+                return model(b)[0]
+        return fn
+
+    accs = {}
+    for cd in (None, compute_dtype):
+        for plain_attention in (False, True):
+            if cd == compute_dtype and not plain_attention:
+                continue
+            accs[cd, plain_attention] = accumulate(serve(
+                forward(twin(cd, plain_attention)), cd))
+    accs[compute_dtype, False] = acc
+    f32_err = np.abs(accs[None, False] - accs[None, True]).max()
+    bf16_agree = (accs[compute_dtype, False].argmax(1)
+                  == accs[compute_dtype, True].argmax(1)).mean()
+    print(f'long-tail TTA accumulated logits, kernels vs plain attention: '
+          f'f32 max abs {f32_err:.3e} (limit {F32_LOGIT_MAX_ABS}), '
+          f'{compute_dtype} argmax agreement {bf16_agree:.5f} (limit '
+          f'{BF16_ARGMAX_AGREEMENT})')
+    check(f32_err <= F32_LOGIT_MAX_ABS
+          and bf16_agree >= BF16_ARGMAX_AGREEMENT,
+          'long-tail TTA: kernels vs plain attention beyond the serving '
+          'limits')
+    unfused = set_pallas_attention(twin(None), True, fused_rpe=False)
+    reset_counts()
+    acc_k1 = accumulate(serve(forward(unfused), None))
+    k1_route = counts()
+    k1_err = np.abs(acc_k1 - accs[None, False]).max()
+    print(f'long-tail TTA, fused_rpe=False (materialized RPE, K1 forward) '
+          f'vs K2 in f32: max abs {k1_err:.3e}; launches {k1_route}')
+    check(k1_route == {'K1': LONG_TAIL_TTA_RUNS * K2_LAUNCHES_PER_FORWARD,
+                       'K2': 0, 'K3': 0} and k1_err <= F32_LOGIT_MAX_ABS,
+          'long-tail TTA: the fused_rpe=False route did not run K1 alone, '
+          'or it is beyond the f32 limit of the K2 route')
+    b = from_numpy(hosts[0], dev, compute_dtype, train=True)
+    got = task.predict(b)
+    want = task.eval_step(b)['logits_level1'].argmax(1)
+    check(got.device == want.device and torch.equal(got, want),
+          'predict: not the argmax of eval_step logits on the device')
+    del unfused, b, got, want
+    parts['TTA serving'] = time.perf_counter() - t_part
+
+    # (d) the confusion update on the card
+    t_part = time.perf_counter()
+    labels = torch.from_numpy(val[1].y.argmax(1)).to(dev)
+    pred_t = torch.from_numpy(pred).to(dev)
+    for mask in (None, torch.from_numpy(seen).to(dev)):
+        cm = confusion_matrix_update(pred_t, labels, num_classes,
+                                     node_mask=mask)
+        ref = confusion_matrix_from_histogram(
+            pred_t, F.one_hot(labels, num_classes + 1), num_classes,
+            node_mask=mask)
+        valid = labels < num_classes
+        if mask is not None:
+            valid &= mask
+        check(cm.device == labels.device and torch.equal(cm, ref)
+              and cm.sum().item() == valid.sum().item(),
+              'confusion_matrix_update: not the histogram update of one-hot '
+              'labels on the card')
+    print(f'long-tail confusion update on {card}: equal to the one-hot '
+          f'histogram update with and without the seen mask; '
+          f'{cm.sum().item()} labelled seen val nodes')
+    parts['confusion update'] = time.perf_counter() - t_part
+
+    # (e) the kernels on the arguments of their widest launches
+    t_part = time.perf_counter()
+    hold_on_path('K1', k1_args, path='long-tail training')
+    hold_on_path('K2', k2_args, path='long-tail TTA serving')
+    del k1_args, k2_args, task, batches
+    parts['holds'] = time.perf_counter() - t_part
+    print(f'long-tail phase on {card}, wall seconds by part: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in parts.items()))
+    settle()
+    return {'long-tail': {'K1': train_launches['K1'],
+                          'K2': serve_launches['K2']}}
+
+
 def main():
     t_start = time.perf_counter()
     check(os.path.isdir(os.path.join(HERE, 'superpoint_transformer_torch')),
@@ -4509,6 +4837,10 @@ def main():
     rest = phase_rest(dev, card, rest_room, pan_nags[0])
     print(f'rest phase (Delaunay serving, held-out, SuperCluster demo) in '
           f'{time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    long_tail = phase_long_tail(dev, card, rest_room)
+    print(f'long-tail phase (cleanup, k-hop training, TTA serving, '
+          f'confusion update) in {time.perf_counter() - t0:.1f} s')
     del rest_room
     # the fit phase's rooms serve the EZ-SP and nano phases too
     rooms = tempfile.TemporaryDirectory()
@@ -4522,7 +4854,7 @@ def main():
         rooms.cleanup()
     paths = {'serving/training/fused-RPE': launches, 'host': host_path,
              'whole-cloud': whole_cloud, **parallel, 'variants': variants,
-             'panoptic': panoptic, **rest,
+             'panoptic': panoptic, **rest, **long_tail,
              'fit-and-evaluate': fit, 'tune': tune, 'ezsp': ezsp,
              'nano': nano, **datasets}
     print(f'launches by path: serving/training/fused-RPE {launches}, '
@@ -4530,6 +4862,7 @@ def main():
     print(f'launches on the panoptic path: {panoptic}')
     print(f'launches on the Delaunay-serving, held-out and SuperCluster-demo '
           f'paths: {rest}')
+    print(f'launches on the long-tail path: {long_tail}')
     print(f'launches on the data-parallel and graph-sharded paths (both '
           f'ranks): {parallel}')
     print(f'launches on the fit-and-evaluate path: {fit}')

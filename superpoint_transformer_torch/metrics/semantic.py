@@ -1,16 +1,17 @@
 """Confusion-matrix semantic metrics; counterparts of
-`confusion_matrix_from_histogram`, `ConfusionMatrix` and the
-`*_from_confmat` functions in `superpoint_transformer_tpu/metrics/
-semantic.py`. Rows are targets, columns predictions; void labels never
-enter the matrix. The device function works on tensors; the accumulator
-and the metrics are numpy on the host, as in JAX."""
+`confusion_matrix_from_histogram`, `confusion_matrix_update`,
+`ConfusionMatrix` and the `*_from_confmat` functions in
+`superpoint_transformer_tpu/metrics/semantic.py`. Rows are targets,
+columns predictions; void labels never enter the matrix. The device
+functions work on tensors; the accumulator and the metrics are numpy on
+the host, as in JAX."""
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-__all__ = ['confusion_matrix_from_histogram', 'ConfusionMatrix',
-           'iou_from_confmat', 'oa_from_confmat', 'macc_from_confmat',
+__all__ = ['confusion_matrix_from_histogram', 'confusion_matrix_update',
+           'ConfusionMatrix', 'iou_from_confmat', 'oa_from_confmat', 'macc_from_confmat',
            'miou_from_confmat']
 
 
@@ -29,6 +30,30 @@ def confusion_matrix_from_histogram(pred, y_hist, num_classes,
     # float atomics, yet reproducible: every summand is an integer and
     # every partial sum stays below 2^24, so each addition is exact
     cm.index_add_(1, pred, y.t())
+    return cm.round().to(torch.int64)
+
+
+def confusion_matrix_update(pred, y, num_classes, node_mask=None):
+    """cm[target, pred] += 1 over the rows n whose label `y[n]` lies in
+    [0, num_classes) and, given `node_mask`, whose mask is True; an int64
+    [C, C] tensor on the device of `y`. `pred` is [N] class ids or
+    [N, C] logits (argmax). The counts are the contraction
+    one_hot(y)^T @ one_hot(pred) in f32 at the highest matmul precision,
+    exact below 2^24 rows, as in JAX."""
+    if pred.dim() == 2:
+        pred = pred.argmax(1)
+    valid = (y >= 0) & (y < num_classes)
+    if node_mask is not None:
+        valid = valid & node_mask.to(torch.bool)
+    cls = torch.arange(num_classes, device=y.device)
+    oh_y = ((y[:, None] == cls[None, :]) & valid[:, None]).to(torch.float32)
+    oh_p = (pred[:, None] == cls[None, :]).to(torch.float32)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('highest')
+    try:
+        cm = oh_y.t() @ oh_p
+    finally:
+        torch.set_float32_matmul_precision(prev)
     return cm.round().to(torch.int64)
 
 

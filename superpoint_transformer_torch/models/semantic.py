@@ -268,3 +268,9 @@ class SemanticTask:
         loss, logits = self.loss(batch)
         return {'loss': loss, 'confmat': self._confmat(logits, batch),
                 'logits_level1': logits[0]}
+
+    def predict(self, batch):
+        """Level-1 class predictions: the argmax of `eval_step`'s level-1
+        logits over every padded row, an int64 tensor on the model's
+        device (rows past `batch[1].num_nodes` are padding)."""
+        return self.eval_step(batch)['logits_level1'].argmax(1)

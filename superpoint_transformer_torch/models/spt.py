@@ -163,11 +163,15 @@ class SPT(nn.Module):
         return len(self.down_dim) - self.nano
 
     @property
+    def num_up_stages(self):
+        return len(self.up_dim)
+
+    @property
     def out_dim(self):
         """Output width of each returned level, low to high (of the one
         output without `output_stage_wise`)."""
         ups = [getattr(self, f'up_stage_{i}').out_dim
-               for i in range(len(self.up_dim))]
+               for i in range(self.num_up_stages)]
         last_down = getattr(
             self, f'down_stage_{self.num_down_stages - 1}').out_dim
         if self.output_stage_wise:
@@ -259,7 +263,7 @@ class SPT(nn.Module):
 
         # ---- decoder -----------------------------------------------------
         up_outputs = []
-        for i_stage in range(len(self.up_dim)):
+        for i_stage in range(self.num_up_stages):
             i_level = num_down - i_stage - 1 + nano
             lvl = nag[i_level]
             x_skip = down_outputs[-(2 + i_stage)]

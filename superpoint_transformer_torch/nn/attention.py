@@ -10,11 +10,13 @@ attention takes the JAX package's routes:
 
 - independent k/q/v RPE (the flagship's), in evaluation: the streaming
   RPE attention kernel K2 (`ops/attention_rpe.py`), which computes the
-  RPE projections itself;
+  RPE projections itself; with `fused_rpe=False` (JAX's
+  `set_pallas_attention(..., fused_rpe=False)`) the RPE materialized as
+  in training, then K1's forward;
 - independent k/q/v RPE in training: the three RPE projections as one
-  concatenated matmul added to the gathered rows, a query per edge, and
-  the dense attention kernel K1 with its closed-form backward
-  (`ops/attention.py`);
+  concatenated matmul added to the gathered rows (each its own matmul
+  with `fuse_rpe_matmul=False`), a query per edge, and the dense
+  attention kernel K1 with its closed-form backward (`ops/attention.py`);
 - any other RPE set (k, q or v alone or in pairs, `qk_share_rpe`,
   `q_on_minus_rpe`, `heads_share_rpe`), or no edge features: each RPE
   its own projection, then K1 in both modes, with a query per node when
@@ -51,7 +53,8 @@ from ..ops.segment import gather_rows
 from ..parallel.collectives import all_gather_rows
 from .mlp import dropout, linear, resolve_dtype
 
-__all__ = ['SelfAttentionBlock', 'qk_scale_from_degree']
+__all__ = ['SelfAttentionBlock', 'qk_scale_from_degree',
+           'set_pallas_attention']
 
 
 def qk_scale_from_degree(mode, qk_dim, degree):
@@ -102,28 +105,36 @@ class SelfAttentionBlock(nn.Module):
 
     `plain_attention=True` runs the plain PyTorch versions of the kernels
     on every device (autograd through the plain forward in training); it
-    exists to compare the kernels with them. `attn_drop` drops attention
-    weights and `drop` the block's output, in training, drawing from
-    `rng` (`nn/dropout.py`)."""
+    exists to compare the kernels with them. `fused_rpe=False` serves the
+    independent k/q/v RPE materialized, on K1's forward, instead of K2;
+    `fuse_rpe_matmul=False` runs their three projections as three
+    matmuls where they are materialized (JAX's A/B switches, both True by
+    default as in JAX; `set_pallas_attention` sets them on a model).
+    `attn_drop` drops attention weights and `drop` the block's output, in
+    training, drawing from `rng` (`nn/dropout.py`)."""
 
     def __init__(self, dim, num_heads=1, qkv_bias=True, qk_dim=8,
                  qk_scale=None, in_rpe_dim=18, k_rpe=False, q_rpe=False,
                  v_rpe=False, qk_share_rpe=False, q_on_minus_rpe=False,
                  heads_share_rpe=False, attn_drop=None, drop=None,
                  compute_dtype=None, plain_attention=False,
-                 shard_group=None, rng=None, device=None):
+                 fused_rpe=True, fuse_rpe_matmul=True, shard_group=None,
+                 rng=None, device=None):
         super().__init__()
         H, D, C = num_heads, qk_dim, dim
         self.num_heads, self.qk_dim, self.dim = H, D, C
         self.qk_scale = qk_scale
         self.dtype = resolve_dtype(compute_dtype)
         self.plain_attention = plain_attention
+        self.fused_rpe = fused_rpe
+        self.fuse_rpe_matmul = fuse_rpe_matmul
         self.shard_group = shard_group
         self.qk_share_rpe = qk_share_rpe
         self.q_on_minus_rpe = q_on_minus_rpe
         self.heads_share_rpe = heads_share_rpe
         self.k_rpe_on, self.q_rpe_on, self.v_rpe_on = k_rpe, q_rpe, v_rpe
         # the flagship's independent k/q/v encoders: K2 in evaluation
+        # (unless `fused_rpe` is off)
         self.independent_rpe = (k_rpe and q_rpe and v_rpe
                                 and not qk_share_rpe and not q_on_minus_rpe
                                 and not heads_share_rpe)
@@ -175,7 +186,7 @@ class SelfAttentionBlock(nn.Module):
         return q, k, v
 
     def _flagship_terms(self, q, kvg, edge_feat, N, K):
-        """The independent k/q/v RPE of the JAX training path: the three
+        """The independent k/q/v RPE of JAX's materialized route: the three
         projections as one [N*K, De] @ [De, 2*DH + C] matmul added to the
         gathered rows, a query per edge."""
         H, D, C, DH, dt = (self.num_heads, self.qk_dim, self.dim,
@@ -219,7 +230,7 @@ class SelfAttentionBlock(nn.Module):
         flagship = (self.independent_rpe and edge_feat is not None
                     and hasattr(self, 'v_rpe'))
 
-        if flagship and not self.training:
+        if flagship and not self.training and self.fused_rpe:
             rpe = (self.k_rpe, self.q_rpe, self.v_rpe)
             attention = dense_attention_rpe_reference \
                 if self.plain_attention else dense_attention_rpe
@@ -229,8 +240,8 @@ class SelfAttentionBlock(nn.Module):
                   for t in (m.weight.to(dt).t().contiguous(), m.bias)),
                 nbr_mask, scale)
         else:
-            terms = self._flagship_terms if flagship else \
-                self._variant_terms
+            terms = self._flagship_terms \
+                if flagship and self.fuse_rpe_matmul else self._variant_terms
             q, k, v = (t.contiguous() for t in terms(q, kvg, edge_feat, N,
                                                       K))
             if self.training and self.attn_drop is not None:
@@ -247,3 +258,20 @@ class SelfAttentionBlock(nn.Module):
         out = linear(self.out_proj, out.reshape(N, C), dt)
         out = out.to(torch.float32)
         return out if self.drop is None else self.drop(out)
+
+
+def set_pallas_attention(module, flag, fused_rpe=None,
+                         fuse_rpe_matmul=None):
+    """JAX's A/B switches of the attention (a process-wide global there),
+    set on every `SelfAttentionBlock` of `module`: `flag=False` runs the
+    plain attention (`plain_attention`, to compare the kernels with);
+    `fused_rpe` and `fuse_rpe_matmul` as in the block. None leaves a
+    switch as it is. Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, SelfAttentionBlock):
+            m.plain_attention = not flag
+            if fused_rpe is not None:
+                m.fused_rpe = bool(fused_rpe)
+            if fuse_rpe_matmul is not None:
+                m.fuse_rpe_matmul = bool(fuse_rpe_matmul)
+    return module

@@ -37,7 +37,8 @@ def _graph_index(batch, x):
     return batch
 
 __all__ = ['GraphNorm', 'LayerNorm', 'InstanceNorm', 'GroupNorm',
-           'BatchNorm', 'make_norm', 'unit_sphere_norm']
+           'BatchNorm', 'make_norm', 'unit_sphere_norm', 'UnitSphereNorm',
+           'INDEX_BASED_NORMS']
 
 
 class GraphNorm(nn.Module):
@@ -289,3 +290,23 @@ def unit_sphere_norm(pos, super_index, num_super, node_size=None,
     si = super_index.long().clamp(0, num_super - 1)
     out = (pos - center[si]) / (diameter[si][:, None] + 1e-2)
     return out, diameter[:, None]
+
+
+class UnitSphereNorm(nn.Module):
+    """`unit_sphere_norm` as a module (no parameters)."""
+
+    def __init__(self, log_diameter=False):
+        super().__init__()
+        self.log_diameter = log_diameter
+
+    def forward(self, pos, super_index, num_super, node_size=None,
+                mask=None):
+        """(normalized pos [N, 3], per-segment diameter [num_super, 1],
+        log(diameter + 1) with `log_diameter`)."""
+        out, d = unit_sphere_norm(pos, super_index, num_super,
+                                  node_size=node_size, mask=mask)
+        return out, torch.log(d + 1) if self.log_diameter else d
+
+
+# the norms whose statistics are indexed by graph (their `batch`)
+INDEX_BASED_NORMS = (GraphNorm, LayerNorm, InstanceNorm, GroupNorm)

@@ -7,8 +7,8 @@ ops are in `ops/segment.py`.
 import numpy as np
 
 __all__ = [
-    'edges_to_dense_neighbors', 'add_self_loops_np', 'to_trimmed_np',
-    'isolated_nodes_np', 'forward_star_np',
+    'edges_to_dense_neighbors', 'add_self_loops_np', 'untrim_edges_np',
+    'to_trimmed_np', 'isolated_nodes_np', 'forward_star_np',
 ]
 
 
@@ -89,6 +89,17 @@ def add_self_loops_np(edge_index, edge_attr, num_nodes, fill_value=0.0):
     else:
         ea = None
     return ei, ea
+
+
+def untrim_edges_np(edge_index, edge_attr=None):
+    """A trimmed (i<j unique) graph made bidirectional: every i->j edge
+    gives j->i too, with the same attributes (the untrimming of the
+    reference's OnTheFlyHorizontalEdgeFeatures, src/transforms/graph.py).
+    Returns (edge_index [2, 2E], edge_attr [2E, *] or None)."""
+    ei = np.concatenate([edge_index, edge_index[::-1]], axis=1)
+    if edge_attr is None:
+        return ei, None
+    return ei, np.concatenate([edge_attr, edge_attr], axis=0)
 
 
 def to_trimmed_np(edge_index, edge_attr=None, reduce='mean'):

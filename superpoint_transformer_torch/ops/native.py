@@ -30,8 +30,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ['build', 'library', 'greedy_cut', 'radius_knn',
-           'eigen_features', 'anchor_nn', 'subedges_pairs']
+__all__ = ['build', 'library', 'native_available', 'greedy_cut',
+           'radius_knn', 'eigen_features', 'anchor_nn', 'subedges_pairs']
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / 'native'
 _BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
@@ -63,8 +63,7 @@ def build(build_dir=None, force=False):
     build_dir.mkdir(parents=True, exist_ok=True)
     with open(build_dir / f'{_LIB_NAME}.lock', 'w') as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        newest = max(p.stat().st_mtime for p in sources + [makefile])
-        if not force and lib.exists() and lib.stat().st_mtime >= newest:
+        if not force and _up_to_date(lib, sources, makefile):
             return lib
         cxx = os.environ.get('CXX') or make['CXX']
         flags = shlex.split(make['CXXFLAGS'])
@@ -82,6 +81,27 @@ def build(build_dir=None, force=False):
         lib.with_name(f'{lib.name}.cmd').write_text(
             shlex.join(cmd).replace(str(tmp), str(lib)) + '\n')
     return lib
+
+
+def _up_to_date(lib, sources, makefile):
+    """Whether `lib` exists and is newer than the sources and the
+    Makefile."""
+    newest = max(p.stat().st_mtime for p in sources + [makefile])
+    return lib.exists() and lib.stat().st_mtime >= newest
+
+
+def native_available():
+    """Whether the host library is built in `_build/`, up to date with
+    `native/*.cpp` and the Makefile, and loads. It builds nothing: `build`
+    does, as the first call of a host function does. A library that is
+    up to date but does not load raises, as the host functions would."""
+    makefile = _NATIVE_DIR / 'Makefile'
+    sources = [_NATIVE_DIR / s
+               for s in _make_vars(makefile)['SRCS'].split()]
+    if not _up_to_date(_BUILD_DIR / _LIB_NAME, sources, makefile):
+        return False
+    library()
+    return True
 
 
 # what a compiler without an OpenMP runtime says to -fopenmp

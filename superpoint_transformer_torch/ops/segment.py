@@ -26,7 +26,8 @@ from ..utils.flops import count_contraction
 
 __all__ = ['segment_sum', 'segment_count', 'segment_max', 'segment_min',
            'segment_mean', 'segment_std', 'segment_softmax',
-           'segment_mean_weighted', 'gather_rows', 'gather_rows_small']
+           'segment_mean_weighted', 'segment_csr_arange', 'gather_rows',
+           'gather_rows_small']
 
 # the JAX package's threshold for the one-hot form
 _ONEHOT_MAX_SEGMENTS = 128
@@ -249,6 +250,20 @@ def segment_mean_weighted(x, idx, w, num_segments,
     z = segment_sum(w, idx, num_segments, indices_are_sorted)
     z = torch.where(z == 0, torch.ones_like(z), z)
     return s / z[:, None]
+
+
+def segment_csr_arange(pointers, total):
+    """For CSR `pointers` [S + 1] over `total` elements: (the rank of each
+    element within its segment, [0..n0-1, 0..n1-1, ...], and its segment
+    id), both [total] int64. Elements past the last pointer count in the
+    last segment."""
+    n = pointers.shape[0] - 1
+    seg_id = torch.searchsorted(
+        pointers, torch.arange(total, dtype=pointers.dtype,
+                               device=pointers.device), right=True) - 1
+    seg_id = seg_id.clamp(0, n - 1)
+    rank = torch.arange(total, device=pointers.device) - pointers[seg_id]
+    return rank.long(), seg_id
 
 
 class _GatherRows(torch.autograd.Function):

@@ -20,7 +20,7 @@ from .native import anchor_nn, subedges_pairs
 __all__ = [
     'base_vectors_3d_np', 'scatter_nearest_neighbor_np',
     'cluster_radius_nn_graph_np', 'subedges_np',
-    'minimalistic_edge_features_np',
+    'minimalistic_edge_features_np', 'largest_eig3_np',
 ]
 
 
@@ -158,3 +158,45 @@ def minimalistic_edge_features_np(points, se_point_index, se_id,
     return np.concatenate(
         [mean_off, std_off, mean_dist[:, None]], axis=1
     ).astype(np.float32)
+
+
+def largest_eig3_np(cov):
+    """Unit eigenvector of the largest eigenvalue of each symmetric 3x3
+    matrix of `cov` [E, 3, 3], in float64: the closed-form trigonometric
+    eigenvalue, then the cross product of the two rows of (C - lam I)
+    with the largest cross norm. Its sign makes the entry of largest
+    magnitude positive, the convention of the native twin
+    (native/subedges.cpp), where np.linalg.eigh leaves signs to the
+    implementation. A degenerate matrix gives (1, 0, 0)."""
+    c = np.asarray(cov, dtype=np.float64)
+    E = c.shape[0]
+    c00, c11, c22 = c[:, 0, 0], c[:, 1, 1], c[:, 2, 2]
+    c01, c02, c12 = c[:, 0, 1], c[:, 0, 2], c[:, 1, 2]
+    p1 = c01 ** 2 + c02 ** 2 + c12 ** 2
+    q = (c00 + c11 + c22) / 3.0
+    p2 = (c00 - q) ** 2 + (c11 - q) ** 2 + (c22 - q) ** 2 + 2.0 * p1
+    p = np.sqrt(np.maximum(p2 / 6.0, 0.0))
+    safe_p = np.where(p > 0, p, 1.0)
+    b = (c - q[:, None, None] * np.eye(3)) / safe_p[:, None, None]
+    detb = (b[:, 0, 0] * (b[:, 1, 1] * b[:, 2, 2] - b[:, 1, 2] ** 2)
+            - b[:, 0, 1] * (b[:, 0, 1] * b[:, 2, 2]
+                            - b[:, 1, 2] * b[:, 0, 2])
+            + b[:, 0, 2] * (b[:, 0, 1] * b[:, 1, 2]
+                            - b[:, 1, 1] * b[:, 0, 2]))
+    r = np.clip(detb / 2.0, -1.0, 1.0)
+    lam = q + 2.0 * p * np.cos(np.arccos(r) / 3.0)
+    a = c - lam[:, None, None] * np.eye(3)
+    cr = np.stack([np.cross(a[:, 0], a[:, 1]),
+                   np.cross(a[:, 0], a[:, 2]),
+                   np.cross(a[:, 1], a[:, 2])], axis=1)  # [E, 3, 3]
+    norms = np.einsum('eij,eij->ei', cr, cr)
+    best = np.argmax(norms, axis=1)
+    v = cr[np.arange(E), best]
+    nv = np.sqrt(np.einsum('ei,ei->e', v, v))
+    degenerate = (nv <= 1e-30) | (p2 <= 0)
+    v = np.where(degenerate[:, None], [1.0, 0.0, 0.0],
+                 v / np.where(nv > 0, nv, 1.0)[:, None])
+    pick = np.argmax(np.abs(v), axis=1)
+    sgn = np.sign(v[np.arange(E), pick])
+    sgn = np.where(sgn == 0, 1.0, sgn)
+    return v * sgn[:, None]

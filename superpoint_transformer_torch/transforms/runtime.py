@@ -1,14 +1,17 @@
 """Runtime (per-batch) transforms on the host (numpy): a copy of the
-functions of the JAX package's `transforms/runtime.py` that
-`transforms.prepare.process_batch` calls, with the same arguments and the
-same numpy random draws. NodeSize, on-the-fly horizontal and vertical
-edge features, self loops, geometric augmentations and subgraph
-sampling, after the reference's on-device train/val transforms
-(configs/datamodule/semantic/default.yaml:206-428).
+functions of the JAX package's `transforms/runtime.py`, with the same
+arguments and the same numpy random draws. NodeSize, on-the-fly
+horizontal and vertical edge features, self loops, geometric
+augmentations and subgraph sampling, after the reference's on-device
+train/val transforms (configs/datamodule/semantic/default.yaml:206-428),
+which `transforms.prepare.process_batch` calls; and the reference's
+other NAG transforms: k-hop crops, neighbor-based cleanup, feature
+dropout, shuffling and key or column selection.
 """
 import numpy as np
 
 from ..ops.graph import add_self_loops_np
+from ..ops.native import radius_knn
 
 __all__ = [
     'node_size', 'on_the_fly_horizontal_edge_features',
@@ -16,6 +19,8 @@ __all__ = [
     'jitter_key', 'random_tilt_and_rotate', 'random_anisotropic_scale',
     'random_axis_flip', 'sample_sub_nodes', 'sample_radius_subgraphs',
     'sample_segments', 'sample_edges', 'restrict_size',
+    'sample_khop_subgraphs', 'outliers', 'inliers', 'dropout_columns',
+    'dropout_rows', 'shuffle', 'select_by_key', 'select_columns',
 ]
 
 H_EDGE_KEYS_DEFAULT = (
@@ -375,4 +380,154 @@ def restrict_size(nag, rng, level='1+', num_nodes=0, num_edges=0):
                 d['edge_index'] = d.edge_index[:, keep]
                 if 'edge_attr' in d:
                     d['edge_attr'] = d.edge_attr[keep]
+    return nag
+
+
+def sample_khop_subgraphs(nag, rng, k_hop=2, n_seeds=4, i_level=1):
+    """Crop the NAG to the k-hop neighborhoods of random seed segments on
+    the level-`i_level` horizontal graph (reference SampleKHopSubgraphs,
+    src/transforms/sampling.py:1003; an alternative to the radius crops
+    of `sample_radius_subgraphs`)."""
+    d = nag[i_level]
+    n = d.num_nodes
+    if n == 0 or d.get('edge_index') is None:
+        return nag
+    seeds = rng.choice(n, size=min(n_seeds, n), replace=False)
+    keep = np.zeros(n, bool)
+    keep[seeds] = True
+    ei = d.edge_index
+    for _ in range(k_hop):
+        grow = keep.copy()
+        m = keep[ei[0]]
+        grow[ei[1][m]] = True
+        m = keep[ei[1]]
+        grow[ei[0][m]] = True
+        keep = grow
+    return _select_level_cascade(nag, i_level, np.where(keep)[0])
+
+
+def _select_level_cascade(nag, i_level, idx):
+    """Select level-i nodes and cascade the selection through all levels
+    (reference NAG.select, src/data/nag.py:306)."""
+    return nag.select(i_level, idx)
+
+
+def outliers(nag, k_min=1, level=0):
+    """Drop the nodes with fewer than `k_min` valid entries in their
+    stored `neighbor_index` row (reference Outliers,
+    src/transforms/neighbors.py:167). Without a `neighbor_index` the NAG
+    is returned as it is."""
+    d = nag[level]
+    ni = d.get('neighbor_index')
+    if ni is None:
+        return nag
+    deg = (np.asarray(ni) >= 0).sum(1)
+    keep = np.where(deg >= k_min)[0]
+    if keep.shape[0] == d.num_nodes:
+        return nag
+    return nag.select(level, keep)
+
+
+def inliers(nag, k_min, r_max=1.0, level=0, recursive=False):
+    """Keep only the nodes with `k_min` or more neighbors within `r_max`
+    (reference Inliers, src/transforms/neighbors.py:137), from a radius
+    search of its own (the native `radius_knn`), whatever
+    `neighbor_index` holds. `recursive=True` searches again after each
+    removal, since removing nodes can leave their neighbors short, until
+    every kept node has `k_min` neighbors."""
+    d = nag[level]
+    pos = np.asarray(d.pos, np.float32)
+    keep = np.arange(pos.shape[0])
+    while True:
+        nbr, _ = radius_knn(pos[keep], r=float(r_max),
+                            k=int(k_min) + 1, exclude_self=True)
+        deg = (nbr >= 0).sum(1)
+        ok = deg >= k_min
+        if ok.all():
+            break
+        keep = keep[ok]
+        if not recursive:
+            break
+    if keep.shape[0] == d.num_nodes:
+        return nag
+    return nag.select(level, keep)
+
+
+def dropout_columns(nag, rng, key='x', p=0.1, level='all'):
+    """Zero whole columns of the 2-D attribute `key`, each with
+    probability `p` (reference DropoutColumns, src/transforms/data.py)."""
+    for i in nag._parse_levels(level):
+        d = nag[i]
+        v = d.get(key)
+        if v is None or v.ndim != 2:
+            continue
+        mask = rng.random(v.shape[1]) >= p
+        d[key] = (np.asarray(v) * mask[None, :]).astype(np.float32)
+    return nag
+
+
+def dropout_rows(nag, rng, key='x', p=0.1, level='all'):
+    """Zero whole rows of the 2-D attribute `key`, each with probability
+    `p` (reference DropoutRows, src/transforms/data.py)."""
+    for i in nag._parse_levels(level):
+        d = nag[i]
+        v = d.get(key)
+        if v is None or v.ndim != 2:
+            continue
+        mask = rng.random(v.shape[0]) >= p
+        d[key] = (np.asarray(v) * mask[:, None]).astype(np.float32)
+    return nag
+
+
+def shuffle(nag, rng, level=0):
+    """A random permutation of the level's nodes (reference Shuffle,
+    src/transforms/sampling.py:48)."""
+    n = nag[level].num_nodes
+    return nag.select(level, rng.permutation(n))
+
+
+def select_by_key(nag, key, level=0, negation=False, strict=True,
+                  delete_after=True):
+    """Keep the level's nodes whose boolean attribute `key` is True, or
+    False with `negation` (reference NAGSelectByKey,
+    src/transforms/data.py:302). A missing key, or one that is not a bool
+    vector over the nodes, raises ValueError when `strict`, else leaves
+    the NAG as it is. `delete_after` drops the key from the result."""
+    d = nag[level]
+    mask = d.get(key)
+    if mask is None:
+        if strict:
+            raise ValueError(f'no `{key}` attribute at level {level}')
+        return nag
+    mask = np.asarray(mask)
+    if mask.dtype != bool:
+        if strict:
+            raise ValueError(f'`{key}` has dtype {mask.dtype}, '
+                             'expected bool')
+        return nag
+    if mask.shape != (d.num_nodes,):
+        if strict:
+            raise ValueError(f'`{key}` has shape {mask.shape}, '
+                             f'expected ({d.num_nodes},)')
+        return nag
+    if negation:
+        mask = ~mask
+    nag = nag.select(level, np.where(mask)[0])
+    if delete_after:
+        setattr(nag[level], key, None)
+    return nag
+
+
+def select_columns(nag, key, idx, level='all'):
+    """Keep only the columns `idx` of the 2-D attribute `key` (reference
+    SelectColumns / NAGSelectColumns, src/transforms/data.py:379)."""
+    if idx is None:
+        return nag
+    idx = np.atleast_1d(np.asarray(idx, dtype=np.int64))
+    for i in nag._parse_levels(level):
+        d = nag[i]
+        v = d.get(key)
+        if v is None or v.ndim != 2:
+            continue
+        d[key] = v[:, idx]
     return nag

@@ -1,5 +1,6 @@
-"""Weights & Biases run logging; counterpart of `WandbRun` and
-`confusion_matrix_figure` in `superpoint_transformer_tpu/utils/wandb.py`.
+"""Weights & Biases run logging; counterpart of `WandbRun`,
+`confusion_matrix_figure` and `save_confusion_matrix_png` in
+`superpoint_transformer_tpu/utils/wandb.py`.
 
 The `wandb` package is used when it imports; otherwise, as in JAX, a
 local run writes the same rows to `<output_dir>/wandb/history.jsonl` and
@@ -11,7 +12,8 @@ import os.path as osp
 
 import numpy as np
 
-__all__ = ['WandbRun', 'confusion_matrix_figure']
+__all__ = ['WandbRun', 'confusion_matrix_figure',
+           'save_confusion_matrix_png']
 
 
 def confusion_matrix_figure(cm, class_names=None, normalize='true'):
@@ -44,6 +46,17 @@ def confusion_matrix_figure(cm, class_names=None, normalize='true'):
     fig.colorbar(im, ax=ax, shrink=0.8)
     fig.tight_layout()
     return fig
+
+
+def save_confusion_matrix_png(cm, path, class_names=None):
+    """Write `confusion_matrix_figure(cm)` to the PNG file `path` (its
+    directory made if needed); returns `path`. Needs matplotlib."""
+    import matplotlib.pyplot as plt
+    fig = confusion_matrix_figure(cm, class_names=class_names)
+    os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
 
 
 class WandbRun:

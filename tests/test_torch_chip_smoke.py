@@ -534,3 +534,45 @@ def test_rest_phase_rehearsal_on_the_cpu(monkeypatch):
                     ('K2', 'held-out evaluation'),
                     ('K1', 'supercluster demo training'),
                     ('K2', 'supercluster demo evaluation')]
+
+
+def test_long_tail_phase_rehearsal_on_the_cpu(monkeypatch, capsys):
+    """`phase_long_tail` end to end on the CPU on a room of 6,000 raw
+    points: the cleanup and the split, 2 train steps on k-hop crops with
+    feature dropout (7 K1 launches a step), 3 TTA runs of k-hop crops of
+    the val half (7 K2 a run) with seen and unseen val nodes, the plain
+    attention, the fused_rpe=False route and `predict` checks, the
+    confusion update, and K1 and K2 held on their widest launches."""
+    import torch
+    from superpoint_transformer_torch.transforms.preprocess import (
+        preprocess_cloud)
+    from superpoint_transformer_torch.utils.synthetic import (
+        synthetic_room_cloud)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    _rehearse_on_the_cpu(monkeypatch)
+    # a small room: smaller TTA crops, so that the runs leave val nodes
+    # unseen
+    monkeypatch.setattr(chip_smoke, 'LONG_TAIL_TTA_KHOP',
+                        dict(k_hop=1, n_seeds=4, i_level=1))
+    held, hold = [], chip_smoke.hold_on_path
+
+    def holding(name, args, path):
+        held.append((name, path))
+        hold(name, args, path)
+
+    monkeypatch.setattr(chip_smoke, 'hold_on_path', holding)
+    room = preprocess_cloud(synthetic_room_cloud(seed=0, n_points=6_000))
+    try:
+        paths = chip_smoke.phase_long_tail(torch.device('cpu'), 'cpu', room)
+    finally:
+        torch.set_num_threads(threads)
+    assert paths == {'long-tail': {'K1': 7 * chip_smoke.LONG_TAIL_STEPS,
+                                   'K2': 7 * chip_smoke.LONG_TAIL_TTA_RUNS}}
+    assert held == [('K1', 'long-tail training'),
+                    ('K2', 'long-tail TTA serving')]
+    line, = [p for p in capsys.readouterr().out.splitlines()
+             if 'seen share' in p]
+    seen = float(line.split('seen share ')[1].split(',')[0])
+    unseen = float(line.split('unseen share ')[1].split(';')[0])
+    assert 0 < seen < 1 and seen + unseen == pytest.approx(1)

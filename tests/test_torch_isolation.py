@@ -13,7 +13,8 @@ preprocessed DALES tile with SPT-3, and serves whole clouds (the device
 KNN on the CPU, the stacked forward, a reference checkpoint imported), and
 runs the Delaunay graph, the spatial split, the pseudo-instances, the
 other ground models, the grid partition, the exported losses and
-injections and the HTML viewer.
+injections and the HTML viewer, and the long-tail transforms, TTA
+accumulation, the confusion update and the `fused_rpe=False` route.
 No module of the port imports the JAX package, jax, flax,
 optax or orbax, even inside a function.
 Its native library is its own build of `native/*.cpp`, never the prebuilt
@@ -342,6 +343,37 @@ SCRIPT = textwrap.dedent('''
     assert '<canvas' in visualize_3d(dnag, max_points=100).html()
     print('REST_OK')
 
+    import numpy as np
+    from superpoint_transformer_torch.metrics.semantic import (
+        confusion_matrix_update)
+    from superpoint_transformer_torch.models.output import tta_accumulate
+    from superpoint_transformer_torch.nn.attention import (
+        set_pallas_attention)
+    from superpoint_transformer_torch.transforms import runtime as T
+    from superpoint_transformer_torch.utils.synthetic import random_nag
+    rng = np.random.default_rng(0)
+    lt = T.inliers(random_nag(seed=3), k_min=1, r_max=2.0, recursive=True)
+    lt[1]['is_val'] = rng.random(lt[1].num_nodes) < 0.5
+    lt = T.select_by_key(T.shuffle(lt, rng), 'is_val', level=1)
+    lt = T.dropout_rows(T.sample_khop_subgraphs(lt, rng, n_seeds=2), rng,
+                        key='rgb')
+    n = lt[1].num_nodes
+    acc = tta_accumulate([np.ones((n, 3))], [np.arange(n)], n + 2, 3,
+                         pos=np.random.default_rng(1).random((n + 2, 3)))
+    assert np.isfinite(acc).all() and (acc[n:] == 1).all()
+    cm = confusion_matrix_update(torch.tensor([0, 1, 2]),
+                                 torch.tensor([0, 1, 5]), 3)
+    assert cm.sum() == 2
+    m = SemanticSegmentationModel(
+        build_model(FLAGSHIP_CFG, num_graphs=2, device='cpu'), 13)
+    init_weights(m, torch.Generator().manual_seed(0)).eval()
+    b = from_numpy(random_padded_nag(seed=0, num_graphs=2, n_points=500,
+                                     n_l1=40, n_l2=10), 'cpu', 'bfloat16')
+    ref = infer_batch(m, b)
+    set_pallas_attention(m, True, fused_rpe=False)
+    assert infer_batch(m, b).shape == ref.shape
+    print('LONG_TAIL_OK')
+
     loaded = sorted(m for m in sys.modules
                     if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
@@ -407,6 +439,15 @@ def test_rest_runs_without_jax_flax_h5py_yaml_matplotlib(blocked_run):
     matplotlib and the JAX package blocked."""
     assert blocked_run.returncode == 0, blocked_run.stderr
     assert 'REST_OK' in blocked_run.stdout
+
+
+def test_long_tail_runs_without_jax_flax_h5py_yaml_matplotlib(blocked_run):
+    """The long-tail transforms (`inliers`, `shuffle`, `select_by_key`,
+    k-hop crops, row dropout), `tta_accumulate` with the fill of unseen
+    nodes, `confusion_matrix_update` and a forward on the
+    `fused_rpe=False` route, with the same imports blocked."""
+    assert blocked_run.returncode == 0, blocked_run.stderr
+    assert 'LONG_TAIL_OK' in blocked_run.stdout
 
 
 def _imports(path):
