@@ -1,0 +1,8 @@
+"""gather_ms.train (ms, layer: model ops; moves train_points_per_s): device
+time of the kernels launched inside spt.gather spans (the gathers, forward
+and backward) a step, traced."""
+from benchmark.harness.spans import gather_ms
+
+
+def read(run):
+    return gather_ms(run, train=True)

@@ -1,0 +1,8 @@
+"""h2d_mb.train (MB, layer: batch boundary; moves train_points_per_s): MB that
+from_numpy ships to the card a call, by its own counters (from_numpy.bytes /
+from_numpy.calls)."""
+from benchmark.harness.spans import h2d_mb
+
+
+def read(run):
+    return h2d_mb(run, train=True)

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ['PaddedLevel', 'PaddedNAG', 'PaddedPointCloud', 'from_numpy',
            'point_cloud_from_numpy', 'strip_for_inference']
 
@@ -165,7 +167,23 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
     `pin_memory` and a CUDA `device`, each leaf is copied from pinned
     host memory without blocking the host. A stacked batch
     (`inference.stack_batches`: a leading tile axis on every leaf, a
-    tuple of node counts a level) converts the same way."""
+    tuple of node counts a level) converts the same way.
+
+    The work runs in one `spt.batch` span. On a CUDA `device`,
+    `from_numpy.calls` counts the calls and `from_numpy.bytes` the bytes
+    shipped to the card, each leaf at the dtype it crosses in (the size
+    after its host cast)."""
+    with annotate('spt.batch'):
+        return _from_numpy(batch, device, compute_dtype, train, pin_memory)
+
+
+# calls and bytes shipped to a CUDA device since import (plain CPU calls
+# are not counted)
+from_numpy.calls = 0
+from_numpy.bytes = 0
+
+
+def _from_numpy(batch, device, compute_dtype, train, pin_memory):
     device = torch.device(device)
     pin = pin_memory and device.type == 'cuda'
     feat_dtype = torch.bfloat16 if compute_dtype in ('bf16', 'bfloat16') \
@@ -178,7 +196,7 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
             nid = np.asarray(lvl1.node_id).astype(np.int64)
     if not train:
         batch = strip_for_inference(batch)
-    levels = []
+    levels, shipped = [], 0
     for lvl in batch.levels:
         kw = {}
         for f in dataclasses.fields(PaddedLevel):
@@ -187,8 +205,13 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
                 kw[f.name] = tuple(int(x) for x in v) \
                     if isinstance(v, (tuple, list)) else int(v)
             elif v is not None and f.name not in _HOST_ONLY:
-                kw[f.name] = _to_tensor(f.name, v, device, feat_dtype, pin)
+                t = _to_tensor(f.name, v, device, feat_dtype, pin)
+                shipped += t.numel() * t.element_size()
+                kw[f.name] = t
         levels.append(PaddedLevel(**kw))
+    if device.type == 'cuda':
+        from_numpy.calls += 1
+        from_numpy.bytes += shipped
     return PaddedNAG(levels=tuple(levels), start_i_level=start,
                      num_graphs=int(batch.num_graphs),
                      level1_node_id=nid)

@@ -6,6 +6,7 @@ and `to_nag_order` in `superpoint_transformer_tpu/inference.py`, plus
 (`e2e_inference`'s shared padded signature of its tiles). The batch goes to the
 device of the model's parameters, and the forward runs there.
 """
+import contextlib
 import dataclasses
 import time
 
@@ -17,6 +18,7 @@ from .data.pad import pad_nag
 from .data.padded import PaddedNAG, from_numpy, strip_for_inference
 from .transforms.prepare import BatchConfig, batch_signature, process_batch
 from .transforms.preprocess import preprocess_cloud
+from .utils.profiling import annotate
 
 __all__ = ['EVAL_BATCH_OVERRIDES', 'tile_cloud', 'level1_node_id',
            'to_nag_order', 'infer_batch', 'infer_nag', 'e2e_inference',
@@ -85,12 +87,14 @@ def to_nag_order(row_batch, nid):
 def infer_batch(model, batch):
     """Level-1 class predictions of a `SemanticSegmentationModel` on a
     padded batch (`data.padded.from_numpy`), as a host int64 array in
-    the NAG's level-1 row order. One device-to-host copy."""
+    the NAG's level-1 row order. One device-to-host copy. The argmax,
+    the copy and the reordering run in one `spt.fetch` span."""
     with torch.inference_mode():
         logits = model(batch)
-        n1 = batch[1].num_nodes
-        pred = logits[0][:n1].argmax(1).cpu().numpy()
-    return to_nag_order(pred, level1_node_id(batch, n1))
+        with annotate('spt.fetch'):
+            n1 = batch[1].num_nodes
+            pred = logits[0][:n1].argmax(1).cpu().numpy()
+            return to_nag_order(pred, level1_node_id(batch, n1))
 
 
 def _model_device(model):
@@ -102,7 +106,17 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _add(timings, key, t0):
+@contextlib.contextmanager
+def _phase(timings, key, device=None):
+    """Phase `key` of a timed path, in one `spt.<key>` span. When
+    `timings` is a dict, the phase ends with a synchronize of `device`
+    (where given) and its seconds accumulate under `key`; otherwise
+    nothing waits for the device."""
+    t0 = time.perf_counter()
+    with annotate('spt.' + key):
+        yield
+        if timings is not None and device is not None:
+            _sync(device)
     if timings is not None:
         timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
 
@@ -125,18 +139,13 @@ def _pad_eval(big, cfg):
 def _forward_level1(model, host, device, compute_dtype, timings=None):
     """Move a host batch to `device` and run the forward: (level-1
     logits of the valid rows in batch order, the batch's level-1 node
-    ids). Accumulates 'transfer' (after a device synchronize) and
-    'forward' seconds in `timings`."""
-    t0 = time.perf_counter()
-    batch = from_numpy(host, device, compute_dtype)
-    _sync(device)
-    _add(timings, 'transfer', t0)
-    t0 = time.perf_counter()
+    ids). When `timings` is a dict, accumulates 'transfer' and 'forward'
+    seconds in it, each phase ended by a device synchronize."""
+    with _phase(timings, 'transfer', device):
+        batch = from_numpy(host, device, compute_dtype)
     n1 = batch[1].num_nodes
-    with torch.inference_mode():
+    with _phase(timings, 'forward', device), torch.inference_mode():
         logits = model(batch)[0][:n1]
-    _sync(device)
-    _add(timings, 'forward', t0)
     return logits, level1_node_id(batch, n1)
 
 
@@ -154,9 +163,8 @@ def infer_nag(model, nag, cfg, fetch='argmax', timings=None):
         raise ValueError(f"infer_nag: fetch={fetch!r} ('argmax' or "
                          "'logits')")
     device, compute_dtype = _model_device(model)
-    t0 = time.perf_counter()
-    host = _pad_eval(process_batch([nag], cfg, train=False), cfg)
-    _add(timings, 'pad', t0)
+    with _phase(timings, 'pad'):
+        host = _pad_eval(process_batch([nag], cfg, train=False), cfg)
     logits, nid = _forward_level1(model, host, device, compute_dtype,
                                   timings)
     out = logits.argmax(1) if fetch == 'argmax' else logits.float()
@@ -255,51 +263,44 @@ def infer_nags_stacked(model, nags, cfg, timings=None, warmup=False,
     Returns a list of per-tile [N1] int32 host predictions, each in its
     NAG's level-1 row order. When `timings` is a dict, accumulates 'pad',
     'transfer', 'forward', 'fetch' (and 'warmup_compile') seconds; the
-    transfer and the forward each end with a synchronize of the model's
-    device."""
+    transfer and the forwards each end with a synchronize of the model's
+    device. Each phase runs in an `spt.<phase>` span."""
     device, compute_dtype = _model_device(model)
-    t0 = time.perf_counter()
-    batches, nids, n1s = [], [], []
-    for ti, nag in enumerate(nags):
-        big = processed[ti] if processed is not None \
-            else process_batch([nag], cfg, train=False)
-        b = _pad_eval(big, cfg)
-        n1 = int(nag[1].num_nodes)
-        # batch-row -> NAG-row map, read BEFORE strip (strip drops it)
-        nids.append(level1_node_id(b, n1))
-        n1s.append(n1)
-        batches.append(strip_for_inference(b))
-    T = len(batches)
-    chunk = max(1, min(max_tiles_per_program, T))
-    groups = []
-    for c0 in range(0, T, chunk):
-        g = batches[c0:c0 + chunk]
-        g = g + [g[-1]] * (chunk - len(g))  # fill: one signature
-        groups.append(stack_batches(g))
-    del batches
-    _add(timings, 'pad', t0)
+    with _phase(timings, 'pad'):
+        batches, nids, n1s = [], [], []
+        for ti, nag in enumerate(nags):
+            big = processed[ti] if processed is not None \
+                else process_batch([nag], cfg, train=False)
+            b = _pad_eval(big, cfg)
+            n1 = int(nag[1].num_nodes)
+            # batch-row -> NAG-row map, read BEFORE strip (strip drops it)
+            nids.append(level1_node_id(b, n1))
+            n1s.append(n1)
+            batches.append(strip_for_inference(b))
+        T = len(batches)
+        chunk = max(1, min(max_tiles_per_program, T))
+        groups = []
+        for c0 in range(0, T, chunk):
+            g = batches[c0:c0 + chunk]
+            g = g + [g[-1]] * (chunk - len(g))  # fill: one signature
+            groups.append(stack_batches(g))
+        del batches
 
     out_chunks = []
     for gi, host in enumerate(groups):
-        t0 = time.perf_counter()
-        stacked = from_numpy(host, device, compute_dtype, pin_memory=True)
-        _sync(device)
-        _add(timings, 'transfer', t0)
+        with _phase(timings, 'transfer', device):
+            stacked = from_numpy(host, device, compute_dtype,
+                                 pin_memory=True)
         cap1 = stacked[1].pos.shape[1]
         preds = torch.empty((chunk, cap1), dtype=torch.int32,
                             device=device)
         if warmup and gi == 0:
-            t0 = time.perf_counter()
+            with _phase(timings, 'warmup_compile', device):
+                _forward_stack(model, stacked, preds)
+        with _phase(timings, 'forward', device):
             _forward_stack(model, stacked, preds)
-            _sync(device)
-            _add(timings, 'warmup_compile', t0)
-        t0 = time.perf_counter()
-        _forward_stack(model, stacked, preds)
-        _sync(device)
-        _add(timings, 'forward', t0)
-        t0 = time.perf_counter()
-        out_chunks.append(preds.cpu().numpy())
-        _add(timings, 'fetch', t0)
+        with _phase(timings, 'fetch'):
+            out_chunks.append(preds.cpu().numpy())
         del stacked
 
     fetched = np.concatenate(out_chunks)[:T]  # [T, cap1] int32
@@ -316,7 +317,8 @@ def e2e_inference(model, data, pre_cfg=None, batch_cfg=None, tiling=None,
     level 0 (`without_level0`); level 0 still maps the predictions back
     to the raw points.
 
-    Phases (all timed; `info['timings_sec']` reports each, in seconds):
+    Phases (all timed, each in an `spt.<phase>` profiler span;
+    `info['timings_sec']` reports each, in seconds):
       tile        xy split of the raw cloud
       preprocess  per-tile `preprocess_cloud` (voxelize .. graph)
       transform   per-tile `process_batch` (features, graph)
@@ -342,41 +344,36 @@ def e2e_inference(model, data, pre_cfg=None, batch_cfg=None, tiling=None,
     info = {'n_raw_points': n_raw, 'tiling': tuple(tiling)}
     t = {}
 
-    t0 = time.perf_counter()
-    tiles = tile_cloud(data, tiling)
-    t['tile'] = time.perf_counter() - t0
+    with _phase(t, 'tile'):
+        tiles = tile_cloud(data, tiling)
     info['n_tiles'] = len(tiles)
 
-    t0 = time.perf_counter()
-    nags = [preprocess_cloud(tile, **pre_cfg) for tile, _ in tiles]
-    t['preprocess'] = time.perf_counter() - t0
+    with _phase(t, 'preprocess'):
+        nags = [preprocess_cloud(tile, **pre_cfg) for tile, _ in tiles]
     info['n_voxels'] = int(sum(n[0].num_nodes for n in nags))
 
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(batch_cfg, **EVAL_BATCH_OVERRIDES)
-    inputs = [without_level0(nag) if cfg.nano else nag for nag in nags]
-    bigs = [process_batch([nag], cfg, train=False) for nag in inputs]
-    t['transform'] = time.perf_counter() - t0
+    with _phase(t, 'transform'):
+        cfg = dataclasses.replace(batch_cfg, **EVAL_BATCH_OVERRIDES)
+        inputs = [without_level0(nag) if cfg.nano else nag for nag in nags]
+        bigs = [process_batch([nag], cfg, train=False) for nag in inputs]
 
-    t0 = time.perf_counter()
-    cfg = pin_signature(bigs, cfg)
-    t['pin'] = time.perf_counter() - t0
+    with _phase(t, 'pin'):
+        cfg = pin_signature(bigs, cfg)
 
     preds1 = infer_nags_stacked(model, inputs, cfg, timings=t,
                                 warmup=warmup, processed=bigs)
 
-    t0 = time.perf_counter()
-    out = np.empty(n_raw, dtype=np.int32)
-    for (tile, raw_idx), nag, p1 in zip(tiles, nags, preds1):
-        # level-1 pred -> voxels -> the tile's raw points (reference
-        # output_semantic.py:139 full_res_semantic_pred) -> raw rows
-        voxel_pred = p1[np.asarray(nag[0].super_index)]
-        sub = nag[0].sub
-        full = np.empty(sub.num_items, dtype=np.int32)
-        full[np.asarray(sub.points)] = np.repeat(
-            voxel_pred, np.asarray(sub.sizes))
-        out[raw_idx] = full
-    t['recover'] = time.perf_counter() - t0
+    with _phase(t, 'recover'):
+        out = np.empty(n_raw, dtype=np.int32)
+        for (tile, raw_idx), nag, p1 in zip(tiles, nags, preds1):
+            # level-1 pred -> voxels -> the tile's raw points (reference
+            # output_semantic.py:139 full_res_semantic_pred) -> raw rows
+            voxel_pred = p1[np.asarray(nag[0].super_index)]
+            sub = nag[0].sub
+            full = np.empty(sub.num_items, dtype=np.int32)
+            full[np.asarray(sub.points)] = np.repeat(
+                voxel_pred, np.asarray(sub.sizes))
+            out[raw_idx] = full
 
     timed = sum(v for k, v in t.items() if k != 'warmup_compile')
     info['timings_sec'] = {k: round(v, 3) for k, v in t.items()}

@@ -19,6 +19,7 @@ from ..nn.mlp import Classifier
 from ..parallel.collectives import all_reduce_mean_
 from ..optim.lr_scheduler import (cosine_with_warmup, make_optimizer,
                                   make_plateau_optimizer, set_lr)
+from ..utils.profiling import annotate
 
 __all__ = ['SemanticSegmentationModel', 'SemanticTask']
 
@@ -39,9 +40,10 @@ class SemanticSegmentationModel(nn.Module):
 
     def forward(self, nag):
         """Returns the logits of levels 1..L, low to high: a list of
-        [N_i, num_classes] f32."""
-        return [getattr(self, f'head_{i}')(x)
-                for i, x in enumerate(self.net(nag))]
+        [N_i, num_classes] f32. Runs in one `spt.forward` span."""
+        with annotate('spt.forward'):
+            return [getattr(self, f'head_{i}')(x)
+                    for i, x in enumerate(self.net(nag))]
 
 
 class SemanticTask:
@@ -111,9 +113,11 @@ class SemanticTask:
 
     def loss(self, batch):
         """(multi-stage loss, logits of levels 1..L) in the model's
-        current mode. Supervised levels are 1..len(lambdas)."""
-        logits = self.model(batch)
-        return self._semantic_loss(logits, batch), logits
+        current mode. Supervised levels are 1..len(lambdas). Runs in one
+        `spt.loss` span, around the forward's `spt.forward`."""
+        with annotate('spt.loss'):
+            logits = self.model(batch)
+            return self._semantic_loss(logits, batch), logits
 
     def _semantic_loss(self, logits, batch, group=None):
         levels = [batch[1 + i] for i in range(len(self.lambdas))]
@@ -142,13 +146,19 @@ class SemanticTask:
         its own `batch`) the step is one update of the group:
         data-parallel, or with `sharded` on this rank's shard of one
         node-sharded batch, whose model was built with `group` as its
-        `shard_group` (`parallel/mesh.py`)."""
+        `shard_group` (`parallel/mesh.py`).
+
+        Its phases run in spans: `spt.loss` (with the forward),
+        `spt.backward`, `spt.optim` (zero_grad, the LR and the update)
+        and `spt.metrics` (the confusion matrix)."""
         if group is not None:
             return self._group_step(batch, group, sharded)
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        with annotate('spt.optim'):
+            self.optimizer.zero_grad(set_to_none=True)
         loss, logits = self.loss(batch)
-        loss.backward()
+        with annotate('spt.backward'):
+            loss.backward()
         k = self.accumulate_grad_batches
         if k > 1:
             self._accumulate()
@@ -158,13 +168,15 @@ class SemanticTask:
             if k > 1:
                 for p, acc in zip(self.model.parameters(), self._acc):
                     p.grad = acc
-            set_lr(self.optimizer, self.schedules, self.updates,
-                   self.lr_mult)
-            self.optimizer.step()
+            with annotate('spt.optim'):
+                set_lr(self.optimizer, self.schedules, self.updates,
+                       self.lr_mult)
+                self.optimizer.step()
             self.updates += 1
             self.mini_step = 0
-        return {'loss': loss.detach(), 'confmat': self._confmat(logits,
-                                                                batch)}
+        with annotate('spt.metrics'):
+            confmat = self._confmat(logits, batch)
+        return {'loss': loss.detach(), 'confmat': confmat}
 
     def check_group_step(self, group=None, sharded=False):
         """Raise ValueError where the data-parallel step, or with

@@ -31,6 +31,10 @@ Consumes a `PaddedNAG` of tensors (`data/padded.py`). Built with
 batch (`parallel/shard_nag.py:shard_padded_nag`): every stage reduces its
 per-graph statistics over the group and attends over the ranks' gathered
 k/v rows (`parallel/mesh.py:make_sharded_forward`).
+
+The forward's sections run in profiler spans (`utils/profiling.py:
+annotate`): `spt.hf` (the handcrafted-feature MLPs), `spt.stage.first`,
+`spt.stage.down<i>` and `spt.stage.up<i>`.
 """
 from torch import nn
 
@@ -38,6 +42,7 @@ from ..nn.dropout import DropoutRNG
 from ..nn.mlp import MLP
 from ..nn.stage import (DownNFuseStage, UpNFuseStage, PointStage, Stage,
                         _cat)
+from ..utils.profiling import annotate
 
 __all__ = ['SPT']
 
@@ -192,53 +197,55 @@ class SPT(nn.Module):
         num_down = self.num_down_stages
 
         # ---- per-level handcrafted-feature MLPs ------------------------
-        xs, efs, vefs = {}, {}, {}
-        for i_stage in range(num_down + nano):
-            i_level = i_stage + 1
-            lvl = nag[i_level]
-            ni = lvl.batch
-            x_hf = lvl.x if self.use_node_hf else None
-            node_mlp = self._hf_mlp('node', i_stage)
-            if x_hf is not None and node_mlp is not None:
-                x_hf = node_mlp(x_hf, batch=ni, mask=lvl.node_mask)
-            xs[i_level] = x_hf
+        with annotate('spt.hf'):
+            xs, efs, vefs = {}, {}, {}
+            for i_stage in range(num_down + nano):
+                i_level = i_stage + 1
+                lvl = nag[i_level]
+                ni = lvl.batch
+                x_hf = lvl.x if self.use_node_hf else None
+                node_mlp = self._hf_mlp('node', i_stage)
+                if x_hf is not None and node_mlp is not None:
+                    x_hf = node_mlp(x_hf, batch=ni, mask=lvl.node_mask)
+                xs[i_level] = x_hf
 
-            ef = lvl.edge_feat
-            h_edge_mlp = self._hf_mlp('h_edge', i_stage)
-            if ef is not None and h_edge_mlp is not None:
-                N, K, De = ef.shape
-                em = lvl.nbr_mask.reshape(N * K)
-                flat = h_edge_mlp(ef.reshape(N * K, De),
-                                  batch=ni.repeat_interleave(K), mask=em)
-                ef = flat.reshape(N, K, -1) * em.reshape(N, K, 1)
-            efs[i_level] = ef
+                ef = lvl.edge_feat
+                h_edge_mlp = self._hf_mlp('h_edge', i_stage)
+                if ef is not None and h_edge_mlp is not None:
+                    N, K, De = ef.shape
+                    em = lvl.nbr_mask.reshape(N * K)
+                    flat = h_edge_mlp(ef.reshape(N * K, De),
+                                      batch=ni.repeat_interleave(K), mask=em)
+                    ef = flat.reshape(N, K, -1) * em.reshape(N, K, 1)
+                efs[i_level] = ef
 
-            child = nag[i_level - 1] if i_level - 1 >= start else None
-            vef = child.v_edge_attr if child is not None else None
-            v_edge_mlp = self._hf_mlp('v_edge', i_stage)
-            if vef is not None and v_edge_mlp is not None:
-                vef = v_edge_mlp(vef, batch=child.batch,
-                                 mask=child.node_mask)
-            vefs[i_level] = vef
+                child = nag[i_level - 1] if i_level - 1 >= start else None
+                vef = child.v_edge_attr if child is not None else None
+                v_edge_mlp = self._hf_mlp('v_edge', i_stage)
+                if vef is not None and v_edge_mlp is not None:
+                    vef = v_edge_mlp(vef, batch=child.batch,
+                                     mask=child.node_mask)
+                vefs[i_level] = vef
 
         # ---- first stage -------------------------------------------------
-        lvl0 = nag[start]
-        if nano:
-            # level 1 attends with the first down widths (no pooling)
-            x, diameter = self.first_stage(
-                xs[1], lvl0.batch, pos=lvl0.pos, node_size=lvl0.node_size,
-                super_index=lvl0.super_index,
-                num_super=nag[start + 1].capacity, nbr_idx=lvl0.nbr_idx,
-                nbr_mask=lvl0.nbr_mask, edge_feat=efs.get(1),
-                mask=lvl0.node_mask, nbr_in_idx=lvl0.nbr_in_idx,
-                nbr_in_mask=lvl0.nbr_in_mask)
-        else:
-            x, diameter = self.first_stage(
-                lvl0.x if self.use_node_hf else None, lvl0.batch,
-                cnn_nbr_idx=lvl0.cnn_nbr_idx, pos=lvl0.pos,
-                node_size=lvl0.node_size, super_index=lvl0.super_index,
-                num_super=nag[start + 1].capacity, mask=lvl0.node_mask)
-        diameters = {start + 1: diameter}
+        with annotate('spt.stage.first'):
+            lvl0 = nag[start]
+            if nano:
+                # level 1 attends with the first down widths (no pooling)
+                x, diameter = self.first_stage(
+                    xs[1], lvl0.batch, pos=lvl0.pos,
+                    node_size=lvl0.node_size, super_index=lvl0.super_index,
+                    num_super=nag[start + 1].capacity, nbr_idx=lvl0.nbr_idx,
+                    nbr_mask=lvl0.nbr_mask, edge_feat=efs.get(1),
+                    mask=lvl0.node_mask, nbr_in_idx=lvl0.nbr_in_idx,
+                    nbr_in_mask=lvl0.nbr_in_mask)
+            else:
+                x, diameter = self.first_stage(
+                    lvl0.x if self.use_node_hf else None, lvl0.batch,
+                    cnn_nbr_idx=lvl0.cnn_nbr_idx, pos=lvl0.pos,
+                    node_size=lvl0.node_size, super_index=lvl0.super_index,
+                    num_super=nag[start + 1].capacity, mask=lvl0.node_mask)
+            diameters = {start + 1: diameter}
 
         # ---- encoder -----------------------------------------------------
         down_outputs = [x] if nano else []
@@ -246,17 +253,19 @@ class SPT(nn.Module):
             i_level = i_stage + 1 + nano
             lvl, child = nag[i_level], nag[i_level - 1]
             is_last = i_level == nag.end_i_level
-            x, diameter = getattr(self, f'down_stage_{i_stage}')(
-                xs[i_level], x, lvl.batch, child.super_index,
-                num_parents=lvl.capacity, child_mask=child.node_mask,
-                v_edge_attr=vefs.get(i_level),
-                pos=lvl.pos, diameter=diameters.get(i_level),
-                node_size=lvl.node_size,
-                super_index=None if is_last else lvl.super_index,
-                num_super=None if is_last else nag[i_level + 1].capacity,
-                nbr_idx=lvl.nbr_idx, nbr_mask=lvl.nbr_mask,
-                edge_feat=efs.get(i_level), mask=lvl.node_mask,
-                nbr_in_idx=lvl.nbr_in_idx, nbr_in_mask=lvl.nbr_in_mask)
+            with annotate(f'spt.stage.down{i_stage}'):
+                x, diameter = getattr(self, f'down_stage_{i_stage}')(
+                    xs[i_level], x, lvl.batch, child.super_index,
+                    num_parents=lvl.capacity, child_mask=child.node_mask,
+                    v_edge_attr=vefs.get(i_level),
+                    pos=lvl.pos, diameter=diameters.get(i_level),
+                    node_size=lvl.node_size,
+                    super_index=None if is_last else lvl.super_index,
+                    num_super=None if is_last
+                    else nag[i_level + 1].capacity,
+                    nbr_idx=lvl.nbr_idx, nbr_mask=lvl.nbr_mask,
+                    edge_feat=efs.get(i_level), mask=lvl.node_mask,
+                    nbr_in_idx=lvl.nbr_in_idx, nbr_in_mask=lvl.nbr_in_mask)
             down_outputs.append(x)
             if not is_last:
                 diameters[i_level + 1] = diameter
@@ -267,14 +276,15 @@ class SPT(nn.Module):
             i_level = num_down - i_stage - 1 + nano
             lvl = nag[i_level]
             x_skip = down_outputs[-(2 + i_stage)]
-            x, _ = getattr(self, f'up_stage_{i_stage}')(
-                _cat(x_skip, xs[i_level]), x, lvl.batch, lvl.super_index,
-                pos=lvl.pos, node_size=lvl.node_size,
-                super_index=lvl.super_index,
-                num_super=nag[i_level + 1].capacity, nbr_idx=lvl.nbr_idx,
-                nbr_mask=lvl.nbr_mask, edge_feat=efs.get(i_level),
-                mask=lvl.node_mask, nbr_in_idx=lvl.nbr_in_idx,
-                nbr_in_mask=lvl.nbr_in_mask)
+            with annotate(f'spt.stage.up{i_stage}'):
+                x, _ = getattr(self, f'up_stage_{i_stage}')(
+                    _cat(x_skip, xs[i_level]), x, lvl.batch,
+                    lvl.super_index, pos=lvl.pos, node_size=lvl.node_size,
+                    super_index=lvl.super_index,
+                    num_super=nag[i_level + 1].capacity,
+                    nbr_idx=lvl.nbr_idx, nbr_mask=lvl.nbr_mask,
+                    edge_feat=efs.get(i_level), mask=lvl.node_mask,
+                    nbr_in_idx=lvl.nbr_in_idx, nbr_in_mask=lvl.nbr_in_mask)
             up_outputs.append(x)
 
         if not self.output_stage_wise:

@@ -12,6 +12,8 @@ slots, in a fixed order.
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
+
 __all__ = ['gather_rows_t']
 
 
@@ -26,10 +28,12 @@ class _GatherRowsT(torch.autograd.Function):
     def backward(ctx, g):
         in_idx, in_mask = ctx.saved_tensors
         N, K, C = g.shape
-        inc = F.embedding(in_idx, g.reshape(N * K, C))    # [N, K_in, C]
-        inc = inc * in_mask[..., None].to(inc.dtype)
-        acc = torch.float32 if inc.dtype == torch.bfloat16 else inc.dtype
-        return inc.sum(1, dtype=acc).to(g.dtype), None, None, None
+        with annotate('spt.gather'):
+            inc = F.embedding(in_idx, g.reshape(N * K, C))  # [N, K_in, C]
+            inc = inc * in_mask[..., None].to(inc.dtype)
+            acc = torch.float32 if inc.dtype == torch.bfloat16 \
+                else inc.dtype
+            return inc.sum(1, dtype=acc).to(g.dtype), None, None, None
 
 
 def gather_rows_t(table, nbr_idx, in_idx, in_mask):
@@ -42,5 +46,8 @@ def gather_rows_t(table, nbr_idx, in_idx, in_mask):
     :param in_mask: [N, K_in] bool, slot validity
     :return: [N, K, C]; the gradient of `table` sums each row's incoming
         cotangents, in f32 for a bf16 table
+
+    Forward and backward run in `spt.gather` spans.
     """
-    return _GatherRowsT.apply(table, nbr_idx, in_idx, in_mask)
+    with annotate('spt.gather'):
+        return _GatherRowsT.apply(table, nbr_idx, in_idx, in_mask)

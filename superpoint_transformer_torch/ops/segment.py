@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.flops import count_contraction
+from ..utils.profiling import annotate
 
 __all__ = ['segment_sum', 'segment_count', 'segment_max', 'segment_min',
            'segment_mean', 'segment_std', 'segment_softmax',
@@ -45,7 +46,8 @@ class _OneHotSegmentSum(torch.autograd.Function):
     """Sum of the f32 rows `x` [N, C] per segment as the contraction
     one_hot(idx)^T @ x, in exact f32 passes whatever the matmul precision
     setting (TF32 would round the summands). Its backward, one_hot @ g,
-    picks one row of g for each row of x: a gather, exact."""
+    picks one row of g for each row of x: a gather, exact (in a
+    `spt.gather` span, as the other gathers)."""
 
     @staticmethod
     def forward(ctx, x, idx, num_segments):
@@ -63,9 +65,10 @@ class _OneHotSegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        zero = g.new_zeros((1, g.shape[1]))
-        rows = _dump_index(idx, ctx.num_segments)
-        return F.embedding(rows, torch.cat([g, zero])), None, None
+        with annotate('spt.gather'):
+            zero = g.new_zeros((1, g.shape[1]))
+            rows = _dump_index(idx, ctx.num_segments)
+            return F.embedding(rows, torch.cat([g, zero])), None, None
 
 
 # rows one thread sums in the first pass of a sorted segment sum
@@ -284,9 +287,10 @@ class _GatherRows(torch.autograd.Function):
         idx, = ctx.saved_tensors
         acc = torch.float32 if g.dtype in (torch.bfloat16, torch.float16) \
             else g.dtype
-        d = segment_sum(g.reshape(-1, g.shape[-1]), idx.reshape(-1),
-                        ctx.num_rows, acc_dtype=acc)
-        return d.to(g.dtype), None
+        with annotate('spt.gather'):
+            d = segment_sum(g.reshape(-1, g.shape[-1]), idx.reshape(-1),
+                            ctx.num_rows, acc_dtype=acc)
+            return d.to(g.dtype), None
 
 
 def gather_rows(table, idx):
@@ -296,8 +300,9 @@ def gather_rows(table, idx):
     advanced indexing accumulates with `index_put_`, which walks each run
     of equal indices in one thread: a row gathered many times (a neighbor
     slot of ~48 nodes) made it take 97% of the flagship training step on
-    an H100."""
-    return _GatherRows.apply(table, idx)
+    an H100. Forward and backward run in `spt.gather` spans."""
+    with annotate('spt.gather'):
+        return _GatherRows.apply(table, idx)
 
 
 def gather_rows_small(table, idx, num_rows):
@@ -307,10 +312,11 @@ def gather_rows_small(table, idx, num_rows):
     `_ONEHOT_MAX_SEGMENTS` rows the FLOP count (`utils/flops.py`) adds
     that form's contraction, 2 * N * G * C, as the JAX count does; its
     backward here is a `segment_sum`, counted where it contracts."""
-    zero = torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype,
-                       device=table.device)
-    out = gather_rows(torch.cat([table[:num_rows], zero]),
-                      _dump_index(idx, num_rows))
+    with annotate('spt.gather'):
+        zero = torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype,
+                           device=table.device)
+        out = gather_rows(torch.cat([table[:num_rows], zero]),
+                          _dump_index(idx, num_rows))
     if num_rows <= _ONEHOT_MAX_SEGMENTS and table.dtype.is_floating_point:
         out = count_contraction(
             out, 2 * idx.shape[0] * num_rows * math.prod(table.shape[1:]),

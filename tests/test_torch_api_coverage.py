@@ -56,6 +56,10 @@ MAPPED = {
         'as SemanticTask.init_state'),
     'utils/jax_setup.py:setup_jax': (
         [], 'configures JAX (its compilation cache and platform) only'),
+    'utils/profiling.py:timer': (
+        ['utils/profiling.py:Timings'],
+        'a block timer that printed its seconds, with no caller in the '
+        'port; Timings.track times a block, annotate names it in a trace'),
 }
 
 

@@ -1,7 +1,7 @@
 """The port's run utilities: `utils/memory.py` (OOM classification,
 `task_wrapper`, `garbage_collection`, `device_memory_stats`,
 `tune_host_allocator` and its call at package import),
-`utils/profiling.py` (`timer`, `Timings`, `trace`, `annotate`) and
+`utils/profiling.py` (`Timings`, `trace`, `annotate`) and
 `debug.py` (`set_debug` and the validators of the port's `Data`, `NAG`
 and CSR containers), on the CPU; the OOM markers and the validators
 against the JAX package's on the same inputs."""
@@ -109,14 +109,7 @@ def test_package_import_tunes_the_allocator_unless_opted_out(opt_out):
     assert tuned is (not opt_out) and again is False
 
 
-def test_timer_and_timings(capsys):
-    out = {}
-    with profiling.timer('a', out=out):
-        pass
-    with profiling.timer('a', out=out, verbose=False):
-        pass
-    assert set(out) == {'a'} and out['a'] >= 0
-    assert '[timer] a:' in capsys.readouterr().out
+def test_timer_and_timings():
     t = profiling.Timings()
     for _ in range(2):
         with t.track('x'):
