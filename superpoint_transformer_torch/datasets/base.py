@@ -423,8 +423,7 @@ class PreparedDataLoader(DataLoader):
 
     def _to_device(self, host):
         from ..data.padded import from_numpy
-        return from_numpy(host, self.device, self.compute_dtype, train=True,
-                          pin_memory=True)
+        return from_numpy(host, self.device, self.compute_dtype, train=True)
 
     def __iter__(self):
         import queue

@@ -243,10 +243,10 @@ def infer_nags_stacked(model, nags, cfg, timings=None, warmup=False,
                        processed=None, max_tiles_per_program=8):
     """Whole-cloud forward over preprocessed tiles, a chunk of tiles at
     a time: pad each tile to the shared signature on the host, stack,
-    one pinned host-to-device copy of each stacked leaf, the forwards
-    over the tile axis with no host synchronize between them, each tile's
-    level-1 argmax into one device [chunk, cap1] int32 tensor, then one
-    synchronize and one device-to-host copy.
+    one host-to-device copy of the stacked batch (`from_numpy`), the
+    forwards over the tile axis with no host synchronize between them,
+    each tile's level-1 argmax into one device [chunk, cap1] int32
+    tensor, then one synchronize and one device-to-host copy.
 
     `cfg` (a `BatchConfig`) should pin node_caps / k_caps / k_in_caps so
     that every tile pads to one signature (`e2e_inference` does).
@@ -289,8 +289,7 @@ def infer_nags_stacked(model, nags, cfg, timings=None, warmup=False,
     out_chunks = []
     for gi, host in enumerate(groups):
         with _phase(timings, 'transfer', device):
-            stacked = from_numpy(host, device, compute_dtype,
-                                 pin_memory=True)
+            stacked = from_numpy(host, device, compute_dtype)
         cap1 = stacked[1].pos.shape[1]
         preds = torch.empty((chunk, cap1), dtype=torch.int32,
                             device=device)

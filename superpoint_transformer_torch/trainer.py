@@ -263,8 +263,7 @@ class Trainer:
 
     def _to_device(self, host):
         return from_numpy(host, self.device,
-                          self.task.model.net.compute_dtype, train=True,
-                          pin_memory=True)
+                          self.task.model.net.compute_dtype, train=True)
 
     # -- checkpoints -----------------------------------------------------
     def _ckpt_dir(self, name):

@@ -3,8 +3,9 @@
 runs; one traced training step and one traced request open every span
 the benchmark's span metrics read (`benchmark/harness/spans.py`), nested
 as the layers are; `from_numpy.bytes` counts the bytes shipped to a card
-(on a card only); the inference phase timers synchronize only for a
-caller that asked for timings, and open their phases as spans."""
+and `from_numpy.stage_waits` the waits on a staging slot (on a card
+only); the inference phase timers synchronize only for a caller that
+asked for timings, and open their phases as spans."""
 import dataclasses
 
 import numpy as np
@@ -152,9 +153,35 @@ def test_from_numpy_counts_the_bytes_it_ships(cuda_device, train):
               if isinstance(getattr(lvl, f.name), torch.Tensor)]
     assert all(t.device.type == 'cuda' for t in leaves)
     assert any(t.dtype == torch.bfloat16 for t in leaves)
+    assert any(t.dtype == torch.int64 for t in leaves)
     assert from_numpy.calls == calls + 1
-    assert from_numpy.bytes - shipped == sum(
-        t.numel() * t.element_size() for t in leaves)
+    # the one copy moves each leaf at the dtype it crosses in, integers
+    # as int32, each at a 512-byte offset
+    crossing = sum(t.numel() * (4 if t.dtype == torch.int64
+                                else t.element_size()) for t in leaves)
+    assert crossing <= from_numpy.bytes - shipped \
+        <= crossing + 511 * len(leaves)
+
+
+@pytest.mark.cuda
+def test_staging_waits_for_a_slot_whose_copy_still_runs(cuda_device):
+    """The third of three batches takes the first one's slot while the
+    first copy waits behind a sleep on the stream: it waits for it, and
+    the first batch arrives whole."""
+    hosts = [_host_batch(s) for s in (4, 5, 6)]
+    waits = from_numpy.stage_waits
+    torch.cuda._sleep(1_000_000_000)
+    first = from_numpy(hosts[0], cuda_device, 'bf16')
+    for h in hosts[1:]:
+        from_numpy(h, cuda_device, 'bf16')
+    assert from_numpy.stage_waits == waits + 1
+    want = from_numpy(hosts[0], 'cpu', 'bf16')
+    for lg, lw in zip(first.levels, want.levels):
+        for f in dataclasses.fields(lw):
+            w = getattr(lw, f.name)
+            if isinstance(w, torch.Tensor):
+                g = getattr(lg, f.name)
+                assert g.dtype == w.dtype and torch.equal(g.cpu(), w), f.name
 
 
 @pytest.fixture(scope='module')

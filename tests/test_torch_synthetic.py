@@ -13,7 +13,11 @@ from superpoint_transformer_tpu.data.pad import bucket as jax_bucket
 from superpoint_transformer_tpu.transforms import BatchConfig, prepare_batch
 from superpoint_transformer_tpu.utils.synthetic import random_nag
 from superpoint_transformer_torch.data.pad import bucket
-from superpoint_transformer_torch.data.padded import PaddedLevel, from_numpy
+from superpoint_transformer_torch.data import padded
+from superpoint_transformer_torch.data.padded import (PaddedLevel, PaddedNAG,
+                                                      from_numpy,
+                                                      strip_for_inference)
+from superpoint_transformer_torch.inference import stack_batches
 from superpoint_transformer_torch.utils.synthetic import random_padded_nag
 
 @pytest.fixture(scope='module')
@@ -158,6 +162,103 @@ def _same_layout(host, synth, compute_dtype, train):
                 assert t.dtype == feat
             elif name in ('batch', 'super_index', 'nbr_idx'):
                 assert t.dtype == torch.int64
+
+
+def _int64_leaves(batch):
+    """`batch` with every integer leaf widened to int64 on the host."""
+    return PaddedNAG(
+        levels=tuple(dataclasses.replace(lvl, **{
+            name: np.asarray(a).astype(np.int64)
+            for name, a in _fields(lvl).items()
+            if np.issubdtype(np.asarray(a).dtype, np.integer)})
+            for lvl in batch.levels),
+        start_i_level=batch.start_i_level, num_graphs=batch.num_graphs)
+
+
+def _bits(t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize('compute_dtype', [None, 'bfloat16'])
+@pytest.mark.parametrize('case', ['serve', 'train', 'stacked', 'host_path',
+                                  'int64'])
+def test_staged_batch_equals_the_per_leaf_batch(host, synth, case,
+                                                compute_dtype):
+    """The staged path (one buffer, integers across as int32 and widened
+    after the copy), with the CPU standing in for the card and an
+    unpinned ring, gives every leaf the per-leaf path's dtype, shape and
+    bits."""
+    batch, train = {
+        'serve': (synth, False), 'train': (synth, True),
+        'stacked': (stack_batches([strip_for_inference(synth)] * 2), False),
+        'host_path': (host, True), 'int64': (_int64_leaves(synth), True),
+    }[case]
+    want = from_numpy(batch, 'cpu', compute_dtype, train=train)
+    got = padded._from_numpy(batch, torch.device('cpu'), compute_dtype,
+                             train, padded._StagingRing(pin=False))
+    assert got.start_i_level == want.start_i_level
+    assert got.num_graphs == want.num_graphs
+    assert np.array_equal(got.level1_node_id, want.level1_node_id)
+    for lg, lw in zip(got.levels, want.levels):
+        fg, fw = _fields(lg), _fields(lw)
+        assert set(fg) == set(fw)
+        for name, w in fw.items():
+            g = fg[name]
+            if not isinstance(w, torch.Tensor):
+                assert g == w, name
+                continue
+            assert (g.dtype, g.shape) == (w.dtype, w.shape), name
+            assert torch.equal(_bits(g), _bits(w)), name
+
+
+def test_staged_batch_saves_and_loads(synth, tmp_path):
+    """`torch.save` refuses views of one buffer in several dtypes; a
+    staged batch's levels pickle each leaf on its own (the Trainer hands
+    its batches to the ranks so)."""
+    got = padded._from_numpy(synth, torch.device('cpu'), 'bfloat16', True,
+                             padded._StagingRing(pin=False))
+    torch.save(got, tmp_path / 'batch.pt')
+    back = torch.load(tmp_path / 'batch.pt', weights_only=False)
+    for lg, lb in zip(got.levels, back.levels):
+        for name, t in _fields(lg).items():
+            b = getattr(lb, name)
+            assert torch.equal(t, b) if isinstance(t, torch.Tensor) \
+                else t == b, name
+
+
+def _leaves(nbytes):
+    """One f32 leaf of `nbytes` bytes, as `_plan` takes it."""
+    return [((0, 'pos'), 'pos', np.ones(nbytes // 4, np.float32))]
+
+
+def test_staging_ring_alternates_and_grows_to_the_largest_batch():
+    ring = padded._StagingRing(pin=False)
+    small, large = (padded._plan(_leaves(n), None) for n in (3000, 40_000))
+    grows, sizes = padded.from_numpy.stage_grows, []
+    for plan, used in (small, large, large, small, small, large):
+        out = ring.stage(plan, used, torch.device('cpu'))
+        assert torch.equal(out.view(torch.float32), torch.ones(used // 4))
+        sizes.append([s.numel() for s in ring.slots if s is not None])
+    # slot 0 takes the 1st, 3rd and 5th batch, slot 1 the others; a slot
+    # grows to a power of two above the largest it held, once
+    assert sizes == [[4096], [4096, 65536], [65536, 65536],
+                     [65536, 65536], [65536, 65536], [65536, 65536]]
+    assert padded.from_numpy.stage_grows - grows == 3
+    assert ring.next == 0
+
+
+def test_staging_refuses_indices_past_int32_before_any_write():
+    big = np.broadcast_to(np.float32(0), (2 ** 31, 3))  # no memory
+    lvl = PaddedLevel(pos=big, node_mask=np.broadcast_to(True, (2 ** 31,)),
+                      batch=np.broadcast_to(np.int32(0), (2 ** 31,)),
+                      num_nodes=1)
+    ring = padded._StagingRing(pin=False)
+    grows = padded.from_numpy.stage_grows
+    with pytest.raises(ValueError, match='int32'):
+        padded._from_numpy(PaddedNAG(levels=(lvl,)), torch.device('cpu'),
+                           None, False, ring)
+    assert ring.slots == [None, None] and ring.next == 0
+    assert padded.from_numpy.stage_grows == grows
 
 
 def test_bucket_matches_host_path():
