@@ -117,11 +117,12 @@ class PaddedPointCloud:
         return self.pos.shape[0]
 
 
-# fields only a training step reads on the device: the label histograms
-# and the transpose neighbor tables (the k/v gathers' backward,
-# `ops/gather.py:gather_rows_t`); and `node_id`, host metadata (batch row
-# -> NAG row) that callers read before the batch goes to the device
-_TRAIN_ONLY = ('y', 'nbr_in_idx', 'nbr_in_mask')
+# fields only a training step reads on the device: the label histograms,
+# the transpose neighbor tables (the k/v gathers' backward,
+# `ops/gather.py:gather_rows_t`) and the instance graph's target
+# affinities (the edge-affinity loss); and `node_id`, host metadata (batch
+# row -> NAG row) that callers read before the batch goes to the device
+_TRAIN_ONLY = ('y', 'nbr_in_idx', 'nbr_in_mask', 'obj_edge_affinity')
 _HOST_ONLY = ('node_id',)
 # heavy float features cast to the compute dtype
 _FEATURES = ('x', 'edge_feat', 'v_edge_attr')
@@ -131,8 +132,11 @@ def strip_for_inference(batch):
     """The host half of an inference batch's transfer (the JAX
     `strip_for_inference`): `batch` (named like `PaddedNAG`, any leaves)
     as a `PaddedNAG` without the fields an inference forward never reads,
-    `y`, `nbr_in_idx`, `nbr_in_mask` and `node_id`. Read level 1's node
-    ids (`inference.level1_node_id`) before stripping. The cast of the
+    `y`, `nbr_in_idx`, `nbr_in_mask`, `obj_edge_affinity` and `node_id`,
+    nor any leaf that `PaddedLevel` does not name (the instance centroid
+    targets `obj_pos` of a NAG's level among them). The instance graph,
+    `obj_edge_index` and `obj_edge_mask`, stays. Read level 1's node ids
+    (`inference.level1_node_id`) before stripping. The cast of the
     features to the compute dtype happens in `from_numpy`."""
     drop = _TRAIN_ONLY + _HOST_ONLY
     levels = tuple(
@@ -265,9 +269,11 @@ def from_numpy(batch, device, compute_dtype=None, train=False,
     `batch` is any object whose fields are named like the JAX
     `PaddedNAG` (`levels`, `start_i_level`, `num_graphs`) and whose
     levels are named like `PaddedLevel`. `node_id` is dropped (level 1's
-    is kept on the host as `level1_node_id`); the label histograms `y`
-    and the transpose neighbor tables `nbr_in_idx`, `nbr_in_mask` are
-    kept when `train` and dropped otherwise (`strip_for_inference`).
+    is kept on the host as `level1_node_id`); the label histograms `y`,
+    the transpose neighbor tables `nbr_in_idx`, `nbr_in_mask` and the
+    target affinities `obj_edge_affinity` are kept when `train` and
+    dropped otherwise (`strip_for_inference`); the instance graph
+    `obj_edge_index`, `obj_edge_mask` crosses either way.
     `x`, `edge_feat` and `v_edge_attr` are cast to bf16 when
     `compute_dtype` is bf16, other floats to f32. Index tensors become
     int64. A stacked batch (`inference.stack_batches`: a leading tile

@@ -10,10 +10,10 @@ Trainer read from `configs/train.yaml` composed with
 `experiment=semantic/s3dis`, `PANOPTIC_CFG` those of
 `experiment=panoptic/s3dis`, `EZSP_PARTITION_CFG` / `EZSP_CFG` those
 of EZ-SP's two stages, `NANO_CFG` / `PANOPTIC_NANO_CFG` nano's, and
-`DALES_CFG`, `KITTI360_CFG` and `PANOPTIC_SCANNET_CFG` SPT-3's on the
-other datasets, so no YAML reader is needed; tests pin each to the
-YAML. `build_model` and `build_task` build on the card unless the
-caller passes `device='cpu'`.
+`DALES_CFG`, `KITTI360_CFG`, `PANOPTIC_SCANNET_CFG` and
+`PANOPTIC_DALES_CFG` SPT-3's on the other datasets, so no YAML reader is
+needed; tests pin each to the YAML. `build_model` and `build_task` build
+on the card unless the caller passes `device='cpu'`.
 """
 import copy
 
@@ -28,9 +28,9 @@ from .transforms.prepare import BatchConfig
 
 __all__ = ['FEAT_SIZE', 'FLAGSHIP_CFG', 'PANOPTIC_CFG', 'EZSP_PARTITION_CFG',
            'EZSP_CFG', 'NANO_CFG', 'PANOPTIC_NANO_CFG', 'DALES_CFG',
-           'KITTI360_CFG', 'PANOPTIC_SCANNET_CFG', 'build_model',
-           'spt_kwargs', 'build_task', 'build_batch_config', 'build_datasets',
-           'precision_to_dtype']
+           'KITTI360_CFG', 'PANOPTIC_SCANNET_CFG', 'PANOPTIC_DALES_CFG',
+           'build_model', 'spt_kwargs', 'build_task', 'partition_settings',
+           'build_batch_config', 'build_datasets', 'precision_to_dtype']
 
 
 def precision_to_dtype(precision):
@@ -296,6 +296,30 @@ for _cfg, _epochs in ((DALES_CFG, 400), (KITTI360_CFG, 200),
     _cfg['model'].update(copy.deepcopy(_SPT3))
     _cfg['trainer']['max_epochs'] = _epochs
 
+# SuperCluster on DALES (SPT-3 backbone, bf16): configs/train.yaml +
+# experiment=panoptic/dales, DALES_CFG with the panoptic datamodule's
+# keys and configs/model/panoptic/default.yaml's. No build function reads
+# `min_instance_size` or `partitioner`: the partition settings are the
+# caller's (`partition_settings` gives them to
+# `inference.infer_panoptic_batch`); the YAML loader reads `5e-2` as a
+# string, kept as it gives it
+PANOPTIC_DALES_CFG = copy.deepcopy(DALES_CFG)
+PANOPTIC_DALES_CFG['datamodule'].update({
+    'instance': True,
+    'instance_k_max': 30,
+    'instance_radius': 0.1,
+    'min_instance_size': 100,
+    'stuff_classes': [0, 1],
+})
+PANOPTIC_DALES_CFG['model'].update({
+    'task': 'panoptic',
+    'edge_affinity_head_hidden': 32,
+    'edge_affinity_loss_lambda': 1,
+    'edge_affinity_loss_weights': [1, 1, 1, 1],
+    'partition_every_n_epoch': 50,
+    'partitioner': {'regularization': 10, 'x_weight': '5e-2', 'cutoff': 1},
+})
+
 
 def _dims(keys):
     return sum(FEAT_SIZE[k] for k in keys)
@@ -475,6 +499,13 @@ def build_task(cfg, num_graphs=8, total_steps=100_000, class_weight=None,
                 int(c) for c in cfg['datamodule'].get('stuff_classes', ())),
             **common)
     return SemanticTask(net, **common)
+
+
+def partition_settings(cfg):
+    """The instance partition's settings of a panoptic `cfg`
+    (`model.partitioner`: `regularization`, `x_weight`, `cutoff`) as
+    floats, for `inference.infer_panoptic_batch`."""
+    return {k: float(v) for k, v in cfg['model']['partitioner'].items()}
 
 
 def _partition_task(cfg, num_graphs, total_steps, device):

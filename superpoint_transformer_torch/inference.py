@@ -2,13 +2,15 @@
 Counterparts of `tile_cloud`, `infer_nag`, `strip_for_inference`,
 `stack_batches`, `infer_nags_stacked`, `e2e_inference`, `level1_node_id`
 and `to_nag_order` in `superpoint_transformer_tpu/inference.py`, plus
-`infer_batch` for a batch that is already padded and `pin_signature`
+`infer_batch` for a batch that is already padded, its panoptic
+counterpart `infer_panoptic_batch`, and `pin_signature`
 (`e2e_inference`'s shared padded signature of its tiles). The batch goes to the
 device of the model's parameters, and the forward runs there.
 """
 import contextlib
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -16,12 +18,14 @@ import torch
 from .data.nag import NAG
 from .data.pad import pad_nag
 from .data.padded import PaddedNAG, from_numpy, strip_for_inference
+from .models.panoptic import instance_classes, instance_partition
 from .transforms.prepare import BatchConfig, batch_signature, process_batch
 from .transforms.preprocess import preprocess_cloud
 from .utils.profiling import annotate
 
 __all__ = ['EVAL_BATCH_OVERRIDES', 'tile_cloud', 'level1_node_id',
-           'to_nag_order', 'infer_batch', 'infer_nag', 'e2e_inference',
+           'to_nag_order', 'infer_batch', 'PanopticAnswer',
+           'infer_panoptic_batch', 'infer_nag', 'e2e_inference',
            'without_level0', 'strip_for_inference', 'pin_signature',
            'stack_batches', 'infer_nags_stacked']
 
@@ -95,6 +99,64 @@ def infer_batch(model, batch):
             n1 = batch[1].num_nodes
             pred = logits[0][:n1].argmax(1).cpu().numpy()
             return to_nag_order(pred, level1_node_id(batch, n1))
+
+
+class PanopticAnswer(NamedTuple):
+    """The panoptic answer of a batch: the instance id [N1] and the class
+    of its instance [N1] of every level-1 node in the NAG's row order,
+    int64; the edge-affinity logits [E] f32 of the valid edges of the
+    level-1 instance graph, in the host batch's edge order; and the
+    level-1 logits [N1, C] f32 in the NAG's row order: the partition's
+    inputs besides the batch's own."""
+    instance: np.ndarray
+    cls: np.ndarray
+    edge_affinity: np.ndarray
+    logits: np.ndarray
+
+
+def infer_panoptic_batch(task, batch, host, settings):
+    """The panoptic answer (`PanopticAnswer`) of a `PanopticTask`'s
+    model on a padded batch with its level-1 instance graph
+    (`from_numpy` of `host`, the host batch it came from). The forward
+    (backbone, heads and edge-affinity head) runs on the batch's device;
+    the level-1 logits and every padded edge's affinity logit come back
+    in one device-to-host copy (span `spt.fetch`). On the host, in one
+    `spt.partition` span: level 1's positions, sizes, graphs and
+    instance graph are read from `host`,
+    `models/panoptic.py:instance_partition` clusters the nodes with
+    `settings` (`experiment.partition_settings`) and merges the
+    instances of each of the task's stuff classes within a graph, and
+    `instance_classes` classes each instance by its summed logits."""
+    with torch.inference_mode():
+        logits, ea = task.model(batch)
+        with annotate('spt.fetch'):
+            n1 = batch[1].num_nodes
+            nc = logits[0].shape[1]
+            parts = [logits[0][:n1].reshape(-1)]
+            if ea is not None:
+                parts.append(ea.to(logits[0].dtype))
+            flat = torch.cat(parts).cpu().numpy()
+            node_logits = flat[:n1 * nc].reshape(n1, nc)
+            nid = level1_node_id(batch, n1)
+    with annotate('spt.partition'):
+        lvl = host.levels[1 - int(host.start_i_level)]
+        if lvl.obj_edge_index is None:
+            edges = np.zeros((2, 0), np.int64)
+            edge_logits = np.zeros(0, np.float32)
+        else:
+            emask = np.asarray(lvl.obj_edge_mask, dtype=bool)
+            edges = np.asarray(lvl.obj_edge_index)[:, emask]
+            edge_logits = flat[n1 * nc:][emask]
+        obj = instance_partition(
+            np.asarray(lvl.pos)[:n1], node_logits, edges, edge_logits,
+            node_size=None if lvl.node_size is None
+            else np.asarray(lvl.node_size)[:n1],
+            stuff_classes=task.stuff_classes, num_classes=nc,
+            batch=np.asarray(lvl.batch)[:n1], **settings)
+        cls, _ = instance_classes(obj, node_logits)
+        return PanopticAnswer(to_nag_order(obj, nid),
+                              to_nag_order(cls[obj], nid), edge_logits,
+                              to_nag_order(node_logits, nid))
 
 
 def _model_device(model):

@@ -10,7 +10,15 @@ graph-clustering partition whose inputs are the predicted class logits
 (node features) and edge affinities (cut costs), solved by the native
 greedy solver of the preprocessing partition (`ops/native.py`). The
 partition, the stuff merge and the metrics are numpy, as in the JAX
-package.
+package. `instance_classes` classes each instance of a partition by its
+summed logits, for serving (`inference.infer_panoptic_batch`) and
+validation alike.
+
+The forward runs in one `spt.forward` span, the edge-affinity head in
+an `spt.affinity` span inside it (its gathers in their `spt.gather`
+spans). `instance_partition.calls`, `.nodes`, `.edges` and `.instances`
+count the partitions made since import, the nodes and edges they were
+given and the instances they returned (the `partition.*` counters).
 """
 import numpy as np
 import torch
@@ -21,10 +29,12 @@ from ..metrics.panoptic import PanopticQuality3D
 from ..nn.mlp import FFN, Classifier
 from ..ops.native import greedy_cut
 from ..ops.segment import gather_rows
+from ..utils.profiling import annotate
 from .semantic import SemanticTask
 
 __all__ = ['PanopticSegmentationModel', 'PanopticTask',
-           'instance_partition', 'grid_search_panoptic_partition']
+           'instance_partition', 'instance_classes',
+           'grid_search_panoptic_partition']
 
 
 class PanopticSegmentationModel(nn.Module):
@@ -52,18 +62,23 @@ class PanopticSegmentationModel(nn.Module):
         """(logits of levels 1..L, low to high, each [N_i, num_classes]
         f32; edge-affinity logits [Eo] f32 for every padded
         `obj_edge_index` edge, or None without an instance graph)."""
-        outs = self.net(nag)
-        logits = [getattr(self, f'head_{i}')(x) for i, x in enumerate(outs)]
-        lvl1 = nag[1]
-        ea_logits = None
-        if lvl1.obj_edge_index is not None:
-            # gathers as embedding lookups: the backward of advanced
-            # indexing is slow on the card (ops/segment.py:gather_rows)
-            xi = gather_rows(outs[0], lvl1.obj_edge_index[0])
-            xj = gather_rows(outs[0], lvl1.obj_edge_index[1])
-            ef = torch.cat([(xi - xj).abs(), (xi + xj) * 0.5], dim=1)
-            ea_logits = self.edge_affinity_head(ef)[:, 0]
-        return logits, ea_logits
+        with annotate('spt.forward'):
+            outs = self.net(nag)
+            logits = [getattr(self, f'head_{i}')(x)
+                      for i, x in enumerate(outs)]
+            lvl1 = nag[1]
+            ea_logits = None
+            if lvl1.obj_edge_index is not None:
+                with annotate('spt.affinity'):
+                    # gathers as embedding lookups: the backward of
+                    # advanced indexing is slow on the card
+                    # (ops/segment.py:gather_rows)
+                    xi = gather_rows(outs[0], lvl1.obj_edge_index[0])
+                    xj = gather_rows(outs[0], lvl1.obj_edge_index[1])
+                    ef = torch.cat([(xi - xj).abs(), (xi + xj) * 0.5],
+                                   dim=1)
+                    ea_logits = self.edge_affinity_head(ef)[:, 0]
+            return logits, ea_logits
 
 
 def _weighted_bce_with_logits(logits, target, weight=None, mask=None):
@@ -172,7 +187,11 @@ def instance_partition(
     pos = np.asarray(pos)
     node_logits = np.asarray(node_logits)
     n = pos.shape[0]
+    instance_partition.calls += 1
+    instance_partition.nodes += n
+    instance_partition.edges += int(edge_index.shape[1])
     if n < 2 or edge_index.shape[1] == 0:
+        instance_partition.instances += min(n, 1)
         return np.zeros(n, dtype=np.int64)
 
     aff = 1.0 / (1.0 + np.exp(-np.asarray(edge_affinity_logits)))
@@ -220,7 +239,31 @@ def instance_partition(
         si = remap[si]
         # re-compact
         _, si = np.unique(si, return_inverse=True)
+    instance_partition.instances += int(si.max(initial=-1)) + 1
     return si
+
+
+# partitions made since import, and the nodes, edges and instances of them
+instance_partition.calls = 0
+instance_partition.nodes = 0
+instance_partition.edges = 0
+instance_partition.instances = 0
+
+
+def instance_classes(obj_index, node_logits):
+    """(class [n_inst] int64, score [n_inst] f64) of each instance of a
+    partition: the argmax of its nodes' summed logits, and the largest
+    softmax probability of that sum. `obj_index` [N] holds instance ids
+    0..n_inst-1; the sums run over each instance's rows in row order, in
+    the logits' dtype."""
+    logits = np.asarray(node_logits)
+    obj_index = np.asarray(obj_index)
+    n_inst = int(obj_index.max(initial=-1)) + 1
+    s = np.zeros((n_inst, logits.shape[1]), dtype=logits.dtype)
+    np.add.at(s, obj_index, logits)
+    p = np.exp(s - s.max(1, keepdims=True))
+    return s.argmax(1), (p / p.sum(1, keepdims=True)).max(1).astype(
+        np.float64)
 
 
 def grid_search_panoptic_partition(

@@ -37,7 +37,7 @@ from .metrics.mean_average_precision import MeanAveragePrecision3D
 from .metrics.panoptic import PanopticQuality3D
 from .metrics.semantic import ConfusionMatrix
 from .models.panoptic import (grid_search_panoptic_partition,
-                              instance_partition)
+                              instance_classes, instance_partition)
 from .optim.lr_scheduler import ReduceOnPlateau, set_lr_multiplier
 from .transforms.prepare import prepare_batch, prepare_partition_batch
 
@@ -745,15 +745,7 @@ def validate_panoptic(task, loader, batch_cfg, num_classes,
             out_diag['_ea_total'] = (out_diag.get('_ea_total', 0)
                                      + int(gt_pos.shape[0]))
         merged = obj.merge(obj_index)
-        n_inst = int(obj_index.max()) + 1
-        pred_sem = np.zeros(n_inst, np.int64)
-        scores = np.zeros(n_inst)
-        for i_ in range(n_inst):
-            m = obj_index == i_
-            s = logits[m].sum(0)
-            pred_sem[i_] = s.argmax()
-            p = np.exp(s - s.max())
-            scores[i_] = (p / p.sum()).max()
+        pred_sem, scores = instance_classes(obj_index, logits)
         pq.update_from_instance_data(merged, pred_sem)
         ap.update_from_instance_data(merged, pred_sem, scores)
     out = pq.compute()

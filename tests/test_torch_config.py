@@ -18,6 +18,7 @@ from superpoint_transformer_torch.experiment import (DALES_CFG, EZSP_CFG,
                                                      KITTI360_CFG,
                                                      NANO_CFG,
                                                      PANOPTIC_CFG,
+                                                     PANOPTIC_DALES_CFG,
                                                      PANOPTIC_NANO_CFG,
                                                      PANOPTIC_SCANNET_CFG,
                                                      build_task)
@@ -93,14 +94,17 @@ def test_overrides_and_references_as_in_jax():
     ('panoptic_nano', PANOPTIC_NANO_CFG, 'panoptic/s3dis_nano'),
     ('dales', DALES_CFG, 'semantic/dales'),
     ('kitti360', KITTI360_CFG, 'semantic/kitti360'),
-    ('panoptic_scannet', PANOPTIC_SCANNET_CFG, 'panoptic/scannet')],
+    ('panoptic_scannet', PANOPTIC_SCANNET_CFG, 'panoptic/scannet'),
+    ('panoptic_dales', PANOPTIC_DALES_CFG, 'panoptic/dales')],
     ids=['flagship', 'panoptic', 'ezsp_partition', 'ezsp', 'nano',
-         'panoptic_nano', 'dales', 'kitti360', 'panoptic_scannet'])
+         'panoptic_nano', 'dales', 'kitti360', 'panoptic_scannet',
+         'panoptic_dales'])
 def test_builtin_cfg_equals_the_composed_yaml(name, cfg, experiment):
     """Every key that the build functions, the datasets and the Trainer
     read from FLAGSHIP_CFG / PANOPTIC_CFG / EZSP_PARTITION_CFG / EZSP_CFG
     / NANO_CFG / PANOPTIC_NANO_CFG / DALES_CFG / KITTI360_CFG /
-    PANOPTIC_SCANNET_CFG is the port's loader's value."""
+    PANOPTIC_SCANNET_CFG / PANOPTIC_DALES_CFG is the port's loader's
+    value."""
     composed = load_config(CONFIGS, 'train', [f'experiment={experiment}'])
     leaves = dict(_leaves(cfg))
     # the datamodule, the trainer and the run keys are held too
