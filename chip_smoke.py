@@ -20,15 +20,23 @@ against its plain PyTorch version:
    kernel against its plain version as CUDA-graph replays (so that the
    host's launch cost is not counted), and K1 with a per-node query
    against SDPA, the one PyTorch call that computes it (a yardstick the
-   port never calls);
+   port never calls); and GN (GraphNorm's forward without gradients,
+   `ops/graph_norm.py`: three launches a call) at a DALES request's
+   level 0 (1.4M x 128) and the S3DIS level-1 edge MLP (2.0M x 32),
+   bf16 with the LeakyReLU, run twice (bit-equal) and held to
+   GraphNorm's PyTorch path (`GraphNorm._plain`) on the same values in
+   f32 and bf16, timed against it (CUDA events), each of its kernels
+   profiled, and its share of two bytes bounds;
 4. serving: answers three requests at the "demo room x8" size through
-   `infer_batch`, counting K2 launches (7 per forward), checks the
-   logits and predictions, runs the forward twice (bit-equal logits),
-   compares the logits with the same model on the plain attention, and
-   times the forward;
+   `infer_batch`, counting K2 launches (7 per forward) and GN's (20),
+   holds GN on its widest call there, checks the logits and
+   predictions, runs the forward twice (bit-equal logits), compares the
+   logits with the same model on the plain attention, and times the
+   forward;
 5. training: the flagship `SemanticTask` takes three AdamW steps on
    4-graph batches at about the 4-crop training caps, counting K1
-   launches (7 per step), checks the losses, that the parameters moved,
+   launches (7 per step) and GN's (none: gradients keep GraphNorm's
+   PyTorch path), checks the losses, that the parameters moved,
    one step run twice (bit-equal loss and gradients) and against the
    same model on the plain attention; and times the step with K1 and
    with the plain attention;
@@ -195,7 +203,8 @@ against its plain PyTorch version:
    dales (`experiment=semantic/dales`, MiniDALES's 6 tiles of 200k
    points): `train(cfg, datasets)` for 2 epochs, `evaluate` from its
    checkpoint (its mIoU the logged one), a 4-tile batch through
-   `infer_batch` (3 requests), a raw tile through `e2e_inference`, the
+   `infer_batch` (3 requests; 30 GN launches a forward, GN held on its
+   widest call), a raw tile through `e2e_inference`, the
    4 tiles through `infer_nags_stacked` (twice) bit-equal to the
    per-tile `infer_nag` loop, the forward and a step timed, K1 and K2
    held and timed on the
@@ -212,8 +221,11 @@ against its plain PyTorch version:
    path and by path, max abs error, ms, plain_ms, library_ms, the bound
    from the bytes and FLOPs of `kernel_cost` and which of the two sets
    it, and the share of the bound reached; for K1 and K2 the same at
-   nano's shapes and at SPT-3's, `spt3`), the card line, and as the last
-   line `{"ok": true, "device": {...}}`.
+   nano's shapes and at SPT-3's, `spt3`; for GN the bytes bounds of
+   `gn_bound`, strict and two-pass, at DALES level 0 and at the S3DIS
+   edges, `s3dis_edges`, and its launches by phase, timings and checks
+   included), the card line, and as the last line
+   `{"ok": true, "device": {...}}`.
 
 Every model run on the card repeats itself bit for bit: each phase that
 compares the kernels with the plain attention first checks that the
@@ -254,6 +266,23 @@ TRAIN_L1 = dict(N=5_120, K=48, H=16, D=4, C=64, De=32)
 K1_RTOL, K1_ATOL = 3e-5, 3e-5
 K2_RTOL, K2_ATOL = 2e-4, 2e-5
 K3_RTOL, K3_ATOL = 2e-3, 2e-4
+# GraphNorm's kernels (GN, `ops/graph_norm.py`) at the serving forwards'
+# widest norms, (nodes, channels, graphs, slots a node): level 0 of a
+# DALES request (8 tiles of ~173k points, the point MLP), 5% padded, and
+# the S3DIS level-1 edge MLP (41.6k nodes x 48 slots, ~60% valid); bf16
+GN_SHAPES = {'dales_level0': (1_400_000, 128, 8, 1),
+             's3dis_edges': (41_600, 32, 8, 48)}
+# GN against GraphNorm's PyTorch path on the same values in f32, rounded
+# once to x's dtype: in bf16 one rounding step (2^-7 relative at most) of
+# the output or of the O(1) terms x * scale and shift that cancel into a
+# small one (tests/test_torch_cuda.py's GN_TOL); in f32 the order of the
+# f32 sums over up to ~175k rows a graph, which the variance's
+# cancellation against a graph's mean (up to ~17x its spread) amplifies
+# (2.7e-4 between the two PyTorch versions at 2.5k rows a graph on a CPU)
+GN_TOL = {'bfloat16': (2 ** -7, 2 ** -7), 'float32': (1e-3, 1e-3)}
+# GraphNorm forwards: every norm of SPT-2's MLPs and blocks, and SPT-3's
+GN_PER_SPT2_FORWARD = 20
+GN_PER_SPT3_FORWARD = 30
 # gradients written in bf16 by both sides from the same f32 math: one
 # rounding step (2^-8 relative) may separate them
 BF16_GRAD_RTOL, BF16_GRAD_ATOL = 1.6e-2, 1e-3
@@ -962,31 +991,38 @@ def phase_serving(dev, card):
     # the serving path: every launch counted from here
     reset_counts()
     served = []
-    for host, gen_s in requests:
-        before = dense_attention_rpe.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch = from_numpy(host, dev, compute_dtype)
-        pred = infer_batch(model, batch)
-        req_s = time.perf_counter() - t0
-        launched = dense_attention_rpe.launches - before
-        served.append((batch, pred))
-        n = [lvl.num_nodes for lvl in batch.levels]
-        print(f'request: {n[0]} points, {n[1]} level-1, {n[2]} level-2 '
-              f'nodes, K={batch[1].nbr_idx.shape[1]}/'
-              f'{batch[2].nbr_idx.shape[1]}; made in {gen_s:.3f} s, '
-              f'served in {req_s * 1e3:.1f} ms (host to predictions); '
-              f'{launched} K2 launches')
-        check(launched == K2_LAUNCHES_PER_FORWARD,
-              f'{launched} K2 launches in one forward, expected '
-              f'{K2_LAUNCHES_PER_FORWARD}')
-        check(pred.shape == (n[1],) and pred.dtype == np.int64
-              and pred.min() >= 0 and pred.max() < 13,
-              'predictions are not a class per level-1 node')
+    with widest_norm() as gn_args:
+        for host, gen_s in requests:
+            before = dense_attention_rpe.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = from_numpy(host, dev, compute_dtype)
+            pred = infer_batch(model, batch)
+            req_s = time.perf_counter() - t0
+            launched = dense_attention_rpe.launches - before
+            served.append((batch, pred))
+            n = [lvl.num_nodes for lvl in batch.levels]
+            print(f'request: {n[0]} points, {n[1]} level-1, {n[2]} level-2 '
+                  f'nodes, K={batch[1].nbr_idx.shape[1]}/'
+                  f'{batch[2].nbr_idx.shape[1]}; made in {gen_s:.3f} s, '
+                  f'served in {req_s * 1e3:.1f} ms (host to predictions); '
+                  f'{launched} K2 launches')
+            check(launched == K2_LAUNCHES_PER_FORWARD,
+                  f'{launched} K2 launches in one forward, expected '
+                  f'{K2_LAUNCHES_PER_FORWARD}')
+            check(pred.shape == (n[1],) and pred.dtype == np.int64
+                  and pred.min() >= 0 and pred.max() < 13,
+                  'predictions are not a class per level-1 node')
     launches = counts()
-    print(f'serving path: 3 requests answered, launches {launches}')
+    print(f'serving path: 3 requests answered, launches {launches}, GN '
+          f'{gn_count()}')
     check(launches['K1'] == launches['K3'] == 0,
           'serving launched a training kernel')
+    check(gn_count() == 3 * GN_PER_SPT2_FORWARD,
+          f'serving: {gn_count()} GN launches in 3 forwards, expected '
+          f'{3 * GN_PER_SPT2_FORWARD}')
+    hold_gn_on_path('serving path', gn_args)
+    del gn_args
 
     # what comes out: finite logits on valid rows, the same in two runs,
     # close to those of the same model on the plain attention, in f32 and
@@ -1027,18 +1063,39 @@ def phase_serving(dev, card):
 
 def kernel_fns():
     from superpoint_transformer_torch.ops import attention, attention_rpe
+    from superpoint_transformer_torch.ops.graph_norm import graph_norm
     return {'K1': attention.dense_attention,
             'K2': attention_rpe.dense_attention_rpe,
-            'K3': attention_rpe.dense_attention_rpe_bwd}
+            'K3': attention_rpe.dense_attention_rpe_bwd,
+            'GN': graph_norm}
+
+
+# GN launches of the paths before their last reset (`gn_launches`)
+GN_BEFORE_RESET = [0]
 
 
 def reset_counts():
-    for fn in kernel_fns().values():
+    fns = kernel_fns()
+    GN_BEFORE_RESET[0] += fns['GN'].launches
+    for fn in fns.values():
         fn.launches = 0
 
 
+def gn_launches():
+    """GN launches since the script started, across the resets."""
+    return GN_BEFORE_RESET[0] + kernel_fns()['GN'].launches
+
+
 def counts():
-    return {name: fn.launches for name, fn in kernel_fns().items()}
+    """The attention kernels' launches since the last reset (GN's:
+    `gn_count`)."""
+    fns = kernel_fns()
+    return {name: fns[name].launches for name in ('K1', 'K2', 'K3')}
+
+
+def gn_count():
+    """GN's launches since the last reset."""
+    return kernel_fns()['GN'].launches
 
 
 def rel_l2(a, b):
@@ -1102,7 +1159,10 @@ def phase_training(dev, card):
               'confusion matrix mass is not the level-1 label mass')
         losses.append(loss)
     launches = counts()
-    print(f'training path: {TRAIN_STEPS} steps, launches {launches}')
+    print(f'training path: {TRAIN_STEPS} steps, launches {launches}, GN '
+          f'{gn_count()}')
+    check(gn_count() == 0,
+          'training: GraphNorm took its serving kernels with gradients on')
     check(launches['K2'] == launches['K3'] == 0,
           'training launched a kernel the JAX training route does not use')
     moved = [not torch.equal(a, p.detach())
@@ -1316,6 +1376,150 @@ def hold_on_path(name, args, path='host path'):
             hold(label, cast)
         if name == 'K1':
             hold_k1_backward(label, cast, gen)
+
+
+@contextlib.contextmanager
+def widest_norm():
+    """While the block runs, keep the GraphNorm module and the arguments
+    (x detached, not copied; batch, mask, leaky) of the forward that
+    launched GN on the x of the most elements (the first of them)."""
+    from superpoint_transformer_torch.nn.norm import GraphNorm
+    forward = GraphNorm.forward
+    kept = []
+
+    def keeping(self, x, batch=None, mask=None, leaky=False):
+        before = gn_launches()
+        y = forward(self, x, batch=batch, mask=mask, leaky=leaky)
+        if gn_launches() > before and (not kept
+                                       or x.numel() > kept[1].numel()):
+            kept[:] = [self, x.detach(), batch, mask, leaky]
+        return y
+
+    GraphNorm.forward = keeping
+    try:
+        yield kept
+    finally:
+        GraphNorm.forward = forward
+
+
+def hold_gn(label, norm, x, batch, mask, leaky):
+    """GN on x (`graph_norm` with the module `norm`'s parameters), run
+    twice (bit-equal), against GraphNorm's PyTorch path
+    (`GraphNorm._plain`) on the same values in f32, its LeakyReLU in f32
+    with `leaky`, rounded once to x's dtype (`GN_TOL`). Returns the
+    max abs error."""
+    import torch
+    import torch.nn.functional as F
+    from superpoint_transformer_torch.ops.graph_norm import (LEAKY_SLOPE,
+                                                             graph_norm)
+    args = (x.contiguous(), None if batch is None else batch.long(),
+            None if mask is None else mask.bool(), norm.weight, norm.bias,
+            norm.mean_scale, norm.eps, norm.num_graphs)
+    with torch.inference_mode():
+        got = graph_norm(*args, leaky=leaky)
+        again = graph_norm(*args, leaky=leaky)
+        want = norm._plain(x.float(), batch, mask)
+        if leaky:
+            want = F.leaky_relu(want, LEAKY_SLOPE)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f'GN {label}: two runs differ')
+    rtol, atol = GN_TOL[str(x.dtype).split('.')[-1]]
+    return assert_close(
+        f'GN {label} {x.dtype} N={x.shape[0]} C={x.shape[1]} '
+        f'g={norm.num_graphs} leaky={leaky}', got.float(),
+        want.to(x.dtype).float(), rtol, atol)
+
+
+def hold_gn_on_path(path, kept):
+    """Hold GN (`hold_gn`) on the widest call that the main path `path`
+    gave it (`widest_norm`), in x's dtype and cast to f32."""
+    check(bool(kept), f'{path}: no GraphNorm forward launched GN')
+    norm, x, batch, mask, leaky = kept
+    for cast in (x, x.float()):
+        hold_gn(path, norm, cast, batch, mask, leaky)
+
+
+def gn_inputs(dev, nodes, C, g, K):
+    """A GraphNorm of random affine parameters and its bf16 inputs:
+    `nodes` rows (or nodes x K edge rows) sorted by graph, a padded tail
+    of 5% (id -1, masked out), each graph's channels off 0 by its own
+    mean; with K > 1 a random ~60% of each node's slots masked in."""
+    import torch
+    from superpoint_transformer_torch.nn.norm import GraphNorm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.sort(torch.randint(0, g, (nodes,), generator=gen,
+                                   device=dev)).values
+    ids[nodes - nodes // 20:] = -1
+    if K > 1:
+        ids = ids.repeat_interleave(K)
+        mask = (torch.rand(ids.shape[0], generator=gen, device=dev)
+                < 0.6) & (ids >= 0)
+    else:
+        mask = ids >= 0
+    x = (torch.randn(ids.shape[0], C, generator=gen, device=dev)
+         + torch.randn(g + 1, C, generator=gen, device=dev)[
+             ids.clamp(min=0)] * 2).to(torch.bfloat16)
+    norm = GraphNorm(C, num_graphs=g, device=dev)
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5, generator=gen)
+        norm.bias.normal_(generator=gen)
+        norm.mean_scale.uniform_(0, 1.5, generator=gen)
+    return norm, x, ids, mask
+
+
+def gn_bound(x):
+    """GN's bytes bounds at x [N, C] with int64 ids and a bool mask, in
+    ms at PEAK_BYTES_S: (strict: x, the ids and the mask read once and y
+    written once; two-pass: x and the ids read twice, as the statistics
+    and the normalisation passes must, x not fitting the L2)."""
+    N, C = x.shape
+    esz = x.element_size()
+    strict = 2 * N * C * esz + 8 * N + N
+    two_pass = 3 * N * C * esz + 16 * N + N
+    return strict / PEAK_BYTES_S * 1e3, two_pass / PEAK_BYTES_S * 1e3
+
+
+def phase_gn(dev):
+    """GN at `GN_SHAPES` in bf16 with the LeakyReLU: held against the
+    PyTorch path in bf16 and f32 (`hold_gn`), timed against it in turns
+    (CUDA events, 20 calls a round), each kernel's device time
+    (torch.profiler), and its share of the bytes bounds (`gn_bound`)."""
+    import torch
+    import torch.nn.functional as F
+    from superpoint_transformer_torch.ops.graph_norm import LEAKY_SLOPE
+    out = {}
+    for name, (nodes, C, g, K) in GN_SHAPES.items():
+        norm, x, ids, mask = gn_inputs(dev, nodes, C, g, K)
+        worst = max(hold_gn(name, norm, cast, ids, mask, True)
+                    for cast in (x, x.float()))
+
+        def kernels():
+            with torch.inference_mode():
+                norm(x, batch=ids, mask=mask, leaky=True)
+
+        def plain():
+            with torch.inference_mode():
+                F.leaky_relu(norm._plain(x, ids, mask), LEAKY_SLOPE)
+
+        ms, plain_ms, rounds = time_pair(kernels, plain, 20)
+        device_ms, top = device_profile(kernels)
+        strict, two_pass = gn_bound(x)
+        print(f'GN {name} bf16 N={x.shape[0]} C={C} g={g}: kernels '
+              f'{ms:.4f} ms ({device_ms} ms on the device: {top}), '
+              f'PyTorch path {plain_ms:.4f} ms; rounds {rounds} (CUDA '
+              f'events, 20 calls each); bytes bound {strict:.4f} ms '
+              f'strict ({strict / ms:.1%}), {two_pass:.4f} ms two-pass '
+              f'({two_pass / ms:.1%})')
+        out[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                         kernels_ms=dict(top), library_ms=None,
+                         bound_ms=strict, bound_by='bytes',
+                         bound_share=strict / ms,
+                         bound_ms_two_pass=two_pass,
+                         bound_share_two_pass=two_pass / ms,
+                         shape=dict(N=x.shape[0], C=C, g=g))
+        del norm, x, ids, mask
+    settle()
+    return out
 
 
 def device_profile(fn, iters=3):
@@ -3777,7 +3981,8 @@ def dales_serving(cfg, datasets, raw_dir, dev, card):
     reset_counts()
     req_ms = []
     with plain_attention_calls() as plain, \
-            widest_call('dense_attention_rpe') as k2_args:
+            widest_call('dense_attention_rpe') as k2_args, \
+            widest_norm() as gn_args:
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3789,10 +3994,15 @@ def dales_serving(cfg, datasets, raw_dir, dev, card):
     print(f'dales serving on {card}: {len(tiles)} tiles, nodes {n}, '
           f'capacities {caps}, K={k}; batch prepared in {prep_s:.2f} s on '
           f'the host; requests {[round(t, 1) for t in req_ms]} ms (host '
-          f'batch to predictions); launches {launches}')
+          f'batch to predictions); launches {launches}, GN {gn_count()}')
     check(launches['K2'] == 3 * SPT3_LAUNCHES and launches['K1'] == 0
           and launches['K3'] == 0 and plain['plain'] == 0,
           f'dales serving: not {SPT3_LAUNCHES} K2 launches a forward')
+    check(gn_count() == 3 * GN_PER_SPT3_FORWARD,
+          f'dales serving: {gn_count()} GN launches in 3 forwards, '
+          f'expected {3 * GN_PER_SPT3_FORWARD}')
+    hold_gn_on_path('dales serving', gn_args)
+    del gn_args
     check(pred.shape == (n[1],) and pred.min() >= 0 and pred.max() < n_cls,
           'dales predictions are not a class per level-1 node')
     served = launches['K2']
@@ -4822,34 +5032,49 @@ def main():
     for name, report in reports.items():
         print(f'{name}:\n{report.strip()}')
 
-    results = {'K1': phase_k1(dev), 'K2': phase_k2(dev), 'K3': phase_k3(dev)}
-    launches = {'K2': phase_serving(dev, card),
-                'K1': phase_training(dev, card),
+    # GN launches by phase: every call of its forwards, checks and
+    # timings (in this process: the parallel ranks' are not counted)
+    gn_paths = {}
+
+    def on_path(name, phase, *args, **kwargs):
+        before = gn_launches()
+        got = phase(*args, **kwargs)
+        gn_paths[name] = gn_launches() - before
+        return got
+
+    results = {'K1': phase_k1(dev), 'K2': phase_k2(dev), 'K3': phase_k3(dev),
+               'GN': on_path('kernel checks', phase_gn, dev)}
+    launches = {'K2': on_path('serving', phase_serving, dev, card),
+                'K1': on_path('training', phase_training, dev, card),
                 'K3': phase_fused_rpe_training(dev)}
-    host_path, host_nags = phase_host_path(dev, card)
-    whole_cloud = {'K2': phase_whole_cloud(dev, card, host_nags)}
+    host_path, host_nags = on_path('host', phase_host_path, dev, card)
+    whole_cloud = {'K2': on_path('whole-cloud', phase_whole_cloud, dev,
+                                 card, host_nags)}
     parallel = phase_parallel(dev, card, host_nags)
-    variants, variants_timing = phase_variants(dev, card, host_nags)
+    variants, variants_timing = on_path('variants', phase_variants, dev,
+                                        card, host_nags)
     rest_room = host_nags[0]
     del host_nags
-    panoptic, pan_nags = phase_panoptic(dev, card)
+    panoptic, pan_nags = on_path('panoptic', phase_panoptic, dev, card)
     t0 = time.perf_counter()
-    rest = phase_rest(dev, card, rest_room, pan_nags[0])
+    rest = on_path('rest', phase_rest, dev, card, rest_room, pan_nags[0])
     print(f'rest phase (Delaunay serving, held-out, SuperCluster demo) in '
           f'{time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    long_tail = phase_long_tail(dev, card, rest_room)
+    long_tail = on_path('long-tail', phase_long_tail, dev, card, rest_room)
     print(f'long-tail phase (cleanup, k-hop training, TTA serving, '
           f'confusion update) in {time.perf_counter() - t0:.1f} s')
     del rest_room
     # the fit phase's rooms serve the EZ-SP and nano phases too
     rooms = tempfile.TemporaryDirectory()
     try:
-        fit = phase_fit(dev, card, tmp=rooms)
-        tune = phase_tune(dev, card, rooms)
-        ezsp = phase_ezsp(dev, card, rooms)
-        nano, nano_timing = phase_nano(dev, card, rooms, pan_nags)
-        datasets, spt3_timing = phase_datasets(dev, card, rooms)
+        fit = on_path('fit-and-evaluate', phase_fit, dev, card, tmp=rooms)
+        tune = on_path('tune', phase_tune, dev, card, rooms)
+        ezsp = on_path('ezsp', phase_ezsp, dev, card, rooms)
+        nano, nano_timing = on_path('nano', phase_nano, dev, card, rooms,
+                                    pan_nags)
+        datasets, spt3_timing = on_path('dales/kitti360/scannet',
+                                        phase_datasets, dev, card, rooms)
     finally:
         rooms.cleanup()
     paths = {'serving/training/fused-RPE': launches, 'host': host_path,
@@ -4874,6 +5099,7 @@ def main():
     for path, got in paths.items():
         for name, n in got.items():
             check(n > 0, f'the {path} path launched no {name} kernel')
+    print(f'GN launches by phase: {gn_paths}')
     table = []
     for name, fn, line in (('K1', 'dense_attention', 74),
                            ('K2', 'dense_attention_rpe', 256),
@@ -4896,6 +5122,13 @@ def main():
             if name in timing:
                 t = timing[name]
                 table[-1][key] = dict(t, bound_share=t['bound_ms'] / t['ms'])
+    gn = results['GN']
+    table.append({
+        'name': 'graph_norm', 'route': 'cuda',
+        'source': 'superpoint_transformer_torch/csrc/graph_norm.cu',
+        'replaces': None, 'launches': sum(gn_paths.values()),
+        'launches_by_path': gn_paths, **gn['dales_level0'],
+        's3dis_edges': gn['s3dis_edges']})
     print(f'all phases passed in {time.perf_counter() - t_start:.1f} s '
           '(builds included)')
     print(json.dumps({'kernels': table}))

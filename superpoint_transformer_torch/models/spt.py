@@ -34,7 +34,8 @@ k/v rows (`parallel/mesh.py:make_sharded_forward`).
 
 The forward's sections run in profiler spans (`utils/profiling.py:
 annotate`): `spt.hf` (the handcrafted-feature MLPs), `spt.stage.first`,
-`spt.stage.down<i>` and `spt.stage.up<i>`.
+`spt.stage.down<i>` and `spt.stage.up<i>`; every GraphNorm in its own
+`spt.norm` span (`nn/norm.py`).
 """
 from torch import nn
 

@@ -8,8 +8,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.graph_norm import LEAKY_SLOPE
 from .dropout import Dropout, DropoutRNG
-from .norm import make_norm
+from .norm import GraphNorm, make_norm
 
 __all__ = ['MLP', 'FFN', 'Classifier', 'leaky_relu', 'init_weights',
            'resolve_dtype', 'dropout']
@@ -20,7 +21,7 @@ XAVIER_GAIN_LEAKY = 1.4140664
 
 
 def leaky_relu(x):
-    return F.leaky_relu(x, negative_slope=0.01)
+    return F.leaky_relu(x, negative_slope=LEAKY_SLOPE)
 
 
 def resolve_dtype(compute_dtype):
@@ -104,6 +105,10 @@ class MLP(nn.Module):
         for i in range(len(self.dims) - 1):
             x = linear(getattr(self, f'linear_{i}'), x, self.dtype)
             norm = getattr(self, f'norm_{i}', None)
+            if isinstance(norm, GraphNorm):
+                # the activation inside the norm's kernels where they run
+                x = norm(x, batch=batch, mask=mask, leaky=True)
+                continue
             if norm is not None:
                 x = norm(x, batch=batch, mask=mask)
             x = leaky_relu(x)

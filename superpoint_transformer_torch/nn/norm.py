@@ -15,11 +15,15 @@ the min and max of the positions over them. The JAX GroupNorm takes no
 the group like the other norms.
 """
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops.graph_norm import (LEAKY_SLOPE, MAX_GRAPHS, graph_norm,
+                              scale_shift)
 from ..ops.segment import (segment_sum, segment_count, segment_max,
                            gather_rows_small)
 from ..parallel.collectives import all_reduce_max, all_reduce_sum
+from ..utils.profiling import annotate
 
 
 def _group_sum(x, group):
@@ -43,7 +47,16 @@ __all__ = ['GraphNorm', 'LayerNorm', 'InstanceNorm', 'GroupNorm',
 
 class GraphNorm(nn.Module):
     """PyG GraphNorm: per-graph mean (scaled by the learnable
-    `mean_scale`) and variance normalization, then an affine map."""
+    `mean_scale`) and variance normalization, then an affine map.
+
+    Without gradients, on a CUDA f32 or bf16 `x`, unsharded and over at
+    most `ops/graph_norm.py:MAX_GRAPHS` graphs, the forward is that
+    module's three kernels (`graph_norm`); otherwise it is PyTorch ops
+    (the segment sums and gathers). `leaky` applies the MLP's LeakyReLU
+    to the output: inside the kernels, before the rounding to x's dtype,
+    or after the plain path. Every forward runs in an `spt.norm` span and
+    counts in `graph_norm.calls`, those that take the kernels in
+    `graph_norm.fused`."""
 
     def __init__(self, num_features, num_graphs=64, eps=1e-5,
                  shard_group=None, device=None):
@@ -57,7 +70,23 @@ class GraphNorm(nn.Module):
         self.mean_scale = nn.Parameter(
             torch.ones(num_features, device=device))
 
-    def forward(self, x, batch=None, mask=None):
+    def forward(self, x, batch=None, mask=None, leaky=False):
+        graph_norm.calls += 1
+        with annotate('spt.norm'):
+            if (x.is_cuda and not torch.is_grad_enabled()
+                    and self.shard_group is None
+                    and x.dtype in (torch.float32, torch.bfloat16)
+                    and self.num_graphs <= MAX_GRAPHS):
+                graph_norm.fused += 1
+                return graph_norm(
+                    x.contiguous(), None if batch is None else batch.long(),
+                    None if mask is None else mask.bool(), self.weight,
+                    self.bias, self.mean_scale, self.eps, self.num_graphs,
+                    leaky=leaky)
+            y = self._plain(x, batch, mask)
+            return F.leaky_relu(y, LEAKY_SLOPE) if leaky else y
+
+    def _plain(self, x, batch, mask):
         if batch is None:
             batch = torch.zeros(x.shape[0], dtype=torch.long,
                                 device=x.device)
@@ -72,16 +101,11 @@ class GraphNorm(nn.Module):
         if self.shard_group is not None:
             s12 = all_reduce_sum(s12, self.shard_group)
             n = all_reduce_sum(n, self.shard_group)
-        n = n.clamp(min=1).to(torch.float32)[:, None]
-        mean = s12[:, :C] / n
-        ex2 = s12[:, C:] / n
-        am = self.mean_scale * mean
-        # the E[x^2] identity can go slightly negative in f32
-        var = (ex2 - 2 * am * mean + am * am).clamp(min=0.0)
-        inv = 1.0 / torch.sqrt(var + self.eps)
-        sc = gather_rows_small(inv * self.weight, batch, g)
-        sh = gather_rows_small(self.bias - am * inv * self.weight,
-                               batch, g)
+        sc, sh = scale_shift(s12[:, :C], s12[:, C:],
+                             n.to(torch.float32)[:, None], self.weight,
+                             self.bias, self.mean_scale, self.eps)
+        sc = gather_rows_small(sc, batch, g)
+        sh = gather_rows_small(sh, batch, g)
         return (x.to(torch.float32) * sc + sh).to(in_dtype)
 
 

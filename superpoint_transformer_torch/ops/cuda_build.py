@@ -17,7 +17,8 @@ __all__ = ['KERNELS', 'NVCC_FLAGS', 'build', 'library']
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
 _BUILD_DIR = _PKG / '_build'
-KERNELS = ('dense_attention', 'dense_attention_rpe', 'dense_attention_rpe_bwd')
+KERNELS = ('dense_attention', 'dense_attention_rpe', 'dense_attention_rpe_bwd',
+           'graph_norm')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

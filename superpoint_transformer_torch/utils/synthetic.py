@@ -97,72 +97,78 @@ def _histogram(rng, sizes, num_classes):
 
 def random_padded_nag(seed=0, num_graphs=2, n_points=2048, n_l1=128,
                       n_l2=32, degree=(4, 40), num_classes=13,
-                      node_caps=None):
+                      node_caps=None, n_l3=None, point_dim=POINT_HF_DIM):
     """A padded 3-level batch of `num_graphs` graphs, each with about
     `n_points` level-0 points, `n_l1` level-1 and `n_l2` level-2 nodes
     (+-10% per graph), and a valid-neighbor count (self-loop included)
-    drawn from `degree` at levels 1 and 2. `node_caps` (level ->
-    capacity, as `pad_nag`'s) overrides the bucketed capacities; the
-    node counts do not depend on it. Returns a `PaddedNAG` with
-    numpy leaves, the layout of the JAX host path's output; convert it
-    with `data.padded.from_numpy`."""
+    drawn from `degree` at levels 1 and up; with `n_l3`, a fourth level
+    of about that many nodes a graph (SPT-3's). Level 0 carries
+    `point_dim` features. `node_caps` (level -> capacity, as `pad_nag`'s)
+    overrides the bucketed capacities; the node counts do not depend on
+    it. Returns a `PaddedNAG` with numpy leaves, the layout of the JAX
+    host path's output; convert it with `data.padded.from_numpy`."""
     rng = np.random.default_rng(seed)
     G = num_graphs
-    s2 = _sizes(rng, n_l2, G)
-    s1 = np.maximum(_sizes(rng, n_l1, G), s2)
-    s0 = np.maximum(_sizes(rng, n_points, G), s1)
-    b2 = np.repeat(np.arange(G), s2)
-    sup1 = _children(rng, s1, s2)
-    sup0 = _children(rng, s0, s1)
-    b1, b0 = b2[sup1], b2[sup1][sup0]
-    n0, n1, n2 = len(b0), len(b1), len(b2)
-    cap0, cap1, cap2 = ((node_caps or {}).get(i) or bucket(n)
-                        for i, n in enumerate((n0, n1, n2)))
+    want = [n_points, n_l1, n_l2] + ([] if n_l3 is None else [n_l3])
+    L = len(want) - 1
+    s = [None] * L + [_sizes(rng, want[L], G)]
+    for i in range(L - 1, -1, -1):
+        s[i] = np.maximum(_sizes(rng, want[i], G), s[i + 1])
+    b = [None] * L + [np.repeat(np.arange(G), s[L])]
+    sup = [None] * L
+    for i in range(L - 1, -1, -1):
+        sup[i] = _children(rng, s[i], s[i + 1])
+        b[i] = b[i + 1][sup[i]]
+    n = [len(bi) for bi in b]
+    cap = [(node_caps or {}).get(i) or bucket(k) for i, k in enumerate(n)]
 
     # room-scale positions: children scattered around their parents
-    c2 = (rng.random((n2, 3)) * [10.0, 8.0, 3.0]).astype(np.float32)
-    c1 = c2[sup1] + rng.normal(0, 1.0, (n1, 3)).astype(np.float32)
-    pos0 = c1[sup0] + rng.normal(0, 0.2, (n0, 3)).astype(np.float32)
+    # (metres: 2.0 a level-2 node about its level-3 parent, 1.0 a level-1
+    # node, 0.2 a point)
+    c = (rng.random((n[L], 3)) * [10.0, 8.0, 3.0]).astype(np.float32)
+    for i, spread in ((2, 2.0), (1, 1.0), (0, 0.2)):
+        if i < L:
+            c = c[sup[i]] + rng.normal(0, spread, (n[i], 3)).astype(
+                np.float32)
+    pos, size = [c], [np.ones(n[0], np.float32)]
+    for i in range(1, L + 1):
+        cnt = np.bincount(sup[i - 1], minlength=n[i]).astype(np.float32)
+        pos.append((np.stack([np.bincount(sup[i - 1], pos[-1][:, j],
+                                          minlength=n[i])
+                              for j in range(3)], 1)
+                    / cnt[:, None]).astype(np.float32))
+        size.append(np.bincount(sup[i - 1], weights=size[-1],
+                                minlength=n[i]).astype(np.float32))
 
-    def mean_pos(pos, sup, n):
-        cnt = np.bincount(sup, minlength=n).astype(np.float32)
-        out = np.stack([np.bincount(sup, pos[:, i], minlength=n)
-                        for i in range(3)], 1)
-        return (out / cnt[:, None]).astype(np.float32)
-
-    pos1 = mean_pos(pos0, sup0, n1)
-    pos2 = mean_pos(pos1, sup1, n2)
-    size1 = np.bincount(sup0, minlength=n1).astype(np.float32)
-    size2 = np.bincount(sup1, weights=size1, minlength=n2).astype(
-        np.float32)
-
-    def level(pos, batch, cap, node_size, y, **kw):
-        n = pos.shape[0]
+    def level(i, **kw):
+        if i < L:
+            kw['super_index'] = _pad(sup[i].astype(np.int32), cap[i],
+                                     cap[i + 1])
         return PaddedLevel(
-            pos=_pad(pos, cap), node_mask=_pad(np.ones(n, bool), cap, False),
-            batch=_pad(batch.astype(np.int32), cap, -1),
-            num_nodes=np.int32(n), node_size=_pad(node_size, cap),
-            y=_pad(y, cap), **kw)
+            pos=_pad(pos[i], cap[i]),
+            node_mask=_pad(np.ones(n[i], bool), cap[i], False),
+            batch=_pad(b[i].astype(np.int32), cap[i], -1),
+            num_nodes=np.int32(n[i]), node_size=_pad(size[i], cap[i]),
+            **kw)
 
-    nbr1, m1, ef1 = _neighbors(rng, b1, s1, degree, cap1)
-    nbr2, m2, ef2 = _neighbors(rng, b2, s2, degree, cap2)
-    l0 = level(pos0, b0, cap0, np.ones(n0, np.float32),
-               _histogram(rng, np.ones(n0, np.float32), num_classes),
-               x=_pad(rng.random((n0, POINT_HF_DIM)).astype(np.float32),
-                      cap0),
-               super_index=_pad(sup0.astype(np.int32), cap0, cap1))
-    in1, im1 = transpose_neighbors(nbr1, m1)
-    in2, im2 = transpose_neighbors(nbr2, m2)
-    l1 = level(pos1, b1, cap1, size1, _histogram(rng, size1, num_classes),
-               super_index=_pad(sup1.astype(np.int32), cap1, cap2),
-               nbr_idx=nbr1, nbr_mask=m1, edge_feat=ef1,
-               nbr_in_idx=in1, nbr_in_mask=im1,
-               node_id=_pad(rng.permutation(n1).astype(np.int32), cap1,
-                            -1))
-    l2 = level(pos2, b2, cap2, size2, _histogram(rng, size2, num_classes),
-               nbr_idx=nbr2, nbr_mask=m2, edge_feat=ef2, nbr_in_idx=in2,
-               nbr_in_mask=im2)
-    return PaddedNAG(levels=(l0, l1, l2), start_i_level=0, num_graphs=G)
+    def labels(i):
+        return _pad(_histogram(rng, size[i], num_classes), cap[i])
+
+    nbrs = {i: _neighbors(rng, b[i], s[i], degree, cap[i])
+            for i in range(1, L + 1)}
+    y = labels(0)
+    levels = [level(0, y=y, x=_pad(rng.random((n[0], point_dim)).astype(
+        np.float32), cap[0]))]
+    for i in range(1, L + 1):
+        nbr, m, ef = nbrs[i]
+        inn, im = transpose_neighbors(nbr, m)
+        kw = dict(y=labels(i), nbr_idx=nbr, nbr_mask=m, edge_feat=ef,
+                  nbr_in_idx=inn, nbr_in_mask=im)
+        if i == 1:
+            kw['node_id'] = _pad(rng.permutation(n[1]).astype(np.int32),
+                                 cap[1], -1)
+        levels.append(level(i, **kw))
+    return PaddedNAG(levels=tuple(levels), start_i_level=0, num_graphs=G)
 
 
 def random_nag(seed=0, n_points=512, n_l1=64, n_l2=16, num_classes=13,

@@ -149,10 +149,22 @@ def _rehearse_on_the_cpu(monkeypatch):
     """Stub the card-only calls of the phases (synchronize, the
     profiler, the memory statistics) and count each CPU call of an
     attention entry point as a launch of its kernel, as the wrapper
-    counts one on the card."""
+    counts one on the card, and each unsharded GraphNorm forward without
+    gradients as a launch of GN (the forward itself runs PyTorch's path
+    on the CPU)."""
     import torch
     from superpoint_transformer_torch.nn import attention as block
+    from superpoint_transformer_torch.nn.norm import GraphNorm
     from superpoint_transformer_torch.ops import attention, attention_rpe
+    from superpoint_transformer_torch.ops.graph_norm import graph_norm
+    forward = GraphNorm.forward
+
+    def counted_norm(self, x, batch=None, mask=None, leaky=False):
+        if not torch.is_grad_enabled() and self.shard_group is None:
+            graph_norm.launches += 1
+        return forward(self, x, batch=batch, mask=mask, leaky=leaky)
+
+    monkeypatch.setattr(GraphNorm, 'forward', counted_norm)
     monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
     monkeypatch.setattr(chip_smoke, 'settle', lambda: None)
     monkeypatch.setattr(chip_smoke, 'profiled_fit',
@@ -576,3 +588,58 @@ def test_long_tail_phase_rehearsal_on_the_cpu(monkeypatch, capsys):
     seen = float(line.split('seen share ')[1].split(',')[0])
     unseen = float(line.split('unseen share ')[1].split(';')[0])
     assert 0 < seen < 1 and seen + unseen == pytest.approx(1)
+
+
+@pytest.mark.parametrize('fault', [None, 'scale', 'rows', 'repeat'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_hold_gn_catches_each_fault(monkeypatch, dtype, fault):
+    """`hold_gn` on the CPU (the plain version of GN's kernels against
+    GraphNorm's PyTorch path) passes as it is and raises when the
+    output is 5% off, shifted by a row, or differs between two runs."""
+    import torch
+    from superpoint_transformer_torch.ops import graph_norm as gn_ops
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    norm, x, ids, mask = chip_smoke.gn_inputs(torch.device('cpu'), 1_000,
+                                              32, 8, 4)
+    x = x.to(getattr(torch, dtype))
+    if fault is None:
+        assert chip_smoke.hold_gn('exact', norm, x, ids, mask, True) >= 0
+        return
+    fn, calls = gn_ops.graph_norm, []
+
+    def off(*args, **kwargs):
+        y = fn(*args, **kwargs)
+        calls.append(1)
+        if fault == 'scale':
+            return y * 1.05
+        if fault == 'rows':
+            return y.roll(1, 0)
+        return y if len(calls) % 2 else y + 1e-3 * y.abs().max()
+
+    monkeypatch.setattr(gn_ops, 'graph_norm', off)
+    with pytest.raises((AssertionError, RuntimeError)):
+        chip_smoke.hold_gn('off', norm, x, ids, mask, True)
+
+
+def test_widest_norm_keeps_the_widest_launching_forward(monkeypatch):
+    """`widest_norm` keeps the module and inputs of the GraphNorm forward
+    with the most elements among those that launched GN (here: counted
+    as the CPU rehearsal counts them), and restores the forward."""
+    import torch
+    from superpoint_transformer_torch.nn.norm import GraphNorm
+    _rehearse_on_the_cpu(monkeypatch)
+    forward = GraphNorm.forward
+    norm, x, ids, mask = chip_smoke.gn_inputs(torch.device('cpu'), 500, 16,
+                                              4, 3)
+    small = GraphNorm(16, num_graphs=4)
+    with chip_smoke.widest_norm() as kept:
+        with torch.no_grad():
+            small(x[:100], batch=ids[:100])
+            norm(x, batch=ids, mask=mask, leaky=True)
+            small(x[:200], batch=ids[:200])
+        norm(x.float().repeat(2, 1), batch=ids.repeat(2))
+    assert GraphNorm.forward is forward
+    assert kept[0] is norm and kept[2] is ids
+    # x detached, not copied
+    assert kept[1].data_ptr() == x.data_ptr() and kept[1].shape == x.shape
+    assert kept[3] is mask and kept[4] is True

@@ -1,6 +1,7 @@
 """The CUDA kernels of the port vs their plain PyTorch versions, on the
 card: K1 (`dense_attention`) and its autograd function, K2
-(`dense_attention_rpe`) and K3 (`dense_attention_rpe_bwd`). Every test
+(`dense_attention_rpe`), K3 (`dense_attention_rpe_bwd`) and GraphNorm's
+serving kernels (`graph_norm`). Every test
 here is marked `cuda` and skips without a CUDA device. The file imports neither jax nor the JAX package, so it runs on
 a machine without them:
 
@@ -505,3 +506,193 @@ def test_segment_sums_on_the_card_match_the_cpu_and_repeat(cuda_device,
                 indices_are_sorted=case == 'sorted').cpu())
     torch.testing.assert_close(runs[1], runs[0], rtol=1e-5, atol=1e-4)
     assert torch.equal(runs[1], runs[2])
+
+
+# GraphNorm's kernels (`ops/graph_norm.py`): the shapes of the serving
+# forwards' norms. (rows, channels, graphs, mask, ids): level 0 of a DALES
+# request (8 tiles of ~173k points, the point MLP's widest norm), the
+# S3DIS level-1 edge MLP (~41.6k nodes x K = 48 slots, ~60% valid), a
+# level-3 norm of fewer rows than one block's tile, the most graphs the
+# kernels take at C = 128 (shared memory above 48 KB), graph ids in no
+# order, and rows that are not whole 16-byte chunks
+GN_SHAPES = {
+    'dales_level0': (1_400_000, 128, 8, 'node', 'sorted'),
+    's3dis_edges': (41_600 * 48, 32, 8, 'edge', 'sorted'),
+    'level3': (100, 64, 8, 'node', 'sorted'),
+    'many_graphs': (300_000, 128, 128, 'node', 'sorted'),
+    'unsorted': (200_000, 64, 8, 'node', 'unsorted'),
+    'narrow_rows': (5_000, 12, 8, 'node', 'sorted'),
+}
+
+
+def _gn_case(dev, name, dtype=torch.bfloat16, seed=0):
+    """A GraphNorm of random affine parameters and its inputs at
+    `GN_SHAPES[name]`: rows sorted by graph with a padded tail (id -1,
+    masked out), each graph's channels off 0 by its own mean; an edge
+    mask marks a random ~60% of each node's 48 slots."""
+    from superpoint_transformer_torch.nn.norm import GraphNorm
+    N, C, g, kind, order = GN_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == 'edge':
+        nodes = N // 48
+        node_ids = torch.sort(torch.randint(0, g, (nodes,), generator=gen,
+                                            device=dev)).values
+        node_ids[-nodes // 20:] = -1
+        ids = node_ids.repeat_interleave(48)
+        mask = (torch.rand(N, generator=gen, device=dev) < 0.6) & (ids >= 0)
+    else:
+        ids = torch.sort(torch.randint(0, g, (N,), generator=gen,
+                                       device=dev)).values
+        ids[N - max(1, N // 20):] = -1
+        mask = ids >= 0
+    if order == 'unsorted':
+        p = torch.randperm(N, generator=gen, device=dev)
+        ids, mask = ids[p], mask[p]
+    means = torch.randn(g + 1, C, generator=gen, device=dev) * 2
+    x = (torch.randn(N, C, generator=gen, device=dev)
+         + means[ids.clamp(min=0)]).to(dtype)
+    gn = GraphNorm(C, num_graphs=g, device=dev)
+    with torch.no_grad():
+        gn.weight.uniform_(0.5, 1.5, generator=gen)
+        gn.bias.normal_(generator=gen)
+        gn.mean_scale.uniform_(0, 1.5, generator=gen)
+    return gn, x, ids, mask
+
+
+# GraphNorm's bf16 output against its PyTorch path on the same values in
+# f32, rounded once: one bf16 step (2^-7 relative at most) of the output,
+# or of the O(1) terms x * scale and shift that cancel into a small output
+# (their f32 sums differ in order; the mean's share of E[x^2], up to ~17x
+# the variance in these graphs, amplifies that)
+GN_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('leaky', [False, True], ids=['affine', 'leaky'])
+@pytest.mark.parametrize('name', list(GN_SHAPES))
+def test_graph_norm_kernels_match_the_plain_path(cuda_device, name, leaky):
+    """The kernels against GraphNorm's PyTorch path on the same values in
+    f32 (in bf16 that path squares in bf16, which moves the variance of a
+    graph of a dozen rows by ~1%), its LeakyReLU in f32, rounded to
+    bf16."""
+    from superpoint_transformer_torch.ops.graph_norm import graph_norm
+    gn, x, ids, mask = _gn_case(cuda_device, name)
+    fused = graph_norm.fused
+    with torch.no_grad():
+        got = gn(x, batch=ids, mask=mask, leaky=leaky)
+    with torch.enable_grad():
+        want = gn._plain(x.float(), ids, mask).detach()
+    if leaky:
+        want = torch.nn.functional.leaky_relu(want, 0.01)
+    assert graph_norm.fused == fused + 1
+    assert got.dtype == x.dtype
+    _assert_grad_close(name, got.float(), want.to(x.dtype).float(),
+                       **GN_TOL)
+
+
+@pytest.mark.cuda
+def test_graph_norm_kernels_match_the_plain_version_in_f32(cuda_device):
+    from superpoint_transformer_torch.ops.graph_norm import (
+        graph_norm, graph_norm_reference)
+    gn, x, ids, mask = _gn_case(cuda_device, 'unsorted', torch.float32)
+    args = (gn.weight, gn.bias, gn.mean_scale, gn.eps, gn.num_graphs)
+    with torch.no_grad():
+        got = graph_norm(x, ids, mask, *args, leaky=True)
+        want = graph_norm_reference(x, ids, mask, *args, leaky=True)
+    _assert_grad_close('f32', got, want, rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['dales_level0', 'unsorted',
+                                  'many_graphs'])
+def test_graph_norm_kernels_repeat_bit_for_bit(cuda_device, name):
+    gn, x, ids, mask = _gn_case(cuda_device, name, seed=1)
+    with torch.no_grad():
+        a = gn(x, batch=ids, mask=mask, leaky=True)
+        b = gn(x, batch=ids, mask=mask, leaky=True)
+    assert torch.equal(a, b)
+
+
+def _spt3_batch():
+    """A 2-graph, 4-level batch at about 1/20 of a DALES tile's measured
+    node counts (173k points, 1,488, 399 and 176 nodes), 6 point
+    features, up to 54 valid neighbour slots."""
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+    return random_padded_nag(seed=0, num_graphs=2, n_points=8650, n_l1=74,
+                             n_l2=20, n_l3=9, degree=(4, 54), num_classes=8,
+                             point_dim=6)
+
+
+@pytest.mark.cuda
+def test_spt3_forward_with_the_graph_norm_kernels(cuda_device):
+    """A whole SPT-3 (DALES) forward on the card, in f32 and in bf16 from
+    the same weights: every GraphNorm takes the kernels without gradients
+    (30 a forward) and none with them (forced so: PyTorch's path). In f32
+    the two forwards' level-1 logits differ by the order of the norms'
+    sums, which the random network amplifies to a few 1e-4 of logits of
+    up to ~10 (seeds 0-2 of the weights read 2.5e-4 to 6.5e-4). In bf16
+    both sit at the format's noise over random weights, ~0.22 mean from
+    the f32 logits, so the kernels' forward must be as close to the f32
+    one as PyTorch's path is (seeds 0-2: mean error ratio 0.89-0.98,
+    argmax agreement 0.019 below PyTorch's path's to 0.044 above)."""
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (DALES_CFG,
+                                                         build_model)
+    from superpoint_transformer_torch.models.semantic import (
+        SemanticSegmentationModel)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.ops.graph_norm import graph_norm
+    host = _spt3_batch()
+    m = torch.from_numpy(host.levels[1].node_mask).to(cuda_device)
+    logits = {}
+    for compute_dtype in (None, 'bfloat16'):
+        model = SemanticSegmentationModel(build_model(
+            DALES_CFG, num_graphs=2, compute_dtype=compute_dtype,
+            device=cuda_device), 8, device=cuda_device)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model.eval()
+        batch = from_numpy(host, cuda_device, model.net.compute_dtype)
+        for grad in (False, True):
+            calls, fused = graph_norm.calls, graph_norm.fused
+            with torch.set_grad_enabled(grad):
+                z = model(batch)[0].detach().float()[m]
+            assert graph_norm.calls - calls == 30
+            assert graph_norm.fused - fused == (0 if grad else 30)
+            assert torch.isfinite(z).all()
+            logits[compute_dtype, grad] = z
+    f32 = logits[None, True]
+    torch.testing.assert_close(logits[None, False], f32, rtol=1e-3,
+                               atol=1e-3)
+    err = {grad: (logits['bfloat16', grad] - f32).abs().mean()
+           for grad in (False, True)}
+    agree = {grad: (logits['bfloat16', grad].argmax(1)
+                    == f32.argmax(1)).float().mean()
+             for grad in (False, True)}
+    assert err[False] <= 1.25 * err[True], err
+    assert agree[False] >= agree[True] - 0.02, agree
+
+
+@pytest.mark.cuda
+def test_flagship_step_keeps_the_plain_graph_norm(cuda_device):
+    """The training step runs every GraphNorm on the PyTorch path (20
+    a forward), and a serving forward runs all of them on the kernels."""
+    from superpoint_transformer_torch.data.padded import from_numpy
+    from superpoint_transformer_torch.experiment import (FLAGSHIP_CFG,
+                                                         build_task)
+    from superpoint_transformer_torch.nn.mlp import init_weights
+    from superpoint_transformer_torch.ops.graph_norm import graph_norm
+    from superpoint_transformer_torch.utils.synthetic import (
+        random_padded_nag)
+    host = random_padded_nag(seed=0, num_graphs=2, n_points=20_000,
+                             n_l1=1_200, n_l2=300)
+    task = build_task(FLAGSHIP_CFG, num_graphs=2, device=cuda_device)
+    init_weights(task.model, torch.Generator().manual_seed(0))
+    cd = task.model.net.compute_dtype
+    calls, fused = graph_norm.calls, graph_norm.fused
+    task.train_step(from_numpy(host, cuda_device, cd, train=True))
+    assert (graph_norm.calls - calls, graph_norm.fused - fused) == (20, 0)
+    task.model.eval()
+    with torch.inference_mode():
+        task.model(from_numpy(host, cuda_device, cd))
+    assert (graph_norm.calls - calls, graph_norm.fused - fused) == (40, 20)

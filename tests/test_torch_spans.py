@@ -32,8 +32,9 @@ from superpoint_transformer_torch.utils.synthetic import (
 STEP_SPANS = ('spt.batch', 'spt.loss', 'spt.forward', 'spt.hf',
               'spt.stage.first', 'spt.stage.down0', 'spt.stage.down1',
               'spt.stage.up0', 'spt.backward', 'spt.optim', 'spt.metrics',
-              'spt.gather')
-REQUEST_SPANS = ('spt.batch', 'spt.forward', 'spt.fetch', 'spt.gather')
+              'spt.gather', 'spt.norm')
+REQUEST_SPANS = ('spt.batch', 'spt.forward', 'spt.fetch', 'spt.gather',
+                 'spt.norm')
 STAGES = ('spt.hf', 'spt.stage.first', 'spt.stage.down0',
           'spt.stage.down1', 'spt.stage.up0')
 # the fast preprocessing settings of tests/test_inference.py
@@ -116,9 +117,10 @@ def test_spans_nest_as_the_layers(traced):
     assert _inside(fwd, [loss])
     for name in STAGES:
         assert all(_inside(s, [fwd]) for s in step[name]), name
-    # gathers run in the stages and in the backward
+    # gathers run in the stages and in the backward, norms in the forward
     assert any(_inside(g, step['spt.stage.down0'])
                for g in step['spt.gather'])
+    assert all(_inside(n, [fwd]) for n in step['spt.norm'])
     assert any(_inside(g, step['spt.backward']) for g in step['spt.gather'])
     for name in ('spt.batch', 'spt.backward', 'spt.metrics'):
         assert not any(_inside(s, [loss]) for s in step[name]), name
